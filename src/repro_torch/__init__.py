@@ -1,0 +1,25 @@
+"""``repro_torch`` — the IMBUE inference stack in PyTorch, with hand-written
+CUDA kernels for Hopper (``sm_90a``).
+
+This package is the port of ``repro`` (JAX + Pallas for the TPU), which
+stays beside it as the reference.  It mirrors ``repro``'s subpackage and
+module names so each counterpart is easy to find; it imports ``torch``
+and ``numpy`` only, never ``jax`` and nothing of ``repro``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(the tests do); with no ``device`` argument and no CUDA they raise.  On a
+CPU tensor a kernel wrapper computes with its plain PyTorch version; on a
+CUDA tensor it launches the kernel or raises.
+
+Ported so far (the plane-packed analog serving path):
+
+* ``kernels.bitpack`` / ``kernels.ops`` / ``kernels.imbue_infer`` — the
+  packed wire format and the ``imbue_infer_planes`` CUDA kernel;
+* ``core.tm`` / ``core.variations`` / ``core.mapping`` / ``core.imbue`` /
+  ``core.energy`` — the digital TM and the analog crossbar model;
+* ``api`` — ``ReplicaStackState``/``DigitalState``, the capability
+  registry and its backends;
+* ``serve`` — batcher, metrics, replica pool and the synchronous
+  ``ServeEngine``;
+* ``convert`` — carries programmed arrays across from the reference.
+"""

@@ -1,0 +1,148 @@
+"""IMBUE: the analog Boolean-to-Current crossbar in PyTorch (port of
+``repro.core.imbue``; paper §II).
+
+Pipeline: program TA actions into memristor resistances (include -> LRS,
+exclude -> HRS, D2D at program time); drive literals as read voltages
+(literal '0' -> ``v_read``, '1' -> 0 V, so only violations conduct); sum
+each 32-cell column's current (KCL); compare each column voltage with
+``v_ref`` (CSA, plus an optional per-column offset); AND the partial
+clauses.  This is the eager full-noise model — ``analog-torch`` — and
+the float32 reference the kernel path is held to.
+
+Noise follows the reference's key discipline with generators: one read
+splits its generator into a C2C stream and a CSA stream
+(``analog_clause_outputs_raw``), exactly as ``repro.core.imbue`` splits
+its key.  The replica axis ``R`` is written out as a leading tensor
+dimension where the reference uses ``vmap``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core import variations as var
+from repro_torch.core.mapping import CrossbarMapping, pad_to_columns
+from repro_torch.core.tm import TMConfig
+
+# Nominal single-cell read currents (Table I).
+I_INCLUDE_ON = var.V_READ / (var.SERIES_FACTOR * var.LRS_MEAN_OHM)   # ~75.7 uA
+I_EXCLUDE_ON = var.V_READ / (var.SERIES_FACTOR * var.HRS_MEAN_OHM)   # ~1.89 uA
+
+
+@dataclasses.dataclass(frozen=True)
+class IMBUEConfig:
+    """Electrical configuration of the crossbar (paper §II/III)."""
+
+    width: int = 32                 # W: TA cells per partial-clause column
+    r_divider: float = 100.0        # column divider resistance (Ω)
+    v_read: float = var.V_READ      # literal '0' drive voltage (V)
+    series_factor: float = var.SERIES_FACTOR
+    v_ref: Optional[float] = None   # None -> computed from width
+
+    def reference_voltage(self) -> float:
+        """Midway between the all-exclude leak band and one include
+        violation (the sensing margin of §II-B)."""
+        if self.v_ref is not None:
+            return self.v_ref
+        i_leak_band = self.width * I_EXCLUDE_ON
+        return self.r_divider * 0.5 * (i_leak_band + I_INCLUDE_ON)
+
+    def sensing_margin(self) -> float:
+        """Half-width of the [all-exclude, one-include] current band (V)."""
+        return self.r_divider * 0.5 * (I_INCLUDE_ON - self.width * I_EXCLUDE_ON)
+
+
+def conductances(r_mem: torch.Tensor, include: torch.Tensor, cfg: IMBUEConfig,
+                 generator: Optional[torch.Generator] = None,
+                 vcfg: var.VariationConfig = var.VariationConfig()):
+    """Per-cell on-path conductance and leak current for one read cycle,
+    ``[..., C, L]`` float32 each (same op order as the reference)."""
+    r = r_mem
+    if generator is not None:
+        r = var.apply_c2c(generator, r, include, vcfg)
+    g_on = 1.0 / (cfg.series_factor * r)
+    i_leak_nom = torch.where(include, var.I_LEAK_INCLUDE,
+                             var.I_LEAK_EXCLUDE).to(torch.float32)
+    r_nom = torch.where(include, var.LRS_MEAN_OHM,
+                        var.HRS_MEAN_OHM).to(torch.float32)
+    i_leak = i_leak_nom * (r_nom / r)
+    return g_on, i_leak
+
+
+def column_currents_raw(g_on: torch.Tensor, i_leak: torch.Tensor,
+                        lits: torch.Tensor, mapping: CrossbarMapping,
+                        cfg: IMBUEConfig) -> torch.Tensor:
+    """KCL column currents (A): ``[..., C, L]`` planes and ``[B, L]``
+    literals -> ``[..., B, C, columns_per_clause]``."""
+    lit0 = pad_to_columns((1 - lits.to(torch.float32)) * cfg.v_read, mapping)
+    lit1 = pad_to_columns(lits.to(torch.float32), mapping)
+    g_f = pad_to_columns(g_on, mapping)                    # [..., C, K, W]
+    leak_f = pad_to_columns(i_leak, mapping)
+    on = torch.einsum("bkw,...ckw->...bck", lit0, g_f)
+    leak = torch.einsum("bkw,...ckw->...bck", lit1, leak_f)
+    return on + leak
+
+
+def csa_sense(i_col: torch.Tensor, cfg: IMBUEConfig,
+              generator: Optional[torch.Generator] = None,
+              vcfg: var.VariationConfig = var.VariationConfig()
+              ) -> torch.Tensor:
+    """CSA compare: partial clause = 1 iff ``V_col < V_ref + offset``."""
+    v_col = i_col * cfg.r_divider
+    v_ref = cfg.reference_voltage()
+    if generator is None:
+        return (v_col < v_ref).to(torch.uint8)
+    off = var.csa_offset(generator, i_col.shape, vcfg, i_col.device)
+    return (v_col < v_ref + off).to(torch.uint8)
+
+
+def analog_clause_outputs_raw(
+    r_mem: torch.Tensor,              # [..., C, L] programmed resistance (Ω)
+    include: torch.Tensor,            # [C, L] bool
+    lits: torch.Tensor,               # [B, L]
+    mapping: CrossbarMapping,
+    cfg: IMBUEConfig,
+    generator: Optional[torch.Generator] = None,
+    vcfg: var.VariationConfig = var.VariationConfig(),
+) -> torch.Tensor:
+    """Clause outputs ``[..., B, C]`` uint8 from raw device arrays: one
+    read, its generator split into a C2C and a CSA stream."""
+    if generator is not None:
+        g_c2c, g_csa = var.split_generator(generator, 2)
+    else:
+        g_c2c = g_csa = None
+    g_on, i_leak = conductances(r_mem, include, cfg, g_c2c, vcfg)
+    i_col = column_currents_raw(g_on, i_leak, lits, mapping, cfg)
+    partial = csa_sense(i_col, cfg, g_csa, vcfg)             # [..., B, C, K]
+    return partial.amin(dim=-1)                               # AND over cols
+
+
+def program_replica_stack(include: torch.Tensor,
+                          generator: Optional[torch.Generator],
+                          n_replicas: int,
+                          vcfg: var.VariationConfig = var.VariationConfig()
+                          ) -> torch.Tensor:
+    """Program ``R`` independent chips: resistances ``[R, C, L]`` float32,
+    one D2D draw per chip."""
+    stack = include.expand(n_replicas, *include.shape)
+    return var.sample_device_resistance(generator, stack, vcfg)
+
+
+def stacked_clause_outputs(
+    r_stack: torch.Tensor,            # [R, C, L] per-replica resistance
+    include: torch.Tensor,            # [C, L] bool (shared TA actions)
+    lits: torch.Tensor,               # [B, L]
+    tm_cfg: TMConfig,
+    generator: Optional[torch.Generator] = None,
+    vcfg: var.VariationConfig = var.VariationConfig(),
+    cfg: IMBUEConfig = IMBUEConfig(),
+) -> torch.Tensor:
+    """Clause outputs ``[R, B, C]``: every replica reads the batch with its
+    own fresh C2C and CSA noise (the R axis is written out)."""
+    c, l = include.shape
+    mapping = CrossbarMapping(n_clauses=c, n_literals=l, width=cfg.width)
+    return analog_clause_outputs_raw(r_stack, include, lits, mapping, cfg,
+                                     generator, vcfg)

@@ -1,0 +1,143 @@
+"""Public wrappers around the port's kernels (port of the plane-packed
+half of ``repro.kernels.ops``).
+
+* ``polarity_matrix(cfg, include)``             -> [C, M] signed one-hot
+* ``pack_literals(lits)``                       -> [.., ceil(L/32)] int32
+* ``imbue_class_sums_planes(litw, idx, dev)``   -> [B, M] analog sums
+* ``imbue_class_sums_stack_planes(litw, ...)``  -> [R, B, M], one launch
+
+The plane-packed resident operand is the include-index bitplane plus an
+optional per-cell additive deviation plane (``dev = r - r_nom``).  C2C
+noise is drawn per read here, before the kernel, exactly as the
+reference draws it in jnp: the deviation plane becomes
+``apply_c2c(generator, r_nom + dev, include, vcfg) - r_nom``.  The CSA
+offset is not modelled (scalar reference); capability selection routes
+such reads to ``analog-torch``.
+
+No tile padding is needed: the CUDA kernel masks the ragged batch and
+clause edges itself, and the word padding past ``l_valid`` is masked by
+the kernel's validity test.  Entry points run on ``device`` (default
+``cuda``; ``None`` without CUDA raises).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core import variations as var
+from repro_torch.core.imbue import IMBUEConfig
+from repro_torch.core.tm import TMConfig, polarity
+from repro_torch.kernels import bitpack
+from repro_torch.kernels.imbue_infer import PlaneScalars, imbue_infer_planes
+
+
+def polarity_matrix(cfg: TMConfig, include: Optional[torch.Tensor] = None,
+                    device=None) -> torch.Tensor:
+    """Signed one-hot ``[C, M]`` int32: ``P[c, m] = polarity(c) *
+    [class(c) == m]``, rows of empty clauses zeroed when ``include`` is
+    given (the inference-time empty-clause mask, folded into the sum)."""
+    c = cfg.n_clauses
+    cls_of = torch.arange(c, device=device) // cfg.clauses_per_class
+    onehot = torch.nn.functional.one_hot(cls_of, cfg.n_classes)
+    p = (onehot * polarity(cfg, device)[:, None]).to(torch.int32)
+    if include is not None:
+        p = p * include.any(dim=-1)[:, None].to(torch.int32)
+    return p
+
+
+def pack_literals(lits: torch.Tensor) -> torch.Tensor:
+    """``[..., L]`` 0/1 literals -> ``[..., ceil(L/32)] int32`` words."""
+    return bitpack.pack_bits(lits)
+
+
+def _nonempty_from_packed(include_w: torch.Tensor) -> torch.Tensor:
+    """``[C, Lw]`` words -> ``[C]`` bool "clause has any include"."""
+    return (include_w != 0).any(dim=-1)
+
+
+def plane_scalars(icfg: IMBUEConfig, l_valid: int) -> PlaneScalars:
+    """The kernel's float32 scalars for one crossbar configuration."""
+    return PlaneScalars.make(
+        v_ref=icfg.reference_voltage(), r_div=icfg.r_divider,
+        v_read=icfg.v_read, r_lrs=var.LRS_MEAN_OHM, r_hrs=var.HRS_MEAN_OHM,
+        leak_inc=var.I_LEAK_INCLUDE, leak_exc=var.I_LEAK_EXCLUDE,
+        series_factor=icfg.series_factor, l_valid=l_valid)
+
+
+def c2c_deviation(generator: torch.Generator, plane_index: torch.Tensor,
+                  plane_dev: Optional[torch.Tensor], n_replicas: int,
+                  vcfg: var.VariationConfig, l_valid: int) -> torch.Tensor:
+    """One read's deviation plane ``[R, C, L]`` with a fresh C2C draw per
+    cell of every replica: ``apply_c2c(r_nom + dev) - r_nom``."""
+    include = bitpack.unpack_bits(plane_index, l_valid).to(torch.bool)
+    r_nom = torch.where(include, var.LRS_MEAN_OHM,
+                        var.HRS_MEAN_OHM).to(torch.float32)
+    r = r_nom if plane_dev is None else r_nom + plane_dev
+    r = r.expand(n_replicas, *include.shape)
+    return var.apply_c2c(generator, r, include, vcfg) - r_nom
+
+
+def imbue_class_sums_stack_planes(
+    litw: torch.Tensor,               # [B, ceil(L/32)] int32 literal words
+    plane_index: torch.Tensor,        # [C, ceil(L/32)] int32 (shared)
+    plane_dev: Optional[torch.Tensor],  # [R, C, L] f32 deviations, or None
+    icfg: IMBUEConfig,
+    cfg: TMConfig,
+    generator: Optional[torch.Generator] = None,
+    *,
+    vcfg: Optional[var.VariationConfig] = None,
+    l_valid: int,
+    n_replicas: int,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Plane-packed replica-stack inference -> ``[R, B, M]`` int32.
+
+    One kernel launch per call: R is a grid axis of the kernel.  A
+    nominal stack with no C2C read is ONE launch for a single replica,
+    expanded over R — replicas are identical by construction.  A C2C
+    read (``generator`` given and ``vcfg.c2c``) draws fresh noise for
+    every replica before the launch.
+    """
+    vcfg = vcfg or var.VariationConfig.nominal()
+    device = resolve_device(device)
+    litw = litw.to(device=device, dtype=torch.int32).contiguous()
+    plane_index = plane_index.to(device=device, dtype=torch.int32)
+    dev = None if plane_dev is None else plane_dev.to(device=device,
+                                                      dtype=torch.float32)
+    if dev is not None and dev.shape[0] != n_replicas:
+        raise ValueError(f"plane_dev has {dev.shape[0]} replicas, "
+                         f"expected {n_replicas}")
+    if generator is not None and vcfg.c2c:
+        dev = c2c_deviation(generator, plane_index, dev, n_replicas, vcfg,
+                            l_valid)
+    pol = polarity_matrix(cfg, device=device)
+    pol = pol * _nonempty_from_packed(plane_index)[:, None].to(torch.int32)
+    out = imbue_infer_planes(
+        litw, plane_index.contiguous(),
+        None if dev is None else dev.contiguous(), pol.contiguous(),
+        plane_scalars(icfg, l_valid))
+    if dev is None:
+        return out.expand(n_replicas, *out.shape[1:])
+    return out
+
+
+def imbue_class_sums_planes(
+    litw: torch.Tensor,               # [B, ceil(L/32)] int32 literal words
+    plane_index: torch.Tensor,        # [C, ceil(L/32)] int32 index plane
+    plane_dev: Optional[torch.Tensor],  # [C, L] f32 deviation, or None
+    icfg: IMBUEConfig,
+    cfg: TMConfig,
+    generator: Optional[torch.Generator] = None,
+    *,
+    vcfg: Optional[var.VariationConfig] = None,
+    l_valid: int,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Fused analog inference from ONE plane-packed chip -> ``[B, M]``."""
+    dev = None if plane_dev is None else plane_dev[None]
+    return imbue_class_sums_stack_planes(
+        litw, plane_index, dev, icfg, cfg, generator, vcfg=vcfg,
+        l_valid=l_valid, n_replicas=1, device=device)[0]

@@ -16,6 +16,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running e2e / Monte-Carlo tests "
                    "(deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one "
+                   "(run on the card with -m cuda)")
 
 
 @pytest.fixture(scope="session")

@@ -1,0 +1,55 @@
+"""CUDA-only checks of the port's kernels: each kernel against its plain
+PyTorch version on the card.  Marked ``cuda``; they skip (with a reason)
+on a machine without a CUDA device.  On the card:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.api.states import _deviation_plane  # noqa: E402
+from repro_torch.core import tm  # noqa: E402
+from repro_torch.core.imbue import (IMBUEConfig,  # noqa: E402
+                                    program_replica_stack)
+from repro_torch.core.variations import VariationConfig  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.imbue_infer import (  # noqa: E402
+    imbue_infer_planes, imbue_infer_planes_ref)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("f,b,r,with_dev", [
+    (37, 13, 3, True), (37, 1, 1, False), (64, 40, 2, True),
+    (300, 70, 4, True), (300, 33, 1, False)])
+def test_imbue_infer_planes_matches_plain_version(cuda, f, b, r, with_dev):
+    cfg = tm.TMConfig(n_classes=5, clauses_per_class=14, n_features=f)
+    rng = np.random.default_rng(f + b)
+    inc = torch.from_numpy(rng.random((cfg.n_clauses, cfg.n_literals))
+                           < 4.0 / cfg.n_literals).to(cuda)
+    dev = None
+    if with_dev:
+        gen = torch.Generator(device=cuda).manual_seed(b)
+        _, dev = _deviation_plane(
+            program_replica_stack(inc, gen, r, VariationConfig()), inc)
+    x = torch.from_numpy((rng.random((b, f)) < 0.5).astype(np.uint8))
+    litw = ops.pack_literals(tm.literals(x.to(cuda)))
+    args = (litw, ops.pack_literals(inc), dev,
+            ops.polarity_matrix(cfg, inc, device=cuda).contiguous(),
+            ops.plane_scalars(IMBUEConfig(), cfg.n_literals))
+    before = imbue_infer_planes.launches
+    got = imbue_infer_planes(*args)
+    torch.cuda.synchronize()
+    assert imbue_infer_planes.launches == before + 1
+    assert torch.equal(got, imbue_infer_planes_ref(*args))

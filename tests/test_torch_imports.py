@@ -1,0 +1,121 @@
+"""The port stands alone and never falls back to the host quietly.
+
+* An AST scan of ``src/repro_torch/**`` and ``chip_smoke.py`` finds no
+  import of ``jax`` or of the reference package ``repro``.
+* Entry points called with no ``device`` on a machine without CUDA raise
+  (CUDA is hidden with monkeypatch, so this holds on any machine).
+* ``chip_smoke.py`` exits non-zero and prints no result without CUDA, and
+  in a directory that holds nothing else of the repository.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import tm, variations  # noqa: E402
+from repro_torch.core.imbue import IMBUEConfig  # noqa: E402
+from repro_torch.kernels import bitpack, ops  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+CFG = tm.TMConfig(n_classes=2, clauses_per_class=4, n_features=5)
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_the_reference(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_scan_covers_the_port():
+    names = {p.name for p in PORT_FILES}
+    assert {"engine.py", "ops.py", "imbue_infer.py", "chip_smoke.py"} <= names
+    assert list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
+                .glob("*.cu"))
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_pool_args():
+    rng = np.random.default_rng(0)
+    inc = rng.random((CFG.n_clauses, CFG.n_literals)) < 0.3
+    r = np.where(inc, variations.LRS_MEAN_OHM,
+                 variations.HRS_MEAN_OHM)[None].astype(np.float32)
+    return r, inc
+
+
+def test_entry_points_raise_without_device_and_cuda(no_cuda):
+    r, inc = _tiny_pool_args()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.pool_from_numpy(r, inc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.ta_from_numpy(np.ones(inc.shape, np.int16), CFG)
+    pool = convert.pool_from_numpy(
+        r, inc, vcfg=variations.VariationConfig.nominal(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.ServeEngine(pool, CFG)
+    ta = torch.ones(inc.shape, dtype=torch.int16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.ServeEngine.from_ta_state(ta, CFG)
+    litw = bitpack.pack_bits(torch.ones(3, CFG.n_literals, dtype=torch.uint8))
+    idx = bitpack.pack_bits(torch.from_numpy(inc))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.imbue_class_sums_planes(litw, idx, None, IMBUEConfig(), CFG,
+                                    l_valid=CFG.n_literals)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.imbue_class_sums_stack_planes(litw, idx, None, IMBUEConfig(),
+                                          CFG, l_valid=CFG.n_literals,
+                                          n_replicas=2)
+    # With device="cpu" the same calls run on the plain versions.
+    out = ops.imbue_class_sums_stack_planes(
+        litw, idx, None, IMBUEConfig(), CFG, l_valid=CFG.n_literals,
+        n_replicas=2, device="cpu")
+    assert out.shape == (2, 3, CFG.n_classes)
+    eng = engine.ServeEngine(pool, CFG, device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def _run_smoke(cwd: Path):
+    env = dict(os.environ, PYTHONPATH="", CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_cuda_and_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    here = _run_smoke(ROOT)
+    assert here.returncode != 0
+    assert '"ok": true' not in here.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    alone = _run_smoke(tmp_path)
+    assert alone.returncode != 0
+    assert '"ok": true' not in alone.stdout
