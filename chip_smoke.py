@@ -3,33 +3,63 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-Phases, each printing one JSON line (any failure raises, so the exit
-code is non-zero and no result line is printed):
+It drives two paths: the plane-packed analog path (``ServeEngine.
+from_ta_state`` -> ``analog-cuda-packed2`` -> ``imbue_infer_planes``) and
+the coalesced path (``ServeEngine.from_coalesced`` ->
+``coalesced-cuda-packed2`` -> ``tm_infer_planes``, with its lower tiers
+on ``tm_infer_packed`` and ``tm_infer``), plus the digital fused tier
+through ``api.class_sums``.
 
-1. environment — the card's name and power limit (``nvidia-smi``), the
-   torch and CUDA versions, and the kernel build (``nvcc``, sm_90a);
-2. kernels — every kernel of the path against its plain PyTorch version
-   on the card, at the imbue-tm-mnist width (R in {1, 4}, B in
-   {8, 64, 128}, with and without the deviation plane) and one ragged
-   small shape; class sums must be equal (tolerance 0);
-3. serving — ``ServeEngine.from_ta_state`` at imbue-tm-mnist with R = 4
-   serves 512 requests in ``round_robin`` and in ``ensemble`` through
-   ``analog-cuda-packed2``, first with D2D + C2C (no CSA offset), then at
-   nominal, where every response must equal the digital TM; the launch
-   counters are zeroed before this phase and must show one launch per
-   dispatch;
-4. timing — the kernel's median time (CUDA events, cold L2) at R = 4,
-   B in {8, 64, 128}, with and without the deviation plane, beside its
-   bound, the plain version's time and the C2C pre-pass's time.
+Phases, each printing JSON lines (any failure raises, so the exit code
+is non-zero and no result line is printed):
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  The TA state is built with numpy from
-a seed, without training: each clause includes 8-16 literals that are 1
+1. environment — the card's name, power limit and max SM clock
+   (``nvidia-smi``), the torch and CUDA versions, and the build of every
+   kernel (``nvcc``, sm_90a, one process per source, all started
+   together);
+2. kernels — every kernel against its plain PyTorch version on the card,
+   tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
+   {1, 4}, B in {8, 64, 128}, with and without the deviation plane) and
+   one ragged small shape; the three TM kernels at the digital width
+   (imbue-tm-mnist, C = 2000) and the coalesced width (C = 1000),
+   B in {8, 64, 128}, and one ragged shape (C not a multiple of the
+   clause tile, L not a multiple of 32, B odd, an empty clause); guards
+   on the share of non-zero sums and of fired clauses;
+3. serving — (a) ``ServeEngine.from_ta_state`` at imbue-tm-mnist with
+   R = 4 serves 512 requests in ``round_robin`` and in ``ensemble``
+   through ``analog-cuda-packed2``, first with D2D + C2C (no CSA
+   offset), then at nominal, where every response must equal the digital
+   TM; (b) ``ServeEngine.from_coalesced`` at 10 classes x 1000 clauses x
+   784 features serves 512 requests on each tier
+   (``coalesced-cuda-packed2``, ``-packed``, ``coalesced-cuda``) in
+   ``round_robin``, and on the default tier in ``ensemble``; every
+   response must equal ``core.coalesced.forward``; then
+   ``digital-cuda-packed`` and ``digital-cuda`` must equal
+   ``digital-torch`` at imbue-tm-mnist.  Each path's launch counters are
+   zeroed just before it and read just after: one launch per dispatch,
+   0 fallbacks;
+4. timing — each kernel's median device time (CUDA events, L2 flushed,
+   the host's enqueue hidden behind a spin kernel) beside
+   its bound, what sets the bound, and the plain version's time:
+   ``imbue_infer_planes`` at R = 4, B in {8, 64, 128}, with and without
+   the deviation plane (and the C2C pre-pass); the TM kernels at
+   B in {8, 64, 128} at the coalesced and the digital width (and, for
+   ``tm_infer``, ``torch.matmul`` of its violation product alone as that
+   product's yardstick); the host time of one backend call per
+   coalesced tier.
+
+Then the launches of each path (analog, coalesced, digital), the
+``{"kernels": [...]}`` line (each kernel's launches on its main path:
+analog for ``imbue_infer_planes``, coalesced for the TM kernels), the
+``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.  Models are built with numpy from a
+seed, without training: each clause includes 8-16 literals that are 1
 on a class prototype; requests are prototypes with 8 % of bits flipped.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -47,27 +77,75 @@ N_REQUESTS = 512
 FLIP = 0.08
 MODEL = "imbue-tm-mnist"
 REPLICAS = 4
+# The coalesced serving width.  The repo's capacity rule gives a coalesced
+# pool "ONE shared pool with HALF the clause rows" of the per-class TM it
+# stands for (benchmarks/serve_bench.py, make_capacity_models); at
+# imbue-tm-mnist (10 classes x 200 clauses, 784 features) that is 1000
+# clauses.
+COALESCED = dict(n_classes=10, n_clauses=1000, n_features=784,
+                 n_states=127)
+BATCHES = (8, 64, 128)
+SPIN_CYCLES = 2_000_000        # the timing spin kernel: ~1 ms at 1.98 GHz
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+FP32_FLOP_PER_S = 67e12        # outside the tensor cores
+INT8_OP_PER_S = 1979e12        # dense, tensor cores, int32 accumulation
+# POPC rate on compute capability 9.0, per clock per SM (the arithmetic
+# instruction throughput table of NVIDIA's CUDA C++ documentation).
+POPC_PER_CLOCK_PER_SM = 16
 KERNELS = {
     "imbue_infer_planes": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/imbue_infer_planes.cu",
         "replaces": "src/repro/kernels/imbue_infer.py:111",
     },
+    "tm_infer_planes": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tm_infer_planes.cu",
+        "replaces": "src/repro/kernels/clause_eval.py:146",
+    },
+    "tm_infer_packed": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tm_infer_packed.cu",
+        "replaces": "src/repro/kernels/clause_eval.py:121",
+    },
+    "tm_infer": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tm_infer.cu",
+        "replaces": "src/repro/kernels/clause_eval.py:65",
+    },
 }
+TM_KERNELS = ("tm_infer_planes", "tm_infer_packed", "tm_infer")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi(query: str, *fmt: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
+        ["nvidia-smi", f"--query-gpu={query}",
+         "--format=" + ",".join(("csv", "noheader", *fmt))], check=True,
+        capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def nvidia_smi_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+@functools.lru_cache(maxsize=None)
+def popc_per_s() -> float:
+    """The card's POPC rate: 16 per clock per SM x its SMs x its max SM
+    clock (``nvidia-smi``)."""
+    sm_mhz = float(nvidia_smi("clocks.max.sm", "nounits"))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return POPC_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6
+
+
+def tm_kernel(name):
+    from repro_torch.kernels import clause_eval
+    return getattr(clause_eval, name), getattr(clause_eval, f"{name}_ref")
 
 
 # ------------------------------------------------------------------ data
@@ -96,6 +174,74 @@ def prototype_task(cfg, n, seed, flip=FLIP):
     y = rng.integers(0, m_cls, n)
     x = protos[y] ^ (rng.random((n, f)) < flip).astype(np.uint8)
     return ta, x.astype(np.uint8), y
+
+
+def coalesced_task(ccfg, n, seed, flip=FLIP):
+    """A coalesced model and ``n`` labelled requests.  Clause ``c`` has
+    class ``c % M`` and includes 8-16 literals that are 1 on that class's
+    prototype; its weights are integers in [-127, 127], 64-127 for its
+    own class and -127..31 for the others, so predictions are not noise."""
+    rng = np.random.default_rng(seed)
+    m_cls, f, c_n = ccfg.n_classes, ccfg.n_features, ccfg.n_clauses
+    protos = (rng.random((m_cls, f)) < 0.5).astype(np.uint8)
+    proto_lits = np.concatenate([protos, 1 - protos], axis=1)
+    own = np.arange(c_n) % m_cls
+    include = np.zeros((c_n, ccfg.n_literals), bool)
+    for c in range(c_n):
+        ones = np.flatnonzero(proto_lits[own[c]])
+        k = int(rng.integers(8, 17))
+        include[c, rng.choice(ones, size=min(k, ones.size),
+                              replace=False)] = True
+    n_st = ccfg.n_states
+    ta = np.where(include, rng.integers(n_st + 1, 2 * n_st + 1,
+                                        include.shape),
+                  rng.integers(1, n_st + 1, include.shape)).astype(np.int16)
+    w = rng.integers(-127, 32, (c_n, m_cls))
+    w[np.arange(c_n), own] = rng.integers(64, 128, c_n)
+    y = rng.integers(0, m_cls, n)
+    x = protos[y] ^ (rng.random((n, f)) < flip).astype(np.uint8)
+    return ta, w.astype(np.int32), x.astype(np.uint8), y
+
+
+def coalesced_config():
+    from repro_torch.core.coalesced import CoalescedConfig
+    return CoalescedConfig(**COALESCED)
+
+
+def tm_case(include, x, comb, device):
+    """Operands of the three TM kernels for one shape: ``{"packed":
+    (litw, incw, comb), "dense": (lits, include, comb)}``, plus the share
+    of (row, clause) pairs that fire."""
+    from repro_torch.core import tm
+    from repro_torch.kernels import ops
+    lits = tm.literals(torch.from_numpy(x).to(device)).contiguous()
+    include = include.to(device).contiguous()
+    comb = comb.to(device).contiguous()
+    fired = tm.clause_outputs_from_include(include, lits)
+    return ({"packed": (ops.pack_literals(lits), ops.pack_literals(include),
+                        comb),
+             "dense": (lits, include, comb)},
+            float(fired.float().mean()))
+
+
+def tm_widths(device, n=128, seed=SEED):
+    """The TM kernels' main-path widths: ``(label, include, comb, x)`` at
+    the digital width (imbue-tm-mnist, polarity) and the coalesced width
+    (weights), both combine matrices with empty clauses zeroed."""
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import tm
+    from repro_torch.kernels import ops
+    cfg = tm_config(MODEL)
+    ta, x, _ = prototype_task(cfg, n, seed)
+    inc = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
+    out = [("digital", inc, ops.polarity_matrix(cfg, inc, device=device), x)]
+    ccfg = coalesced_config()
+    cta, w, cx, _ = coalesced_task(ccfg, n, seed + 1)
+    cinc = torch.from_numpy(cta > ccfg.n_states).to(device)
+    out.append(("coalesced", cinc,
+                ops.coalesced_combine(torch.from_numpy(w).to(device),
+                                      cinc.any(dim=-1)), cx))
+    return out
 
 
 def planes_case(cfg, ta, x, n_replicas, with_dev, seed, device):
@@ -136,11 +282,30 @@ def operand_bytes_and_ops(litw, incw, dev, pol, scal):
     return nbytes, ops
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, work):
+    """The larger of the bytes' time and the operations' time; ``work`` is
+    ``[(ops, ops_per_s), ...]``, one term per operand type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOP_PER_S * 1e3
+    t_ops = sum(ops / rate for ops, rate in work) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def tm_bytes_and_work(name, args):
+    """Bytes each input is read once and the output written once, and the
+    operations this input needs with the rate of their type: B*C*Lw word
+    steps (LOP3 + POPC + IADD, bound by POPC) for the packed kernels; for
+    ``tm_infer`` 2*B*C*L operations of the violation product, whose
+    operands are 0/1 bytes, at the card's int8 rate, and 2*B*C*M of the
+    int32 combine at the 32-bit rate outside the tensor cores."""
+    a, inc, comb = args
+    (b, k), (c, m) = a.shape, comb.shape
+    nbytes = (a.numel() * a.element_size() + inc.numel() * inc.element_size()
+              + comb.numel() * 4 + b * m * 4)
+    if name == "tm_infer":
+        return nbytes, [(2 * b * c * k, INT8_OP_PER_S),
+                        (2 * b * c * m, FP32_FLOP_PER_S)]
+    return nbytes, [(b * c * k, popc_per_s())]
 
 
 # ---------------------------------------------------------------- phases
@@ -157,6 +322,10 @@ def phase_environment():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability(0)),
+          "sm_count": torch.cuda.get_device_properties(0)
+          .multi_processor_count,
+          "max_sm_clock_mhz": nvidia_smi("clocks.max.sm", "nounits"),
+          "popc_per_s": popc_per_s(),
           "build_s": time.perf_counter() - t0, "build_s_per_kernel": secs,
           "ptxas": ptxas})
     return smi
@@ -195,7 +364,46 @@ def phase_kernels(device):
         if nonzero < 0.05:
             raise AssertionError(f"parity of (mostly) zeros: {rows[-1]}")
         max_err = max(max_err, err)
-    emit({"phase": "kernels", "kernels": list(KERNELS), "tolerance": 0,
+    emit({"phase": "kernels", "kernels": ["imbue_infer_planes"],
+          "tolerance": 0, "cases": rows})
+    return {"imbue_infer_planes": max_err}
+
+
+def phase_tm_kernels(device):
+    """The three TM kernels against their plain versions, tolerance 0."""
+    from repro_torch.core.coalesced import CoalescedConfig
+    from repro_torch.kernels import ops
+    cases = [(label, inc, comb, x[:b]) for label, inc, comb, x
+             in tm_widths(device) for b in BATCHES]
+    ragged = CoalescedConfig(n_classes=3, n_clauses=101, n_features=37,
+                             n_states=100)                 # C=101, L=74
+    rta, rw, rx, _ = coalesced_task(ragged, 13, SEED + 2)   # B=13
+    rinc = torch.from_numpy(rta > ragged.n_states)
+    rinc[50] = False                                        # empty clause
+    cases.append(("ragged", rinc, ops.coalesced_combine(
+        torch.from_numpy(rw), rinc.any(dim=-1)), rx))
+    rows, max_err = [], dict.fromkeys(TM_KERNELS, 0)
+    for label, inc, comb, x in cases:
+        args, fired = tm_case(inc, x, comb, device)
+        for name in TM_KERNELS:
+            fn, ref = tm_kernel(name)
+            a = args["dense" if name == "tm_infer" else "packed"]
+            got, want = fn(*a), ref(*a)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            nonzero = float((want != 0).float().mean())
+            rows.append({"kernel": name, "width": label,
+                         "C": int(inc.shape[0]), "L": int(inc.shape[1]),
+                         "B": int(x.shape[0]), "max_abs_err": err,
+                         "nonzero_frac": nonzero, "fired_frac": fired})
+            if err != 0 or not torch.equal(got, want):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {rows[-1]}")
+            if nonzero < 0.05 or fired < 0.01:
+                raise AssertionError(f"parity of (mostly) zeros or of "
+                                     f"unfired clauses: {rows[-1]}")
+            max_err[name] = max(max_err[name], err)
+    emit({"phase": "kernels", "kernels": list(TM_KERNELS), "tolerance": 0,
           "cases": rows})
     return max_err
 
@@ -261,13 +469,139 @@ def phase_serving(device):
     return {"imbue_infer_planes": imbue_infer_planes.launches}
 
 
+def coalesced_round(ccfg, ta, w, x, y, ecfg_kw, backend, kernel, device):
+    """Serve ``x`` through one coalesced engine; every response must equal
+    ``core.coalesced.forward``, with 0 fallbacks and one launch of the
+    tier's kernel per dispatch."""
+    from repro_torch.core import coalesced as co
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    fn, _ = tm_kernel(kernel)
+    eng = ServeEngine.from_coalesced(
+        torch.from_numpy(ta), torch.from_numpy(w), ccfg,
+        ecfg=EngineConfig(**ecfg_kw), device=device)
+    if eng.backend.name != backend or eng.selection.fell_back:
+        raise AssertionError(f"coalesced round not on {backend}: "
+                             f"{eng.backend.name} {eng.selection}")
+    launches0 = fn.launches
+    t0 = time.perf_counter()
+    eng.submit_many(list(x))
+    eng.pump()
+    out = eng.drain()
+    wall = time.perf_counter() - t0
+    s = eng.summary()
+    launches = fn.launches - launches0
+    if len(out) != len(x) or s["fallback_dispatches"] != 0:
+        raise AssertionError(f"served {len(out)} of {len(x)}, "
+                             f"{s['fallback_dispatches']} fallbacks")
+    if launches != s["batches"]:
+        raise AssertionError(f"{launches} {kernel} launches for "
+                             f"{s['batches']} dispatches")
+    sums = np.stack([r.class_sums for r in out])
+    want = co.forward(torch.from_numpy(ta).to(device),
+                      torch.from_numpy(w).to(device),
+                      torch.from_numpy(x).to(device), ccfg).cpu().numpy()
+    if not np.array_equal(sums, want):
+        raise AssertionError(f"{backend}: class sums differ from "
+                             "core.coalesced.forward")
+    preds = np.array([r.pred for r in out])
+    emit({"phase": "serving", "path": "coalesced", "ecfg": ecfg_kw,
+          "routing": eng.ecfg.routing, "backend": eng.backend.name,
+          "kernel": kernel, "requests": len(out),
+          "dispatches": s["batches"], "launches": launches,
+          "equals_forward": True,
+          "accuracy": float((preds == y).mean()),
+          "nonzero_frac": float((sums != 0).mean()),
+          "requests_per_s": len(out) / wall, "wall_s": wall,
+          "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"],
+          "resident_nbytes_slice": s["resident_nbytes_slice"]})
+
+
+def digital_round(cfg, ta, x, backend, kernel, device, batch=128):
+    """``api.class_sums`` on ``backend`` in batches of ``batch`` must equal
+    ``digital-torch``, one launch per call."""
+    from repro_torch import api
+    from repro_torch.core import tm
+    fn, _ = tm_kernel(kernel)
+    state = api.DigitalState.from_ta(torch.from_numpy(ta).to(device), cfg)
+    if backend.endswith("packed"):
+        state = state.pack()
+    if api.select_backend(state, prefer=backend).fell_back:
+        raise AssertionError(f"{backend} does not serve the digital state")
+    launches0, calls, nonzero = fn.launches, 0, 0
+    for i in range(0, len(x), batch):
+        lits = tm.literals(torch.from_numpy(x[i:i + batch]).to(device))
+        got = api.class_sums(state, lits, backend=backend)
+        want = api.class_sums(state, lits, backend="digital-torch")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{backend} differs from digital-torch")
+        calls += 1
+        nonzero += int((want != 0).sum())
+    launches = fn.launches - launches0
+    if launches != calls:
+        raise AssertionError(f"{launches} {kernel} launches for {calls} "
+                             "calls")
+    emit({"phase": "serving", "path": "digital", "backend": backend,
+          "kernel": kernel, "requests": len(x), "calls": calls,
+          "launches": launches, "equals_digital_torch": True,
+          "nonzero_frac": nonzero / (len(x) * cfg.n_classes)})
+
+
+def path_launches(drive, kernels):
+    """Zero the counters of ``kernels`` just before ``drive()`` and read
+    them just after: the launches of that path alone.  Fails if one of
+    them was not launched."""
+    fns = {name: tm_kernel(name)[0] for name in kernels}
+    for fn in fns.values():
+        fn.launches = 0
+    drive()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    for name, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"{name} was not launched on its path")
+    return counts
+
+
+def phase_coalesced_serving(device):
+    """The coalesced path on each tier; returns its launches per kernel."""
+    ccfg = coalesced_config()
+    ta, w, x, y = coalesced_task(ccfg, N_REQUESTS, SEED + 200)
+
+    def drive():
+        for ecfg_kw, backend, kernel in (
+                ({}, "coalesced-cuda-packed2", "tm_infer_planes"),
+                ({"pack_planes": False}, "coalesced-cuda-packed",
+                 "tm_infer_packed"),
+                ({"packed": False}, "coalesced-cuda", "tm_infer"),
+                ({"routing": "ensemble"}, "coalesced-cuda-packed2",
+                 "tm_infer_planes")):
+            coalesced_round(ccfg, ta, w, x, y, ecfg_kw, backend, kernel,
+                            device)
+    return path_launches(drive, TM_KERNELS)
+
+
+def phase_digital_fused(device):
+    """The digital fused tier; returns its launches per kernel."""
+    from repro_torch.configs.imbue_tm import tm_config
+    cfg = tm_config(MODEL)
+    ta, x, _ = prototype_task(cfg, N_REQUESTS, SEED + 300)
+
+    def drive():
+        digital_round(cfg, ta, x, "digital-cuda-packed", "tm_infer_packed",
+                      device)
+        digital_round(cfg, ta, x, "digital-cuda", "tm_infer", device)
+    return path_launches(drive, ("tm_infer_packed", "tm_infer"))
+
+
 def time_ms(fn, reps, flush):
-    """Median ms of ``fn`` over ``reps`` runs, CUDA events around each,
-    with L2 flushed before every run."""
+    """Median device ms of ``fn`` over ``reps`` runs, CUDA events around
+    each.  Before every run L2 is flushed and the card is held busy by a
+    spin kernel (about 1 ms) while the host enqueues ``fn``, so the events
+    time the device work alone, not the host's launch gaps."""
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -297,7 +631,7 @@ def phase_timing(device):
             ms = time_ms(lambda: imbue_infer_planes(*args), 20, flush)
             plain = time_ms(lambda: imbue_infer_planes_ref(*args), 3, flush)
             nbytes, nops = operand_bytes_and_ops(*args)
-            bms, by = bound_ms(nbytes, nops)
+            bms, by = bound_ms(nbytes, [(nops, FP32_FLOP_PER_S)])
             row = {"R": REPLICAS if with_dev else 1, "B": b,
                    "dev": with_dev, "ms": ms, "plain_ms": plain,
                    "bound_ms": bms, "bound_by": by, "bytes": nbytes,
@@ -311,7 +645,77 @@ def phase_timing(device):
                     10, flush)
             rows.append(row)
     emit({"phase": "timing", "kernel": "imbue_infer_planes",
-          "clock": "cuda events, median, L2 flushed", "rows": rows})
+          "clock": "cuda events, median, L2 flushed, host enqueue "
+                   "hidden behind a spin kernel", "rows": rows})
+    return rows
+
+
+def phase_tm_timing(device):
+    from repro_torch import api
+    from repro_torch.core import tm
+    from repro_torch.kernels import ops
+    flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
+                        device=device)
+    rows = []
+    for label, inc, comb, x in tm_widths(device):
+        for b in BATCHES:
+            args, _ = tm_case(inc, x[:b], comb, device)
+            for name in TM_KERNELS:
+                fn, ref = tm_kernel(name)
+                a = args["dense" if name == "tm_infer" else "packed"]
+                ms = time_ms(lambda: fn(*a), 20, flush)
+                plain = time_ms(lambda: ref(*a), 5, flush)
+                nbytes, work = tm_bytes_and_work(name, a)
+                bms, by = bound_ms(nbytes, work)
+                row = {"kernel": name, "width": label,
+                       "C": int(inc.shape[0]), "L": int(inc.shape[1]),
+                       "B": b, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                       "bound_by": by, "bytes": nbytes,
+                       "ops": [ops for ops, _ in work],
+                       "ops_per_s": [rate for _, rate in work],
+                       "bound_share": bms / ms}
+                if name == "tm_infer":
+                    lit0 = 1.0 - a[0].float()
+                    inc_f = a[1].float()
+                    row["violation_matmul_ms"] = time_ms(
+                        lambda: torch.matmul(lit0, inc_f.T), 20, flush)
+                    # Design note, not the bound: the same operations at
+                    # the fp32 rate the kernel's FFMA loop runs at.
+                    row["fp32_ffma_ms"] = (sum(ops for ops, _ in work)
+                                           / FP32_FLOP_PER_S * 1e3)
+                rows.append(row)
+    emit({"phase": "timing", "kernels": list(TM_KERNELS),
+          "clock": "cuda events, median, L2 flushed, host enqueue "
+                   "hidden behind a spin kernel",
+          "bound": "max(bytes / 3.35 TB/s, sum of ops / rate); packed: "
+                   "B*C*Lw word steps at the POPC rate; tm_infer: the "
+                   "violation product at 1979 TOP/s (int8), the combine "
+                   "at 67 T/s (32-bit)", "rows": rows})
+    # Host time of one backend call per coalesced tier at B = 128 (what a
+    # dispatch costs once launch and host overhead are counted).
+    ccfg = coalesced_config()
+    ta, w, x, _ = coalesced_task(ccfg, 128, SEED + 1)
+    base = api.CoalescedState(ta_state=torch.from_numpy(ta).to(device),
+                              weights=torch.from_numpy(w).to(device),
+                              cfg=ccfg)
+    lits = tm.literals(torch.from_numpy(x).to(device))
+    calls = []
+    for backend, st, l_in in (
+            ("coalesced-cuda-packed2", base.pack_planes(),
+             ops.pack_literals(lits)),
+            ("coalesced-cuda-packed", base.pack(), ops.pack_literals(lits)),
+            ("coalesced-cuda", base, lits)):
+        fn = api.get_backend(backend).fn
+        fn(st, l_in)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn(st, l_in)
+        torch.cuda.synchronize()
+        calls.append({"backend": backend, "B": 128,
+                      "host_ms_per_call": (time.perf_counter() - t0) * 10})
+    emit({"phase": "timing", "backend_calls": calls,
+          "clock": "host perf_counter over 100 calls, synchronised"})
     return rows
 
 
@@ -325,14 +729,30 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = phase_environment()
     max_err = phase_kernels(device)
-    launches = phase_serving(device)
-    rows = phase_timing(device)
-    main_row = next(r for r in rows if r["dev"] and r["B"] == 128)
+    max_err.update(phase_tm_kernels(device))
+    by_path = {"analog": phase_serving(device),
+               "coalesced": phase_coalesced_serving(device),
+               "digital": phase_digital_fused(device)}
+    if by_path["analog"]["imbue_infer_planes"] == 0:
+        raise AssertionError("imbue_infer_planes was not launched on its "
+                             "path")
+    emit({"phase": "launches", "by_path": by_path})
+    # The kernels line counts each kernel on its main path: the analog
+    # path for imbue_infer_planes, the coalesced path for the TM kernels.
+    launches = {**by_path["analog"], **by_path["coalesced"]}
+    main_rows = {"imbue_infer_planes": next(
+        r for r in phase_timing(device) if r["dev"] and r["B"] == 128)}
+    for r in phase_tm_timing(device):
+        if r["width"] == "coalesced" and r["B"] == 128:
+            main_rows[r["kernel"]] = r
+    # No single PyTorch call computes thresholded class sums, so no
+    # kernel has a library yardstick.
     emit({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
-        max_abs_err=max_err, ms=main_row["ms"],
-        plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
-        bound_by=main_row["bound_by"], library_ms=None)
+        max_abs_err=max_err[name], ms=main_rows[name]["ms"],
+        plain_ms=main_rows[name]["plain_ms"],
+        bound_ms=main_rows[name]["bound_ms"],
+        bound_by=main_rows[name]["bound_by"], library_ms=None)
         for name in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

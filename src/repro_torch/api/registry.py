@@ -18,7 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, FrozenSet, List, Optional, Tuple, Type
 
-from repro_torch.api.states import DigitalState, ReplicaStackState
+from repro_torch.api.states import (CoalescedState, DigitalState,
+                                     ReplicaStackState)
 
 CAP_DIGITAL = "digital"                     # Boolean-domain evaluation
 CAP_ANALOG = "analog"                       # current-domain crossbar model
@@ -26,12 +27,13 @@ CAP_FUSED_KERNEL = "fused_kernel"           # one hand-written kernel launch
 CAP_MODELS_C2C = "models_c2c"               # cycle-to-cycle R excursions
 CAP_MODELS_CSA_OFFSET = "models_csa_offset"  # per-column CSA input offset
 CAP_REPLICA_VMAP = "supports_replica_vmap"  # [R, C, L] in one dispatch
+CAP_COALESCED = "coalesced_weights"         # weighted digital tail
 CAP_PACKED_IO = "packed_io"                 # int32 bitplane literal wire
 CAP_PACKED_PLANES = "packed_planes"         # resident index+dev plane format
 
 KNOWN_CAPABILITIES = frozenset({
     CAP_DIGITAL, CAP_ANALOG, CAP_FUSED_KERNEL, CAP_MODELS_C2C,
-    CAP_MODELS_CSA_OFFSET, CAP_REPLICA_VMAP, CAP_PACKED_IO,
+    CAP_MODELS_CSA_OFFSET, CAP_REPLICA_VMAP, CAP_COALESCED, CAP_PACKED_IO,
     CAP_PACKED_PLANES,
 })
 
@@ -114,7 +116,8 @@ def required_capabilities(state, generator=None) -> FrozenSet[str]:
     A replica stack needs single-dispatch replica support; a noisy read
     against a ``VariationConfig`` with ``csa_offset`` needs a backend that
     models the per-column CSA offset — the kernel thresholds against one
-    scalar reference and does NOT — and one with ``c2c`` needs C2C.
+    scalar reference and does NOT — and one with ``c2c`` needs C2C.  A
+    coalesced pool needs the weighted digital tail.
     """
     noisy = generator is not None
     need = set()
@@ -127,6 +130,8 @@ def required_capabilities(state, generator=None) -> FrozenSet[str]:
             need.add(CAP_MODELS_C2C)
     if isinstance(state, DigitalState):
         need.add(CAP_DIGITAL)
+    if isinstance(state, CoalescedState):
+        need.update((CAP_DIGITAL, CAP_COALESCED))
     return frozenset(need)
 
 

@@ -7,7 +7,9 @@ frozen (hashable) dataclasses:
 * ``DigitalState``      — the Boolean-domain TM (``include [C, L]``);
 * ``ReplicaStackState`` — R independently programmed chips
   (``r_stack [R, C, L]`` Ω) sharing one set of TA actions: the serving
-  hot path.
+  hot path;
+* ``CoalescedState``    — a shared clause pool with per-class integer
+  weights (``ta_state [C, L]``, ``weights [C, M]``).
 
 ``pack()`` attaches the int32 include bitplane ``[C, ceil(L/32)]``;
 ``pack_planes()`` folds the programmed stack into the plane-packed
@@ -18,8 +20,10 @@ include-index bitplane (``plane_index``, the same words as
 every cell sits at its class-nominal resistance.  Off nominal, packing
 quantizes each resistance to its own reconstruction so that
 ``r == r_nom + plane_dev`` holds bitwise, exactly as the reference does.
+A coalesced pool is digital: its ``plane_index`` is the packed include
+plane itself, with no deviation plane.
 
-``CrossbarState`` and ``CoalescedState`` come with later slices.
+``CrossbarState`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import variations as var
+from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.mapping import CrossbarMapping
 from repro_torch.core.tm import TMConfig, include_mask
@@ -90,6 +95,10 @@ class DigitalState(_PackedMixin):
         return cls(include=include_mask(ta_state, tm_cfg),
                    ta_state=ta_state, tm_cfg=tm_cfg)
 
+    @property
+    def device(self) -> torch.device:
+        return self.include.device
+
 
 @dataclasses.dataclass(frozen=True)
 class ReplicaStackState(_PackedMixin):
@@ -135,3 +144,46 @@ class ReplicaStackState(_PackedMixin):
         pd = None if self.plane_dev is None else self.plane_dev[i:i + 1]
         return dataclasses.replace(self, r_stack=self.r_stack[i:i + 1],
                                    plane_dev=pd)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoalescedState(_PackedMixin):
+    """Shared clause pool + per-class integer weights (coalesced TM)."""
+
+    ta_state: torch.Tensor                   # [C, L] int TA states
+    weights: torch.Tensor                    # [C, M] int per-class weights
+    cfg: CoalescedConfig
+    include_packed: Optional[torch.Tensor] = None   # [C, L/32] int32 words
+    plane_index: Optional[torch.Tensor] = None      # [C, L/32] int32 words
+
+    def pack_planes(self) -> "CoalescedState":
+        """The model in the plane-packed format: the pool is digital, so
+        the resident plane is the packed include plane itself (one shared
+        buffer), marked as ``plane_index`` so that selection routes to
+        ``coalesced-cuda-packed2``.  Implies :meth:`pack`."""
+        if self.plane_packed:
+            return self
+        packed = self.pack()
+        return dataclasses.replace(packed,
+                                   plane_index=packed.include_packed)
+
+    @property
+    def include(self) -> torch.Tensor:
+        """``[C, L]`` bool TA actions (include iff state > n_states)."""
+        return self.ta_state > self.cfg.n_states
+
+    @property
+    def n_classes(self) -> int:
+        return self.cfg.n_classes
+
+    @property
+    def n_clauses(self) -> int:
+        return self.cfg.n_clauses
+
+    @property
+    def n_literals(self) -> int:
+        return self.cfg.n_literals
+
+    @property
+    def device(self) -> torch.device:
+        return self.ta_state.device

@@ -2,9 +2,11 @@
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface,
 compiled by ``nvcc`` for Hopper into a shared library and loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go
-to ``kernels/.build/<name>-<hash>/``, keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+``ctypes`` (no PyTorch headers, so a build takes seconds).  A source may
+include the shared headers of ``csrc/`` (``*.cuh``).  Libraries go to
+``kernels/.build/<name>-<hash>/``, keyed by a hash of the source, the
+headers and the flags, so an edited source or header rebuilds and an
+unchanged one is reused.
 ``.build/`` is listed in ``.gitignore``: the library is built at first
 use, on the machine with the card.
 
@@ -50,7 +52,13 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
+    """Where ``name``'s library goes, keyed by its source, every header in
+    ``csrc/`` (a source may include any of them, so an edited header
+    rebuilds) and the flags."""
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 

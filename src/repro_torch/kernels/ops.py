@@ -1,10 +1,21 @@
 """Public wrappers around the port's kernels (port of the plane-packed
-half of ``repro.kernels.ops``).
+and digital / coalesced fused parts of ``repro.kernels.ops``).
 
 * ``polarity_matrix(cfg, include)``             -> [C, M] signed one-hot
+* ``coalesced_combine(w, nonempty)``            -> [C, M] weighted combine
 * ``pack_literals(lits)``                       -> [.., ceil(L/32)] int32
 * ``imbue_class_sums_planes(litw, idx, dev)``   -> [B, M] analog sums
 * ``imbue_class_sums_stack_planes(litw, ...)``  -> [R, B, M], one launch
+* ``tm_class_sums(lits, include, cfg)``         -> [B, M] digital, fused
+* ``tm_class_sums_packed(litw, incw, cfg)``     -> [B, M] AND + popcount
+* ``coalesced_class_sums(lits, include, w)``    -> [B, M] weighted tail
+* ``coalesced_class_sums_packed(litw, incw, w)``  -> [B, M]
+* ``coalesced_class_sums_planes(litw, incw, w)``  -> [B, M], include plane
+  streamed by the kernel's own two-stage ring
+
+The combine matrices are int32 ``[C, M]`` with the rows of empty clauses
+zeroed (the inference-time empty-clause mask, folded into the sum), and
+no padding of the class axis.
 
 The plane-packed resident operand is the include-index bitplane plus an
 optional per-cell additive deviation plane (``dev = r - r_nom``).  C2C
@@ -31,6 +42,8 @@ from repro_torch.core import variations as var
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.tm import TMConfig, polarity
 from repro_torch.kernels import bitpack
+from repro_torch.kernels.clause_eval import (tm_infer, tm_infer_packed,
+                                             tm_infer_planes)
 from repro_torch.kernels.imbue_infer import PlaneScalars, imbue_infer_planes
 
 
@@ -141,3 +154,84 @@ def imbue_class_sums_planes(
     return imbue_class_sums_stack_planes(
         litw, plane_index, dev, icfg, cfg, generator, vcfg=vcfg,
         l_valid=l_valid, n_replicas=1, device=device)[0]
+
+
+# ------------------------------------------- digital / coalesced, fused
+
+def coalesced_combine(weights: torch.Tensor,
+                      nonempty: torch.Tensor) -> torch.Tensor:
+    """``[C, M]`` integer weights -> ``[C, M]`` int32 combine matrix with
+    the rows of empty clauses zeroed (the coalesced analogue of
+    :func:`polarity_matrix`)."""
+    return (weights.to(torch.int32)
+            * nonempty[:, None].to(torch.int32)).contiguous()
+
+
+def _packed_operands(litw: torch.Tensor, include_w: torch.Tensor,
+                     device: DeviceLike):
+    device = resolve_device(device)
+    return (litw.to(device=device, dtype=torch.int32).contiguous(),
+            include_w.to(device=device, dtype=torch.int32).contiguous())
+
+
+def _dense_operands(lits: torch.Tensor, include: torch.Tensor,
+                    device: DeviceLike):
+    device = resolve_device(device)
+    return (lits.to(device=device, dtype=torch.uint8).contiguous(),
+            include.to(device=device, dtype=torch.bool).contiguous())
+
+
+def tm_class_sums(lits: torch.Tensor, include: torch.Tensor, cfg: TMConfig,
+                  *, device: DeviceLike = None) -> torch.Tensor:
+    """Fused digital inference: ``[B, L]`` literals and the ``[C, L]``
+    include plane -> ``[B, M]`` int32 (the ``tm_infer`` kernel)."""
+    lits, include = _dense_operands(lits, include, device)
+    comb = polarity_matrix(cfg, include, device=include.device)
+    return tm_infer(lits, include, comb.contiguous())
+
+
+def tm_class_sums_packed(litw: torch.Tensor, include_w: torch.Tensor,
+                         cfg: TMConfig, *,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """Fused digital inference from packed words -> ``[B, M]`` int32 (the
+    ``tm_infer_packed`` kernel); the empty-clause mask comes from the
+    packed include plane."""
+    litw, incw = _packed_operands(litw, include_w, device)
+    comb = polarity_matrix(cfg, device=incw.device)
+    comb = comb * _nonempty_from_packed(incw)[:, None].to(torch.int32)
+    return tm_infer_packed(litw, incw, comb.contiguous())
+
+
+def coalesced_class_sums(lits: torch.Tensor, include: torch.Tensor,
+                         weights: torch.Tensor, *,
+                         device: DeviceLike = None) -> torch.Tensor:
+    """Fused coalesced inference: shared clause pool ``[C, L]`` and
+    weights ``[C, M]`` -> ``[B, M]`` int32 (the ``tm_infer`` kernel with W
+    as the combine matrix)."""
+    lits, include = _dense_operands(lits, include, device)
+    comb = coalesced_combine(weights.to(include.device), include.any(dim=-1))
+    return tm_infer(lits, include, comb)
+
+
+def coalesced_class_sums_packed(litw: torch.Tensor, include_w: torch.Tensor,
+                                weights: torch.Tensor, *,
+                                device: DeviceLike = None) -> torch.Tensor:
+    """Fused coalesced inference from packed words -> ``[B, M]`` int32
+    (the ``tm_infer_packed`` kernel)."""
+    litw, incw = _packed_operands(litw, include_w, device)
+    comb = coalesced_combine(weights.to(incw.device),
+                             _nonempty_from_packed(incw))
+    return tm_infer_packed(litw, incw, comb)
+
+
+def coalesced_class_sums_planes(litw: torch.Tensor, include_w: torch.Tensor,
+                                weights: torch.Tensor, *,
+                                device: DeviceLike = None) -> torch.Tensor:
+    """Fused coalesced inference with the resident include plane streamed
+    through the kernel's own two-stage ring -> ``[B, M]`` int32 (the
+    ``tm_infer_planes`` kernel; the same integers as
+    :func:`coalesced_class_sums_packed`)."""
+    litw, incw = _packed_operands(litw, include_w, device)
+    comb = coalesced_combine(weights.to(incw.device),
+                             _nonempty_from_packed(incw))
+    return tm_infer_planes(litw, incw, comb)

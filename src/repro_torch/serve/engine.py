@@ -11,6 +11,10 @@
               the whole replica stack), then the argmax or ensemble vote
            -> Response records + metrics accounting.
 
+A coalesced pool (``ServeEngine.from_coalesced``) is one shared chip
+behind the same surface: every route lands on it, the backend returns
+``[B, M]`` sums and ensemble routing reduces to the argmax.
+
 The backend is selected once at construction; a fallback (e.g. a
 ``csa_offset`` pool, which the kernel does not model, going to
 ``analog-torch``) warns and is counted per dispatch in ``ServeMetrics``.
@@ -37,6 +41,7 @@ from repro_torch import api
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.api.registry import CAP_PACKED_IO, CAP_PACKED_PLANES
 from repro_torch.core import tm
+from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import VariationConfig, split_generator
@@ -45,8 +50,9 @@ from repro_torch.serve.batching import (QOS_BULK, Batch, BatcherConfig,
                                         validate_qos)
 from repro_torch.serve.metrics import (RequestRecord, ServeMetrics,
                                        hardware_figures)
-from repro_torch.serve.replica import (ReplicaPool, RouterState,
-                                       ensemble_vote, program_replica_pool)
+from repro_torch.serve.replica import (CoalescedPool, ReplicaPool,
+                                       RouterState, ensemble_vote,
+                                       program_replica_pool)
 
 ENSEMBLE = -1      # Response.replica value when every chip voted
 EXPIRED = -3       # Response.replica value when the deadline expired queued
@@ -57,17 +63,29 @@ EXPIRED = -3       # Response.replica value when the deadline expired queued
 # physics the kernel does not implement.
 DEFAULT_BACKEND = "analog-torch"
 DEFAULT_PLANES_BACKEND = "analog-cuda-packed2"
+# Coalesced pools get the reference's ladder in their own family: the
+# plane-packed kernel, the packed one, the dense one.
+DEFAULT_COALESCED_BACKEND = "coalesced-cuda"
+DEFAULT_COALESCED_PACKED_BACKEND = "coalesced-cuda-packed"
+DEFAULT_COALESCED_PLANES_BACKEND = "coalesced-cuda-packed2"
 
 
 def _resident_model_nbytes(state, backend: api.Backend) -> int:
     """Programmed-model operand bytes one dispatch of ``state`` reads:
     the int32 index bitplane plus the optional f32 deviation plane for the
-    plane-packed backend, two f32 planes per cell otherwise."""
+    plane-packed backends; the include plane (int32 words when packed,
+    4 bytes a cell otherwise, as the reference counts) for a coalesced
+    pool; two f32 planes per cell for the dense analog paths."""
     if CAP_PACKED_PLANES in backend.capabilities and state.plane_packed:
         n = state.plane_index.numel() * 4
-        if state.plane_dev is not None:
-            n += state.plane_dev.numel() * 4
+        dev = getattr(state, "plane_dev", None)
+        if dev is not None:
+            n += dev.numel() * 4
         return n
+    if isinstance(state, api.CoalescedState):
+        if CAP_PACKED_IO in backend.capabilities and state.packed:
+            return state.include_packed.numel() * 4
+        return state.ta_state.numel() * 4
     return 2 * state.r_stack.numel() * 4
 
 
@@ -105,12 +123,13 @@ class Response:
 
 
 class ServeEngine:
-    """Dynamic-batching inference engine over a crossbar replica pool."""
+    """Dynamic-batching inference engine over a crossbar replica pool or
+    one shared coalesced pool."""
 
     def __init__(
         self,
-        pool: ReplicaPool,
-        tm_cfg: TMConfig,
+        pool: ReplicaPool | CoalescedPool,
+        tm_cfg: TMConfig | CoalescedConfig,
         ecfg: EngineConfig = EngineConfig(),
         *,
         generator: Optional[torch.Generator] = None,
@@ -120,7 +139,7 @@ class ServeEngine:
         self.device = resolve_device(device)
         pool = pool.to(self.device)
         self.pool = pool
-        self.tm_cfg = tm_cfg
+        self.tm_cfg = tm_cfg     # a CoalescedConfig for a coalesced pool
         self.ecfg = ecfg
         self.clock = clock
         self.metrics = ServeMetrics()
@@ -135,8 +154,15 @@ class ServeEngine:
         self._noise_free = not (pool.vcfg.c2c or pool.vcfg.csa_offset)
         # Capability selection, once: the noise model is static per engine.
         sel_gen = None if self._noise_free else self._generator
-        default = (DEFAULT_PLANES_BACKEND if self.state.plane_packed
-                   else DEFAULT_BACKEND)
+        if isinstance(self.state, api.CoalescedState):
+            default = (DEFAULT_COALESCED_PLANES_BACKEND
+                       if self.state.plane_packed
+                       else DEFAULT_COALESCED_PACKED_BACKEND
+                       if self.state.packed
+                       else DEFAULT_COALESCED_BACKEND)
+        else:
+            default = (DEFAULT_PLANES_BACKEND if self.state.plane_packed
+                       else DEFAULT_BACKEND)
         self.selection: api.Selection = api.select_backend(
             self.state, generator=sel_gen, prefer=ecfg.backend or default)
         self.backend: api.Backend = self.selection.backend
@@ -149,8 +175,13 @@ class ServeEngine:
         # packed kernel also falls back to the dense uint8 queue.
         self.packed_io = CAP_PACKED_IO in self.backend.capabilities
         self.batcher = DynamicBatcher(ecfg.batcher, packed=self.packed_io)
-        self._slices = [self.state.replica_slice(i)
-                        for i in range(pool.n_replicas)]
+        # Single-replica views for routed dispatch; a coalesced pool has
+        # one shared chip, so every route lands on the full state.
+        if hasattr(self.state, "replica_slice"):
+            self._slices = [self.state.replica_slice(i)
+                            for i in range(pool.n_replicas)]
+        else:
+            self._slices = [self.state] * pool.n_replicas
         self._resident_full = _resident_model_nbytes(self.state,
                                                      self.backend)
         self._resident_slice = _resident_model_nbytes(self._slices[0],
@@ -187,18 +218,45 @@ class ServeEngine:
         return cls(pool, tm_cfg, ecfg, generator=g_serve, clock=clock,
                    device=device)
 
+    @classmethod
+    def from_coalesced(
+        cls,
+        ta_state: torch.Tensor,
+        weights: torch.Tensor,
+        cfg: CoalescedConfig,
+        *,
+        ecfg: EngineConfig = EngineConfig(),
+        generator: Optional[torch.Generator] = None,
+        clock: Callable[[], float] = time.monotonic,
+        device: DeviceLike = None,
+    ) -> "ServeEngine":
+        """Serve a coalesced model: one shared clause pool, the weighted
+        digital tail as the combine matrix.  The engine surface is
+        unchanged; the pool behind it is a single-chip
+        :class:`~repro_torch.serve.replica.CoalescedPool`."""
+        device = resolve_device(device)
+        pool = CoalescedPool(ta_state=torch.as_tensor(ta_state).to(device),
+                             weights=torch.as_tensor(weights).to(device),
+                             cfg=cfg)
+        return cls(pool, cfg, ecfg, generator=generator, clock=clock,
+                   device=device)
+
     def _forward(self, state, lits: torch.Tensor,
                  generator: Optional[torch.Generator], mask: torch.Tensor):
         """Backend forward + prediction for one batch: ``[B, M]`` sums and
         ``[B]`` predictions (summed/voted over the healthy chips in
         ensemble mode)."""
-        sums = self.backend.fn(state, lits, generator)         # [R, B, M]
-        if self.ecfg.routing == "ensemble":
-            preds = ensemble_vote(sums, self.ecfg.ensemble_mode, mask=mask)
-            sums = torch.where(mask[:, None, None], sums, 0).sum(
-                dim=0, dtype=torch.int32)
-        else:
-            sums = sums[0]
+        sums = self.backend.fn(state, lits, generator)   # [R, B, M] | [B, M]
+        if sums.ndim == 3:                       # replica-stacked output
+            if self.ecfg.routing == "ensemble":
+                preds = ensemble_vote(sums, self.ecfg.ensemble_mode,
+                                      mask=mask)
+                sums = torch.where(mask[:, None, None], sums, 0).sum(
+                    dim=0, dtype=torch.int32)
+            else:
+                sums = sums[0]
+                preds = torch.argmax(sums, dim=-1)
+        else:            # one shared coalesced chip: ensemble == argmax
             preds = torch.argmax(sums, dim=-1)
         return sums, preds
 

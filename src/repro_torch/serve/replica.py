@@ -7,10 +7,12 @@ of ``repro.serve.replica``).
 * ``RouterState`` — mutable host-side routing counters (round-robin
   cursor, per-replica load, quarantined chips), kept out of the pool.
 * ``ensemble_vote`` — majority (or summed) vote over per-replica class
-  sums, masked to the healthy chips.
+  sums, masked to the healthy chips;
+* ``CoalescedPool`` — ONE shared coalesced clause pool (``n_replicas ==
+  1``) behind the same engine surface.
 
-Sharding, re-programming, fault injection and the coalesced pool come
-with later slices.
+Sharding, re-programming, fault injection and repair come with later
+slices.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from typing import List, Optional, Set
 
 import torch
 
-from repro_torch.api.states import ReplicaStackState
+from repro_torch.api.states import CoalescedState, ReplicaStackState
 from repro_torch.core import variations as var
+from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig, program_replica_stack
 from repro_torch.core.tm import TMConfig
 
@@ -107,6 +110,61 @@ class ReplicaPool:
 
     def router(self) -> RouterState:
         """A fresh routing-counter block sized for this pool."""
+        return RouterState.create(self.n_replicas)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoalescedPool:
+    """ONE shared coalesced clause pool behind the serving engine.
+
+    Instead of R chips each holding M per-class clause banks, one
+    crossbar's clause pool serves all M classes through per-(clause,
+    class) weights in the digital tail.  The pool presents the surface
+    ``ServeEngine`` drives (``router()``, ``state()``, ``to()``,
+    ``n_replicas``, ``include``, ``vcfg``, ``version``) with
+    ``n_replicas == 1``: routing lands on the one chip, and "ensemble" is
+    the argmax.  The weighted tail is digital and noise-free, so ``vcfg``
+    is pinned nominal.
+    """
+
+    ta_state: torch.Tensor          # [C, L] trained TA states
+    weights: torch.Tensor           # [C, M] per-(clause, class) weights
+    cfg: CoalescedConfig
+    version: int = 0                # monotonic model generation
+
+    @property
+    def n_replicas(self) -> int:
+        return 1
+
+    @property
+    def vcfg(self) -> var.VariationConfig:
+        """Digital weighted tail: no analog noise model applies."""
+        return var.VariationConfig.nominal()
+
+    @property
+    def include(self) -> torch.Tensor:
+        """``[C, L]`` bool TA actions (hardware-figure accounting)."""
+        return self.ta_state > self.cfg.n_states
+
+    @property
+    def device(self) -> torch.device:
+        return self.ta_state.device
+
+    def to(self, device) -> "CoalescedPool":
+        """This pool with its tensors on ``device``."""
+        return dataclasses.replace(self, ta_state=self.ta_state.to(device),
+                                   weights=self.weights.to(device))
+
+    def state(self, cfg: Optional[CoalescedConfig] = None) -> CoalescedState:
+        """The pool as a backend ``CoalescedState``; ``cfg``, if given,
+        must be the pool's own."""
+        if cfg is not None and cfg != self.cfg:
+            raise ValueError("CoalescedPool.state(cfg) must match the "
+                             "pool's own CoalescedConfig")
+        return CoalescedState(ta_state=self.ta_state, weights=self.weights,
+                              cfg=self.cfg)
+
+    def router(self) -> RouterState:
         return RouterState.create(self.n_replicas)
 
 

@@ -1,5 +1,6 @@
 """CUDA-only checks of the port's kernels: each kernel against its plain
-PyTorch version on the card.  Marked ``cuda``; they skip (with a reason)
+PyTorch version on the card, at ragged shapes, with its launch counter
+moving by one per call.  Marked ``cuda``; they skip (with a reason)
 on a machine without a CUDA device.  On the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -16,7 +17,7 @@ from repro_torch.core import tm  # noqa: E402
 from repro_torch.core.imbue import (IMBUEConfig,  # noqa: E402
                                     program_replica_stack)
 from repro_torch.core.variations import VariationConfig  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import clause_eval, ops  # noqa: E402
 from repro_torch.kernels.imbue_infer import (  # noqa: E402
     imbue_infer_planes, imbue_infer_planes_ref)
 
@@ -53,3 +54,35 @@ def test_imbue_infer_planes_matches_plain_version(cuda, f, b, r, with_dev):
     torch.cuda.synchronize()
     assert imbue_infer_planes.launches == before + 1
     assert torch.equal(got, imbue_infer_planes_ref(*args))
+
+
+@pytest.mark.parametrize("name", ("tm_infer_planes", "tm_infer_packed",
+                                  "tm_infer"))
+@pytest.mark.parametrize("b,c,f,m", [
+    (13, 37, 50, 5), (9, 70, 51, 3), (1, 64, 16, 2), (70, 130, 300, 10),
+    (33, 1000, 784, 10)])
+def test_tm_infer_kernels_match_plain_versions(cuda, name, b, c, f, m):
+    rng = np.random.default_rng(b + c + f)
+    x = torch.from_numpy((rng.random((b, f)) < 0.5).astype(np.uint8))
+    lits = tm.literals(x).to(cuda)
+    inc = np.zeros((c, 2 * f), bool)
+    for ci in range(c):            # 1-6 literals that are 1 on some row
+        ones = np.flatnonzero(lits[rng.integers(0, b)].cpu().numpy())
+        inc[ci, rng.choice(ones, size=int(rng.integers(1, 7)))] = True
+    inc[c // 2] = False            # an empty clause
+    inc = torch.from_numpy(inc).to(cuda)
+    comb = torch.from_numpy(rng.integers(-127, 128, (c, m)).astype(
+        np.int32)).to(cuda)
+    comb[c // 2] = 0
+    if name == "tm_infer":
+        args = (lits.contiguous(), inc.contiguous(), comb)
+    else:
+        args = (ops.pack_literals(lits), ops.pack_literals(inc), comb)
+    wrapper = getattr(clause_eval, name)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = getattr(clause_eval, f"{name}_ref")(*args)
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) > 0

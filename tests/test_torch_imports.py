@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import tm, variations  # noqa: E402
+from repro_torch.core import coalesced, tm, variations  # noqa: E402
 from repro_torch.core.imbue import IMBUEConfig  # noqa: E402
 from repro_torch.kernels import bitpack, ops  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
@@ -53,9 +53,12 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
-    assert {"engine.py", "ops.py", "imbue_infer.py", "chip_smoke.py"} <= names
-    assert list((ROOT / "src" / "repro_torch" / "kernels" / "csrc")
-                .glob("*.cu"))
+    assert {"engine.py", "ops.py", "imbue_infer.py", "clause_eval.py",
+            "coalesced.py", "chip_smoke.py"} <= names
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    assert {p.name for p in csrc.glob("*.cu")} >= {
+        "imbue_infer_planes.cu", "tm_infer_planes.cu", "tm_infer_packed.cu",
+        "tm_infer.cu"}
 
 
 @pytest.fixture
@@ -99,6 +102,39 @@ def test_entry_points_raise_without_device_and_cuda(no_cuda):
         n_replicas=2, device="cpu")
     assert out.shape == (2, 3, CFG.n_classes)
     eng = engine.ServeEngine(pool, CFG, device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def test_coalesced_entry_points_raise_without_device_and_cuda(no_cuda):
+    ccfg = coalesced.CoalescedConfig(n_classes=2, n_clauses=4, n_features=5)
+    dcfg = tm.TMConfig(n_classes=2, clauses_per_class=2, n_features=5)
+    ta = np.full((4, 10), ccfg.n_states + 1, np.int16)
+    w = np.ones((4, 2), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.coalesced_pool_from_numpy(ta, w, ccfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.ServeEngine.from_coalesced(torch.from_numpy(ta),
+                                          torch.from_numpy(w), ccfg)
+    pool = convert.coalesced_pool_from_numpy(ta, w, ccfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.ServeEngine(pool, ccfg)
+    lits = torch.ones(3, 10, dtype=torch.uint8)
+    inc = torch.from_numpy(ta > ccfg.n_states)
+    litw, incw = bitpack.pack_bits(lits), bitpack.pack_bits(inc)
+    wt = torch.from_numpy(w)
+    calls = {
+        "coalesced_class_sums_planes": (litw, incw, wt),
+        "coalesced_class_sums_packed": (litw, incw, wt),
+        "coalesced_class_sums": (lits, inc, wt),
+        "tm_class_sums_packed": (litw, incw, dcfg),
+        "tm_class_sums": (lits, inc, dcfg),
+    }
+    for name, args in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(ops, name)(*args)
+        assert getattr(ops, name)(*args, device="cpu").shape == (3, 2)
+    eng = engine.ServeEngine.from_coalesced(
+        torch.from_numpy(ta), torch.from_numpy(w), ccfg, device="cpu")
     assert eng.device.type == "cpu"
 
 
