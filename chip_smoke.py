@@ -3,12 +3,15 @@
 
     PYTHONPATH=src python3 chip_smoke.py
 
-It drives two paths: the plane-packed analog path (``ServeEngine.
-from_ta_state`` -> ``analog-cuda-packed2`` -> ``imbue_infer_planes``) and
-the coalesced path (``ServeEngine.from_coalesced`` ->
-``coalesced-cuda-packed2`` -> ``tm_infer_planes``, with its lower tiers
-on ``tm_infer_packed`` and ``tm_infer``), plus the digital fused tier
-through ``api.class_sums``.
+It drives the plane-packed analog path (``ServeEngine.from_ta_state`` ->
+``analog-cuda-packed2`` -> ``imbue_infer_planes``), its lower tiers
+(``EngineConfig(pack_planes=False)`` -> ``analog-cuda-packed`` ->
+``imbue_infer_packed``; ``EngineConfig(packed=False)`` -> ``analog-cuda``
+-> ``imbue_infer``), the chaos round (``ServeEngine.inject_faults``), one
+``CrossbarState`` through ``api.class_sums``, the coalesced path
+(``ServeEngine.from_coalesced`` -> ``coalesced-cuda-packed2`` ->
+``tm_infer_planes``, with its lower tiers on ``tm_infer_packed`` and
+``tm_infer``), and the digital fused tier through ``api.class_sums``.
 
 Phases, each printing JSON lines (any failure raises, so the exit code
 is non-zero and no result line is printed):
@@ -20,20 +23,32 @@ is non-zero and no result line is printed):
 2. kernels — every kernel against its plain PyTorch version on the card,
    tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
    {1, 4}, B in {8, 64, 128}, with and without the deviation plane) and
-   one ragged small shape; the three TM kernels at the digital width
-   (imbue-tm-mnist, C = 2000) and the coalesced width (C = 1000),
-   B in {8, 64, 128}, and one ragged shape (C not a multiple of the
-   clause tile, L not a multiple of 32, B odd, an empty clause); guards
-   on the share of non-zero sums and of fired clauses;
+   one ragged small shape; ``imbue_infer_packed`` and ``imbue_infer`` at
+   the same width on the g / leak planes of D2D-programmed and of
+   nominal chips (R in {1, 4}, B in {8, 64, 128}) and one ragged shape;
+   the three TM kernels at the digital width (imbue-tm-mnist, C = 2000)
+   and the coalesced width (C = 1000), B in {8, 64, 128}, and one ragged
+   shape (ragged: C not a multiple of the clause tile, L not a multiple
+   of 32, B odd, an empty clause); guards on the share of non-zero sums
+   and of fired clauses.  Then the cross-tier check: on one D2D +
+   stuck-at plane-packed stack at full width, read without C2C, the
+   three analog CUDA backends return identical ``[R, B, M]``;
 3. serving — (a) ``ServeEngine.from_ta_state`` at imbue-tm-mnist with
    R = 4 serves 512 requests in ``round_robin`` and in ``ensemble``
    through ``analog-cuda-packed2``, first with D2D + C2C (no CSA
    offset), then at nominal, where every response must equal the digital
-   TM; (b) ``ServeEngine.from_coalesced`` at 10 classes x 1000 clauses x
-   784 features serves 512 requests on each tier
+   TM; (b) the same on the lower analog tiers, ``analog-cuda-packed`` and
+   ``analog-cuda``; (c) the chaos round: the default engine on a nominal
+   pool, ``inject_faults`` (1 % stuck at LRS, 1 % at HRS) into replica 1,
+   512 requests in ``ensemble`` (a deviation plane grows, replicas 0, 2
+   and 3 keep the digital TM's sums), then ``repair_replica(1)`` and
+   ``_set_pool`` elide the plane again; (d) one ``CrossbarState``
+   through the three analog CUDA backends with ``api.class_sums``;
+   (e) ``ServeEngine.from_coalesced`` at 10 classes x 1000 clauses x 784
+   features serves 512 requests on each tier
    (``coalesced-cuda-packed2``, ``-packed``, ``coalesced-cuda``) in
    ``round_robin``, and on the default tier in ``ensemble``; every
-   response must equal ``core.coalesced.forward``; then
+   response must equal ``core.coalesced.forward``; (f)
    ``digital-cuda-packed`` and ``digital-cuda`` must equal
    ``digital-torch`` at imbue-tm-mnist.  Each path's launch counters are
    zeroed just before it and read just after: one launch per dispatch,
@@ -42,19 +57,23 @@ is non-zero and no result line is printed):
    the host's enqueue hidden behind a spin kernel) beside
    its bound, what sets the bound, and the plain version's time:
    ``imbue_infer_planes`` at R = 4, B in {8, 64, 128}, with and without
-   the deviation plane (and the C2C pre-pass); the TM kernels at
-   B in {8, 64, 128} at the coalesced and the digital width (and, for
-   ``tm_infer``, ``torch.matmul`` of its violation product alone as that
-   product's yardstick); the host time of one backend call per
-   coalesced tier.
+   the deviation plane (and the C2C pre-pass); ``imbue_infer_packed``
+   and ``imbue_infer`` at R = 4, B in {8, 64, 128} (with the eager
+   conductance pre-pass, with and without C2C, and ``torch.einsum`` of
+   the two column-current products alone as a partial yardstick); the TM
+   kernels at B in {8, 64, 128} at the coalesced and the digital width
+   (and, for ``tm_infer``, ``torch.matmul`` of its violation product
+   alone as that product's yardstick); the host time of one backend call
+   per coalesced tier.
 
-Then the launches of each path (analog, coalesced, digital), the
-``{"kernels": [...]}`` line (each kernel's launches on its main path:
-analog for ``imbue_infer_planes``, coalesced for the TM kernels), the
-``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  Models are built with numpy from a
-seed, without training: each clause includes 8-16 literals that are 1
-on a class prototype; requests are prototypes with 8 % of bits flipped.
+Then the launches of each path, the ``{"kernels": [...]}`` line (each
+kernel's launches on its main path: the plane-packed analog path for
+``imbue_infer_planes``, the lower analog tiers for ``imbue_infer_packed``
+and ``imbue_infer``, the coalesced path for the TM kernels), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Models
+are built with numpy from a seed, without training: each clause includes
+8-16 literals that are 1 on a class prototype; requests are prototypes
+with 8 % of bits flipped.
 """
 
 from __future__ import annotations
@@ -99,6 +118,16 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/imbue_infer_planes.cu",
         "replaces": "src/repro/kernels/imbue_infer.py:111",
     },
+    "imbue_infer_packed": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/imbue_infer_packed.cu",
+        "replaces": "src/repro/kernels/imbue_infer.py:65",
+    },
+    "imbue_infer": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/imbue_infer.cu",
+        "replaces": "src/repro/kernels/imbue_infer.py:35",
+    },
     "tm_infer_planes": {
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/tm_infer_planes.cu",
@@ -116,6 +145,10 @@ KERNELS = {
     },
 }
 TM_KERNELS = ("tm_infer_planes", "tm_infer_packed", "tm_infer")
+# The dense-plane analog kernels and the backends of the three analog tiers.
+DENSE_KERNELS = ("imbue_infer_packed", "imbue_infer")
+ANALOG_BACKENDS = ("analog-cuda-packed2", "analog-cuda-packed", "analog-cuda")
+CHAOS = dict(stuck_lrs_rate=0.01, stuck_hrs_rate=0.01)
 
 
 def emit(obj) -> None:
@@ -143,9 +176,11 @@ def popc_per_s() -> float:
     return POPC_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6
 
 
-def tm_kernel(name):
-    from repro_torch.kernels import clause_eval
-    return getattr(clause_eval, name), getattr(clause_eval, f"{name}_ref")
+def kernel_pair(name):
+    """``(wrapper, plain version)`` of kernel ``name``."""
+    from repro_torch.kernels import clause_eval, imbue_infer
+    mod = imbue_infer if name.startswith("imbue") else clause_eval
+    return getattr(mod, name), getattr(mod, f"{name}_ref")
 
 
 # ------------------------------------------------------------------ data
@@ -282,6 +317,44 @@ def operand_bytes_and_ops(litw, incw, dev, pol, scal):
     return nbytes, ops
 
 
+def dense_case(cfg, ta, x, n_replicas, d2d, seed, device):
+    """Operands of the two dense-plane kernels for one shape, keyed by
+    kernel: literal words or bytes, the g / leak planes ``[R, C, L]`` of
+    ``n_replicas`` D2D-programmed (or nominal) chips, the polarity matrix,
+    ``i_ref`` and ``v_read``; plus the share of (row, clause) pairs that
+    fire in the digital TM."""
+    from repro_torch.core import tm
+    from repro_torch.core.imbue import (IMBUEConfig, conductances,
+                                        program_replica_stack)
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.kernels import ops
+    include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
+    vcfg = (VariationConfig(csa_offset=False) if d2d
+            else VariationConfig.nominal())
+    gen = torch.Generator(device=device).manual_seed(seed)
+    icfg = IMBUEConfig()
+    g, leak = conductances(program_replica_stack(include, gen, n_replicas,
+                                                 vcfg), include, icfg)
+    lits = tm.literals(torch.from_numpy(x).to(device)).contiguous()
+    rest = (g.contiguous(), leak.contiguous(),
+            ops.polarity_matrix(cfg, include, device=device).contiguous(),
+            icfg.reference_voltage() / icfg.r_divider, icfg.v_read)
+    fired = tm.clause_outputs_from_include(include, lits)
+    return ({"imbue_infer_packed": (ops.pack_literals(lits), *rest),
+             "imbue_infer": (lits, *rest)}, float(fired.float().mean()))
+
+
+def dense_bytes_and_ops(a, g, leak, pol, i_ref, v_read):
+    """Bytes each input is read once and the output written once, and the
+    fp32 operations this input needs (4 per (r, b, c, l): bit test,
+    select, add, compare amortised, as for ``imbue_infer_planes``)."""
+    r, c, l = g.shape
+    b, m = a.shape[0], pol.shape[1]
+    nbytes = (a.numel() * a.element_size()
+              + (g.numel() + leak.numel() + pol.numel() + r * b * m) * 4)
+    return nbytes, 4 * r * b * c * l
+
+
 def bound_ms(nbytes, work):
     """The larger of the bytes' time and the operations' time; ``work`` is
     ``[(ops, ops_per_s), ...]``, one term per operand type."""
@@ -386,7 +459,7 @@ def phase_tm_kernels(device):
     for label, inc, comb, x in cases:
         args, fired = tm_case(inc, x, comb, device)
         for name in TM_KERNELS:
-            fn, ref = tm_kernel(name)
+            fn, ref = kernel_pair(name)
             a = args["dense" if name == "tm_infer" else "packed"]
             got, want = fn(*a), ref(*a)
             torch.cuda.synchronize()
@@ -408,24 +481,103 @@ def phase_tm_kernels(device):
     return max_err
 
 
-def serve_round(cfg, ta, x, y, vcfg, routing, device):
+def phase_dense_kernels(device):
+    """The two dense-plane analog kernels against their plain versions,
+    tolerance 0, on D2D and nominal planes, then the cross-tier check."""
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core.tm import TMConfig
+    cfg = tm_config(MODEL)
+    ta, x, _ = prototype_task(cfg, 128, SEED)
+    shapes = [(cfg, ta, x[:b], r, d2d) for d2d in (True, False)
+              for r in (1, 4) for b in BATCHES]
+    small = TMConfig(n_classes=4, clauses_per_class=8, n_features=37,
+                     n_states=100)                         # C=32, L=74
+    sta, sx, _ = prototype_task(small, 13, SEED + 1)       # B=13
+    sta[5] = 1                                             # empty clause
+    shapes.append((small, sta, sx, 3, True))
+    rows, max_err = [], dict.fromkeys(DENSE_KERNELS, 0)
+    for i, (cfg_i, ta_i, x_i, r, d2d) in enumerate(shapes):
+        cases, fired = dense_case(cfg_i, ta_i, x_i, r, d2d, SEED + i, device)
+        for name in DENSE_KERNELS:
+            fn, ref = kernel_pair(name)
+            got, want = fn(*cases[name]), ref(*cases[name])
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            nonzero = float((want != 0).float().mean())
+            rows.append({"kernel": name, "C": cfg_i.n_clauses,
+                         "L": cfg_i.n_literals, "R": r,
+                         "B": int(x_i.shape[0]), "d2d": d2d,
+                         "max_abs_err": err, "nonzero_frac": nonzero,
+                         "fired_frac": fired})
+            if err != 0 or not torch.equal(got, want):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {rows[-1]}")
+            if nonzero < 0.05 or fired < 0.01:
+                raise AssertionError(f"parity of (mostly) zeros or of "
+                                     f"unfired clauses: {rows[-1]}")
+            max_err[name] = max(max_err[name], err)
+    emit({"phase": "kernels", "kernels": list(DENSE_KERNELS),
+          "tolerance": 0, "cases": rows})
+    cross_tier_check(cfg, ta, x, device)
+    return max_err
+
+
+def cross_tier_check(cfg, ta, x, device):
+    """On one D2D + stuck-at plane-packed stack at full width, read without
+    C2C, the three analog CUDA backends give identical ``[R, B, M]``."""
+    from repro_torch import api
     from repro_torch.core import tm
-    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.core.variations import FaultConfig, VariationConfig
+    include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    st = api.ReplicaStackState.program(
+        include, gen, REPLICAS, cfg,
+        VariationConfig(csa_offset=False)).pack_planes()
+    # Rates low enough that most clauses survive: a check on live sums.
+    st = st.inject_faults(gen, FaultConfig(stuck_lrs_rate=0.001,
+                                           stuck_hrs_rate=0.001))
+    lits = tm.literals(torch.from_numpy(x).to(device))
+    outs = {name: api.get_backend(name).fn(st, lits)
+            for name in ANALOG_BACKENDS}
+    torch.cuda.synchronize()
+    want = outs["analog-cuda-packed2"]
+    for name, got in outs.items():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from analog-cuda-packed2 "
+                                 "on the faulted stack")
+    nonzero = float((want != 0).float().mean())
+    if st.plane_dev is None or nonzero < 0.05:
+        raise AssertionError(f"cross-tier check on a degenerate stack "
+                             f"(nonzero {nonzero})")
+    emit({"phase": "kernels", "check": "cross-tier",
+          "backends": list(ANALOG_BACKENDS), "R": REPLICAS,
+          "B": int(x.shape[0]), "faulted_cells": int(
+              (st.fault_mask != 0).sum()),
+          "identical": True, "nonzero_frac": nonzero})
+
+
+def serve_round(cfg, ta, x, y, vcfg, ecfg_kw, backend, kernel, device):
+    """Serve ``x`` through one analog engine on ``backend``: one launch of
+    ``kernel`` per dispatch, 0 fallbacks, and at nominal every response
+    equal to the digital TM."""
+    from repro_torch.core import tm
     from repro_torch.serve.engine import EngineConfig, ServeEngine
+    fn, _ = kernel_pair(kernel)
     eng = ServeEngine.from_ta_state(
         torch.from_numpy(ta), cfg, n_replicas=REPLICAS, seed=SEED,
-        vcfg=vcfg, ecfg=EngineConfig(routing=routing), device=device)
-    if eng.backend.name != "analog-cuda-packed2" or eng.selection.fell_back:
-        raise AssertionError(f"main path not on the kernel backend: "
+        vcfg=vcfg, ecfg=EngineConfig(**ecfg_kw), device=device)
+    if eng.backend.name != backend or eng.selection.fell_back:
+        raise AssertionError(f"round not on {backend}: "
                              f"{eng.backend.name} {eng.selection}")
-    launches0 = imbue_infer_planes.launches
+    routing = eng.ecfg.routing
+    launches0 = fn.launches
     t0 = time.perf_counter()
     eng.submit_many(list(x))
     eng.pump()
     out = eng.drain()
     wall = time.perf_counter() - t0
     s = eng.summary()
-    launches = imbue_infer_planes.launches - launches0
+    launches = fn.launches - launches0
     if len(out) != len(x) or s["fallback_dispatches"] != 0:
         raise AssertionError(f"served {len(out)} of {len(x)}, "
                              f"{s['fallback_dispatches']} fallbacks")
@@ -438,7 +590,8 @@ def serve_round(cfg, ta, x, y, vcfg, routing, device):
     row = {"phase": "serving", "vcfg": {"d2d": vcfg.d2d, "c2c": vcfg.c2c,
                                         "csa_offset": vcfg.csa_offset},
            "routing": routing, "backend": eng.backend.name,
-           "requests": len(out), "dispatches": s["batches"],
+           "kernel": kernel, "requests": len(out),
+           "dispatches": s["batches"],
            "launches": launches, "accuracy": float((preds == y).mean()),
            "digital_accuracy": float((digital.argmax(1) == y).mean()),
            "agree_with_digital": float((preds == digital.argmax(1)).mean()),
@@ -455,18 +608,157 @@ def serve_round(cfg, ta, x, y, vcfg, routing, device):
     return launches
 
 
-def phase_serving(device):
+def analog_rounds(ecfg_kw, backend, kernel, seed, device):
+    """One analog tier: 512 requests in ``round_robin`` and in
+    ``ensemble``, under D2D + C2C (no CSA offset) and at nominal."""
     from repro_torch.configs.imbue_tm import tm_config
     from repro_torch.core.variations import VariationConfig
-    from repro_torch.kernels.imbue_infer import imbue_infer_planes
     cfg = tm_config(MODEL)
-    ta, x, y = prototype_task(cfg, N_REQUESTS, SEED + 100)
-    imbue_infer_planes.launches = 0       # count the main path only
+    ta, x, y = prototype_task(cfg, N_REQUESTS, seed)
     for vcfg in (VariationConfig(csa_offset=False),
                  VariationConfig.nominal()):
         for routing in ("round_robin", "ensemble"):
-            serve_round(cfg, ta, x, y, vcfg, routing, device)
-    return {"imbue_infer_planes": imbue_infer_planes.launches}
+            serve_round(cfg, ta, x, y, vcfg, dict(ecfg_kw, routing=routing),
+                        backend, kernel, device)
+
+
+def phase_serving(device):
+    """The plane-packed analog path; returns its launches."""
+    return path_launches(
+        lambda: analog_rounds({}, "analog-cuda-packed2",
+                              "imbue_infer_planes", SEED + 100, device),
+        ("imbue_infer_planes",))
+
+
+def phase_analog_tiers(device):
+    """The lower analog tiers, ``EngineConfig(pack_planes=False)`` and
+    ``EngineConfig(packed=False)``; returns their launches."""
+    def drive():
+        analog_rounds({"pack_planes": False}, "analog-cuda-packed",
+                      "imbue_infer_packed", SEED + 400, device)
+        analog_rounds({"packed": False}, "analog-cuda", "imbue_infer",
+                      SEED + 400, device)
+    return path_launches(drive, DENSE_KERNELS)
+
+
+def phase_chaos(device):
+    """The chaos round on the default engine; returns its launches."""
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import tm
+    from repro_torch.core.variations import FaultConfig, VariationConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+    cfg = tm_config(MODEL)
+    ta, x, y = prototype_task(cfg, N_REQUESTS, SEED + 500)
+    digital = tm.forward(torch.from_numpy(ta).to(device),
+                         torch.from_numpy(x).to(device), cfg)
+
+    def chip_sums(eng):
+        """``[R, N, M]`` sums of every chip, 128 rows a call."""
+        return torch.cat([eng.backend.fn(eng.state, ops.pack_literals(
+            tm.literals(torch.from_numpy(x[i:i + 128]).to(device))))
+            for i in range(0, len(x), 128)], dim=1)
+
+    def drive():
+        eng = ServeEngine.from_ta_state(
+            torch.from_numpy(ta), cfg, n_replicas=REPLICAS, seed=SEED,
+            vcfg=VariationConfig.nominal(),
+            ecfg=EngineConfig(routing="ensemble"), device=device)
+        if eng.backend.name != "analog-cuda-packed2" or \
+                eng.state.plane_dev is not None:
+            raise AssertionError("chaos round: not a nominal packed2 pool")
+        resident0 = eng.summary()["resident_nbytes_full"]
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        eng.inject_faults(gen, FaultConfig(**CHAOS), replicas=[1])
+        s = eng.summary()
+        if s.get("fault_injections") != [{"replicas": [1]}]:
+            raise AssertionError(f"fault_injections: "
+                                 f"{s.get('fault_injections')}")
+        if eng.state.plane_dev is None:
+            raise AssertionError("the injury grew no deviation plane")
+        faulted = int((eng.pool.fault_mask != 0).sum())
+        launches0 = imbue_infer_planes.launches
+        t0 = time.perf_counter()
+        eng.submit_many(list(x))
+        out = eng.drain()
+        wall = time.perf_counter() - t0
+        s = eng.summary()
+        launches = imbue_infer_planes.launches - launches0
+        if len(out) != len(x) or s["fallback_dispatches"] != 0 or \
+                launches != s["batches"]:
+            raise AssertionError(f"chaos serving: {len(out)} served, "
+                                 f"{s['fallback_dispatches']} fallbacks, "
+                                 f"{launches} launches for {s['batches']}")
+        preds = np.array([r.pred for r in out])
+        want = digital.argmax(-1).cpu().numpy()
+        sums = chip_sums(eng)
+        for i in (0, 2, 3):
+            if not torch.equal(sums[i], digital):
+                raise AssertionError(f"healthy replica {i} left the "
+                                     "digital TM")
+        hurt_rows = float((sums[1] != digital).any(-1).float().mean())
+        if not np.array_equal(preds, want) or hurt_rows == 0.0:
+            raise AssertionError("the 3-of-4 majority lost the digital "
+                                 "answer, or the injury changed nothing")
+        eng._set_pool(eng.pool.repair_replica(1, gen))
+        if eng.pool.fault_mask is not None or \
+                eng.state.plane_dev is not None:
+            raise AssertionError("repair did not elide the plane")
+        if not torch.equal(chip_sums(eng), digital.expand(REPLICAS,
+                                                          *digital.shape)):
+            raise AssertionError("the repaired pool left the digital TM")
+        emit({"phase": "serving", "path": "chaos", "fault": CHAOS,
+              "replicas": [1], "requests": len(out),
+              "dispatches": s["batches"], "launches": launches,
+              "faulted_cells": faulted,
+              "resident_nbytes_full": [resident0,
+                                       s["resident_nbytes_full"]],
+              "replica1_rows_off_digital": hurt_rows,
+              "healthy_equal_digital": True, "preds_equal_digital": True,
+              "accuracy": float((preds == y).mean()),
+              "repaired_plane_elided": True,
+              "requests_per_s": len(out) / wall, "wall_s": wall})
+    return path_launches(drive, ("imbue_infer_planes",))
+
+
+def phase_crossbar(device):
+    """One ``CrossbarState`` through the three analog CUDA backends with
+    ``api.class_sums``, 128 rows a call; returns the launches."""
+    from repro_torch import api
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import tm
+    from repro_torch.core.variations import VariationConfig
+    cfg = tm_config(MODEL)
+    ta, x, _ = prototype_task(cfg, N_REQUESTS, SEED + 600)
+    include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
+    st = api.CrossbarState.program(
+        include, torch.Generator(device=device).manual_seed(SEED + 6), cfg,
+        VariationConfig(csa_offset=False)).pack_planes()
+    for name in ANALOG_BACKENDS:
+        if api.select_backend(st, prefer=name).fell_back:
+            raise AssertionError(f"{name} does not serve a CrossbarState")
+
+    def drive():
+        calls, nonzero = 0, 0
+        for i in range(0, len(x), 128):
+            lits = tm.literals(torch.from_numpy(x[i:i + 128]).to(device))
+            outs = [api.class_sums(st, lits, backend=name)
+                    for name in ANALOG_BACKENDS]
+            if outs[0].shape != (lits.shape[0], cfg.n_classes) or not all(
+                    torch.equal(o, outs[0]) for o in outs):
+                raise AssertionError("the analog backends disagree on a "
+                                     "CrossbarState")
+            calls += 1
+            nonzero += int((outs[0] != 0).sum())
+        emit({"phase": "serving", "path": "crossbar",
+              "backends": list(ANALOG_BACKENDS), "requests": len(x),
+              "calls": calls, "identical": True,
+              "nonzero_frac": nonzero / (len(x) * cfg.n_classes)})
+    counts = path_launches(drive, ("imbue_infer_planes",) + DENSE_KERNELS)
+    if set(counts.values()) != {len(x) // 128}:
+        raise AssertionError(f"crossbar path launches {counts}")
+    return counts
 
 
 def coalesced_round(ccfg, ta, w, x, y, ecfg_kw, backend, kernel, device):
@@ -475,7 +767,7 @@ def coalesced_round(ccfg, ta, w, x, y, ecfg_kw, backend, kernel, device):
     tier's kernel per dispatch."""
     from repro_torch.core import coalesced as co
     from repro_torch.serve.engine import EngineConfig, ServeEngine
-    fn, _ = tm_kernel(kernel)
+    fn, _ = kernel_pair(kernel)
     eng = ServeEngine.from_coalesced(
         torch.from_numpy(ta), torch.from_numpy(w), ccfg,
         ecfg=EngineConfig(**ecfg_kw), device=device)
@@ -521,7 +813,7 @@ def digital_round(cfg, ta, x, backend, kernel, device, batch=128):
     ``digital-torch``, one launch per call."""
     from repro_torch import api
     from repro_torch.core import tm
-    fn, _ = tm_kernel(kernel)
+    fn, _ = kernel_pair(kernel)
     state = api.DigitalState.from_ta(torch.from_numpy(ta).to(device), cfg)
     if backend.endswith("packed"):
         state = state.pack()
@@ -550,7 +842,7 @@ def path_launches(drive, kernels):
     """Zero the counters of ``kernels`` just before ``drive()`` and read
     them just after: the launches of that path alone.  Fails if one of
     them was not launched."""
-    fns = {name: tm_kernel(name)[0] for name in kernels}
+    fns = {name: kernel_pair(name)[0] for name in kernels}
     for fn in fns.values():
         fn.launches = 0
     drive()
@@ -650,6 +942,66 @@ def phase_timing(device):
     return rows
 
 
+def phase_dense_timing(device):
+    """The dense-plane analog kernels at R = 4, B in {8, 64, 128}, with the
+    eager conductance pre-pass and a partial library yardstick."""
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import tm
+    from repro_torch.core.imbue import (IMBUEConfig, conductances,
+                                        program_replica_stack)
+    from repro_torch.core.variations import VariationConfig
+    cfg = tm_config(MODEL)
+    ta, x, _ = prototype_task(cfg, 128, SEED)
+    flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
+                        device=device)              # > 50 MB of L2
+    rows = []
+    for b in BATCHES:
+        cases, _ = dense_case(cfg, ta, x[:b], REPLICAS, True, SEED, device)
+        for name in DENSE_KERNELS:
+            fn, ref = kernel_pair(name)
+            args = cases[name]
+            ms = time_ms(lambda: fn(*args), 20, flush)
+            plain = time_ms(lambda: ref(*args), 3, flush)
+            nbytes, nops = dense_bytes_and_ops(*args)
+            bms, by = bound_ms(nbytes, [(nops, FP32_FLOP_PER_S)])
+            # Partial yardstick: the two column-current products alone, as
+            # cuBLAS runs them (TF32 off), without threshold, AND or votes.
+            r, c, l = args[1].shape
+            kw = -(-l // 32)
+            pad = functools.partial(torch.nn.functional.pad,
+                                    pad=(0, 32 * kw - l))
+            lits = pad(cases["imbue_infer"][0].float())
+            v_drive = ((1.0 - lits) * args[5]).view(b, kw, 32)
+            lit1 = lits.view(b, kw, 32)
+            g4 = pad(args[1]).view(r, c, kw, 32)
+            leak4 = pad(args[2]).view(r, c, kw, 32)
+            einsum_ms = time_ms(lambda: (
+                torch.einsum("bkw,rckw->rbck", v_drive, g4),
+                torch.einsum("bkw,rckw->rbck", lit1, leak4)), 10, flush)
+            rows.append({"kernel": name, "R": r, "B": b, "ms": ms,
+                         "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                         "bytes": nbytes, "fp32_ops": nops,
+                         "bound_share": bms / ms,
+                         "column_current_einsum_ms": einsum_ms})
+    include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
+    vcfg = VariationConfig(csa_offset=False)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    r_stack = program_replica_stack(include, gen, REPLICAS, vcfg)
+    icfg = IMBUEConfig()
+    prepass = {
+        "conductances_ms": time_ms(
+            lambda: conductances(r_stack, include, icfg), 10, flush),
+        "conductances_c2c_ms": time_ms(
+            lambda: conductances(r_stack, include, icfg, gen, vcfg), 10,
+            flush)}
+    emit({"phase": "timing", "kernels": list(DENSE_KERNELS),
+          "clock": "cuda events, median, L2 flushed, host enqueue "
+                   "hidden behind a spin kernel",
+          "bound": "max(bytes / 3.35 TB/s, 4*R*B*C*L / 67 TFLOP/s)",
+          "prepass_R4": prepass, "rows": rows})
+    return rows
+
+
 def phase_tm_timing(device):
     from repro_torch import api
     from repro_torch.core import tm
@@ -661,7 +1013,7 @@ def phase_tm_timing(device):
         for b in BATCHES:
             args, _ = tm_case(inc, x[:b], comb, device)
             for name in TM_KERNELS:
-                fn, ref = tm_kernel(name)
+                fn, ref = kernel_pair(name)
                 a = args["dense" if name == "tm_infer" else "packed"]
                 ms = time_ms(lambda: fn(*a), 20, flush)
                 plain = time_ms(lambda: ref(*a), 5, flush)
@@ -729,24 +1081,31 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = phase_environment()
     max_err = phase_kernels(device)
+    max_err.update(phase_dense_kernels(device))
     max_err.update(phase_tm_kernels(device))
     by_path = {"analog": phase_serving(device),
+               "analog_tiers": phase_analog_tiers(device),
+               "chaos": phase_chaos(device),
+               "crossbar": phase_crossbar(device),
                "coalesced": phase_coalesced_serving(device),
                "digital": phase_digital_fused(device)}
-    if by_path["analog"]["imbue_infer_planes"] == 0:
-        raise AssertionError("imbue_infer_planes was not launched on its "
-                             "path")
     emit({"phase": "launches", "by_path": by_path})
     # The kernels line counts each kernel on its main path: the analog
-    # path for imbue_infer_planes, the coalesced path for the TM kernels.
-    launches = {**by_path["analog"], **by_path["coalesced"]}
+    # path for imbue_infer_planes, the lower analog tiers for the
+    # dense-plane kernels, the coalesced path for the TM kernels.
+    launches = {**by_path["analog"], **by_path["analog_tiers"],
+                **by_path["coalesced"]}
     main_rows = {"imbue_infer_planes": next(
         r for r in phase_timing(device) if r["dev"] and r["B"] == 128)}
+    for r in phase_dense_timing(device):
+        if r["B"] == 128:
+            main_rows[r["kernel"]] = r
     for r in phase_tm_timing(device):
         if r["width"] == "coalesced" and r["B"] == 128:
             main_rows[r["kernel"]] = r
-    # No single PyTorch call computes thresholded class sums, so no
-    # kernel has a library yardstick.
+    # No single PyTorch call computes thresholded class sums, so no kernel
+    # has a library yardstick; the partial ones (a product alone) are in
+    # the timing lines.
     emit({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
         max_abs_err=max_err[name], ms=main_rows[name]["ms"],

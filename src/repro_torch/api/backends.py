@@ -22,13 +22,20 @@ name                        states               capability notes
                                                  AND + popcount
                                                  (``digital-pallas-
                                                  packed``)
-``analog-torch``            ReplicaStack         eager, models C2C **and**
-                                                 CSA offset
+``analog-torch``            Crossbar,            eager, models C2C **and**
+                            ReplicaStack         CSA offset
                                                  (``analog-jnp``)
-``analog-cuda-packed2``     ReplicaStack         the ``imbue_infer_planes``
-                            (plane-packed)       kernel, one launch per
-                                                 stack (``analog-pallas-
-                                                 packed2``); no CSA offset
+``analog-cuda``             Crossbar,            the ``imbue_infer``
+                            ReplicaStack         kernel on dense g / leak
+                                                 planes, one launch per
+                                                 stack (``analog-pallas``)
+``analog-cuda-packed``      Crossbar,            ``imbue_infer_packed``,
+                            ReplicaStack         packed literal words
+                            (packed)             (``analog-pallas-packed``)
+``analog-cuda-packed2``     Crossbar,            the ``imbue_infer_planes``
+                            ReplicaStack         kernel, one launch per
+                            (plane-packed)       stack (``analog-pallas-
+                                                 packed2``)
 ``coalesced``               Coalesced            eager weighted tail
 ``coalesced-cuda``          Coalesced            ``tm_infer``, W as the
                                                  combine matrix
@@ -40,8 +47,13 @@ name                        states               capability notes
 
 Within a family the packed backends outrank the dense ones and the
 ``*-packed2`` ones outrank both, each gated by its predicate (``packed``,
-``plane_packed``), as in the reference.  The reference's
-``CAP_SHARDED`` comes with the multi-device slice.
+``plane_packed``), as in the reference.  The analog kernels threshold
+against one scalar reference: none models the CSA offset, so such reads
+fall back loudly to ``analog-torch``.  The reference's ``CAP_SHARDED``
+comes with the multi-device slice.
+
+:func:`class_sums` and :func:`predict` are the entry points with
+capability-based selection; ``get_backend(name).fn`` pins a backend.
 """
 
 from __future__ import annotations
@@ -56,8 +68,8 @@ from repro_torch.api.registry import (CAP_ANALOG, CAP_COALESCED,
                                       CAP_PACKED_IO, CAP_PACKED_PLANES,
                                       CAP_REPLICA_VMAP, register_backend,
                                       select_backend)
-from repro_torch.api.states import (CoalescedState, DigitalState,
-                                    ReplicaStackState)
+from repro_torch.api.states import (CoalescedState, CrossbarState,
+                                    DigitalState, ReplicaStackState)
 from repro_torch.core import coalesced as co
 from repro_torch.core import imbue, tm
 from repro_torch.kernels import ops
@@ -107,38 +119,94 @@ def digital_cuda_packed(state: DigitalState, lits: torch.Tensor,
                                     device=state.device)
 
 
-@register_backend("analog-torch", state_types=(ReplicaStackState,),
+_ANALOG_STATES = (CrossbarState, ReplicaStackState)
+
+
+def _as_stack(state):
+    """``([R, C, L] resistances, whether the state is one chip)``: a
+    ``CrossbarState`` reads as a stack of one (the same C2C draw per
+    cell)."""
+    if isinstance(state, ReplicaStackState):
+        return state.r_stack, False
+    return state.r_mem[None], True
+
+
+@register_backend("analog-torch", state_types=_ANALOG_STATES,
                   capabilities={CAP_ANALOG, CAP_MODELS_C2C,
                                 CAP_MODELS_CSA_OFFSET, CAP_REPLICA_VMAP},
                   priority=10)
-def analog_torch(state: ReplicaStackState, lits: torch.Tensor,
+def analog_torch(state, lits: torch.Tensor,
                  generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
     """Eager KCL + per-column CSA compare (the full noise model)."""
-    cls = imbue.stacked_clause_outputs(
-        state.r_stack, state.include, lits, state.tm_cfg, generator,
-        state.vcfg, state.icfg)                              # [R, B, C]
+    if isinstance(state, ReplicaStackState):
+        cls = imbue.stacked_clause_outputs(
+            state.r_stack, state.include, lits, state.tm_cfg, generator,
+            state.vcfg, state.icfg)                          # [R, B, C]
+    else:
+        cls = imbue.analog_clause_outputs_raw(
+            state.r_mem, state.include, lits, state.mapping, state.icfg,
+            generator, state.vcfg)                           # [B, C]
     cls = cls * state.include.any(dim=-1).to(cls.dtype)
     return tm.class_sums(cls, state.tm_cfg)
 
 
-@register_backend("analog-cuda-packed2", state_types=(ReplicaStackState,),
+@register_backend("analog-cuda", state_types=_ANALOG_STATES,
+                  capabilities={CAP_ANALOG, CAP_FUSED_KERNEL,
+                                CAP_MODELS_C2C, CAP_REPLICA_VMAP},
+                  priority=20)
+def analog_cuda(state, lits: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+    """Dense-plane analog kernel (``imbue_infer``): g and leak built per
+    read, then one launch for the whole stack (a chip is a stack of
+    one)."""
+    r_stack, one_chip = _as_stack(state)
+    sums = ops.imbue_class_sums_stack(
+        lits, r_stack, state.include, state.icfg, state.tm_cfg, generator,
+        vcfg=state.vcfg, device=state.device)
+    return sums[0] if one_chip else sums
+
+
+@register_backend("analog-cuda-packed", state_types=_ANALOG_STATES,
+                  capabilities={CAP_ANALOG, CAP_FUSED_KERNEL,
+                                CAP_MODELS_C2C, CAP_REPLICA_VMAP,
+                                CAP_PACKED_IO},
+                  priority=30, predicate=lambda s: s.packed)
+def analog_cuda_packed(state, lits: torch.Tensor,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Packed-wire analog kernel (``imbue_infer_packed``): literals as
+    int32 words, g and leak dense float32 (noise as ``analog-cuda``)."""
+    r_stack, one_chip = _as_stack(state)
+    sums = ops.imbue_class_sums_stack_packed(
+        _as_packed_lits(lits), r_stack, state.include, state.icfg,
+        state.tm_cfg, generator, vcfg=state.vcfg, device=state.device)
+    return sums[0] if one_chip else sums
+
+
+@register_backend("analog-cuda-packed2", state_types=_ANALOG_STATES,
                   capabilities={CAP_ANALOG, CAP_FUSED_KERNEL,
                                 CAP_MODELS_C2C, CAP_REPLICA_VMAP,
                                 CAP_PACKED_IO, CAP_PACKED_PLANES},
                   priority=40, predicate=lambda s: s.plane_packed)
-def analog_cuda_packed2(state: ReplicaStackState, lits: torch.Tensor,
+def analog_cuda_packed2(state, lits: torch.Tensor,
                         generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
-    """Plane-packed analog kernel: the resident stack stays compressed
+    """Plane-packed analog kernel: the resident planes stay compressed
     (index bitplane + deviation plane, elided when nominal) and the CUDA
     kernel rebuilds g/leak per column (C2C per read, scalar v_ref — no
     CSA offset, so those reads fall back loudly)."""
-    return ops.imbue_class_sums_stack_planes(
-        _as_packed_lits(lits), state.plane_index, state.plane_dev,
-        state.icfg, state.tm_cfg, generator, vcfg=state.vcfg,
-        l_valid=int(state.include.shape[-1]), n_replicas=state.n_replicas,
-        device=state.device)
+    litw = _as_packed_lits(lits)
+    l_valid = int(state.include.shape[-1])
+    if isinstance(state, ReplicaStackState):
+        return ops.imbue_class_sums_stack_planes(
+            litw, state.plane_index, state.plane_dev, state.icfg,
+            state.tm_cfg, generator, vcfg=state.vcfg, l_valid=l_valid,
+            n_replicas=state.n_replicas, device=state.device)
+    return ops.imbue_class_sums_planes(
+        litw, state.plane_index, state.plane_dev, state.icfg, state.tm_cfg,
+        generator, vcfg=state.vcfg, l_valid=l_valid, device=state.device)
 
 
 @register_backend("coalesced", state_types=(CoalescedState,),
@@ -206,3 +274,15 @@ def class_sums(state, lits: torch.Tensor,
     sel = select_backend(state, generator=generator, prefer=backend,
                          require=require)
     return sel.backend.fn(state, lits, generator)
+
+
+def predict(state, x: torch.Tensor,
+            generator: Optional[torch.Generator] = None, *,
+            backend: Optional[str] = None) -> torch.Tensor:
+    """Argmax classification from raw Boolean features ``[B, F]``.  A
+    replica stack's class sums are summed over its chips before the
+    argmax (``serve.ensemble_vote`` gives the majority vote)."""
+    sums = class_sums(state, tm.literals(x), generator, backend=backend)
+    if isinstance(state, ReplicaStackState):
+        sums = sums.sum(dim=0)
+    return torch.argmax(sums, dim=-1)

@@ -18,8 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, FrozenSet, List, Optional, Tuple, Type
 
-from repro_torch.api.states import (CoalescedState, DigitalState,
-                                     ReplicaStackState)
+from repro_torch.api.states import (CoalescedState, CrossbarState,
+                                     DigitalState, ReplicaStackState)
 
 CAP_DIGITAL = "digital"                     # Boolean-domain evaluation
 CAP_ANALOG = "analog"                       # current-domain crossbar model
@@ -113,16 +113,17 @@ def list_backends() -> List[Backend]:
 def required_capabilities(state, generator=None) -> FrozenSet[str]:
     """The capability floor implied by ``state`` (and a noise generator).
 
-    A replica stack needs single-dispatch replica support; a noisy read
-    against a ``VariationConfig`` with ``csa_offset`` needs a backend that
-    models the per-column CSA offset — the kernel thresholds against one
-    scalar reference and does NOT — and one with ``c2c`` needs C2C.  A
-    coalesced pool needs the weighted digital tail.
+    A replica stack needs single-dispatch replica support; an analog state
+    read noisily against a ``VariationConfig`` with ``csa_offset`` needs a
+    backend that models the per-column CSA offset — the kernels threshold
+    against one scalar reference and do NOT — and one with ``c2c`` needs
+    C2C.  A coalesced pool needs the weighted digital tail.
     """
     noisy = generator is not None
     need = set()
     if isinstance(state, ReplicaStackState):
         need.add(CAP_REPLICA_VMAP)
+    if isinstance(state, (CrossbarState, ReplicaStackState)):
         need.add(CAP_ANALOG)
         if noisy and state.vcfg.csa_offset:
             need.add(CAP_MODELS_CSA_OFFSET)

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core import variations as var
 from repro_torch.core.mapping import CrossbarMapping, pad_to_columns
-from repro_torch.core.tm import TMConfig
+from repro_torch.core.tm import TMConfig, class_sums, literals
 
 # Nominal single-cell read currents (Table I).
 I_INCLUDE_ON = var.V_READ / (var.SERIES_FACTOR * var.LRS_MEAN_OHM)   # ~75.7 uA
@@ -55,6 +55,29 @@ class IMBUEConfig:
         return self.r_divider * 0.5 * (I_INCLUDE_ON - self.width * I_EXCLUDE_ON)
 
 
+@dataclasses.dataclass
+class ProgrammedCrossbar:
+    """A crossbar with TA actions programmed into memristor states."""
+
+    r_mem: torch.Tensor        # [C, L] programmed memristor resistance (Ω)
+    include: torch.Tensor      # [C, L] bool TA actions
+    mapping: CrossbarMapping
+    cfg: IMBUEConfig
+
+
+def program_crossbar(include: torch.Tensor,
+                     generator: Optional[torch.Generator],
+                     vcfg: var.VariationConfig = var.VariationConfig(),
+                     cfg: IMBUEConfig = IMBUEConfig()) -> ProgrammedCrossbar:
+    """One-time programming: D2D drawn at SET/RESET time."""
+    c, l = include.shape
+    r_mem = var.sample_device_resistance(generator, include, vcfg)
+    return ProgrammedCrossbar(
+        r_mem=r_mem, include=include,
+        mapping=CrossbarMapping(n_clauses=c, n_literals=l, width=cfg.width),
+        cfg=cfg)
+
+
 def conductances(r_mem: torch.Tensor, include: torch.Tensor, cfg: IMBUEConfig,
                  generator: Optional[torch.Generator] = None,
                  vcfg: var.VariationConfig = var.VariationConfig()):
@@ -72,6 +95,13 @@ def conductances(r_mem: torch.Tensor, include: torch.Tensor, cfg: IMBUEConfig,
     return g_on, i_leak
 
 
+def cell_conductances(xbar: ProgrammedCrossbar,
+                      generator: Optional[torch.Generator],
+                      vcfg: var.VariationConfig):
+    """Per-cell on-path conductance and leak current for this read."""
+    return conductances(xbar.r_mem, xbar.include, xbar.cfg, generator, vcfg)
+
+
 def column_currents_raw(g_on: torch.Tensor, i_leak: torch.Tensor,
                         lits: torch.Tensor, mapping: CrossbarMapping,
                         cfg: IMBUEConfig) -> torch.Tensor:
@@ -84,6 +114,15 @@ def column_currents_raw(g_on: torch.Tensor, i_leak: torch.Tensor,
     on = torch.einsum("bkw,...ckw->...bck", lit0, g_f)
     leak = torch.einsum("bkw,...ckw->...bck", lit1, leak_f)
     return on + leak
+
+
+def column_currents(xbar: ProgrammedCrossbar, lits: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    vcfg: var.VariationConfig = var.VariationConfig()
+                    ) -> torch.Tensor:
+    """KCL column currents ``[B, C, columns_per_clause]`` (amps)."""
+    g_on, i_leak = cell_conductances(xbar, generator, vcfg)
+    return column_currents_raw(g_on, i_leak, lits, xbar.mapping, xbar.cfg)
 
 
 def csa_sense(i_col: torch.Tensor, cfg: IMBUEConfig,
@@ -118,6 +157,36 @@ def analog_clause_outputs_raw(
     i_col = column_currents_raw(g_on, i_leak, lits, mapping, cfg)
     partial = csa_sense(i_col, cfg, g_csa, vcfg)             # [..., B, C, K]
     return partial.amin(dim=-1)                               # AND over cols
+
+
+def analog_clause_outputs(xbar: ProgrammedCrossbar, lits: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          vcfg: var.VariationConfig = var.VariationConfig()
+                          ) -> torch.Tensor:
+    """Full clause outputs ``[B, C]`` via the partial-clause AND."""
+    return analog_clause_outputs_raw(xbar.r_mem, xbar.include, lits,
+                                     xbar.mapping, xbar.cfg, generator, vcfg)
+
+
+def analog_forward(xbar: ProgrammedCrossbar, x: torch.Tensor,
+                   tm_cfg: TMConfig,
+                   generator: Optional[torch.Generator] = None,
+                   vcfg: var.VariationConfig = var.VariationConfig()
+                   ) -> torch.Tensor:
+    """Class sums ``[B, M]`` from the analog crossbar; empty clauses are
+    masked by the digital tail."""
+    cls = analog_clause_outputs(xbar, literals(x), generator, vcfg)
+    cls = cls * xbar.include.any(dim=-1)[None, :].to(cls.dtype)
+    return class_sums(cls, tm_cfg)
+
+
+def analog_predict(xbar: ProgrammedCrossbar, x: torch.Tensor,
+                   tm_cfg: TMConfig,
+                   generator: Optional[torch.Generator] = None,
+                   vcfg: var.VariationConfig = var.VariationConfig()
+                   ) -> torch.Tensor:
+    return torch.argmax(analog_forward(xbar, x, tm_cfg, generator, vcfg),
+                        dim=-1)
 
 
 def program_replica_stack(include: torch.Tensor,

@@ -10,8 +10,12 @@ reference takes a jax key.  The two give different numbers from the same
 seed, so the parity tests feed both packages numpy-drawn arrays and check
 these samplers by distribution.
 
-``FaultConfig`` is ported as configuration only; fault injection comes
-with a later slice.
+The persistent fault model is the reference's too: ``sample_fault_mask``
+draws one uniform per cell into disjoint stuck-at-LRS / stuck-at-HRS
+bands (int8 codes), and ``apply_fault_overlay`` pins stuck cells at the
+nominal means and ages the healthy ones by the retention drift, in the
+reference's op order, so the same resistances and mask give the same
+float32 bits.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import dataclasses
 import math
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 # --- published device constants (Table I, §III-C) -------------------------
@@ -157,3 +162,61 @@ def csa_offset(generator: torch.Generator, shape, cfg: VariationConfig,
     if not cfg.csa_offset:
         return torch.zeros(shape, dtype=torch.float32, device=device)
     return cfg.csa_sigma_v * _normal(generator, shape, device)
+
+
+def sample_fault_mask(generator: torch.Generator, shape, fcfg: FaultConfig,
+                      device=None) -> torch.Tensor:
+    """A persistent per-cell fault mask (int8 codes): one uniform per cell,
+    ``u < p_lrs`` stuck at LRS, ``p_lrs <= u < p_lrs + p_hrs`` stuck at
+    HRS, the rest healthy, so the two stuck populations never overlap."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    p_lrs = fcfg.stuck_lrs_rate
+    p_hrs = fcfg.stuck_hrs_rate
+    mask = torch.where(u < p_lrs, FAULT_STUCK_LRS,
+                       torch.where(u < p_lrs + p_hrs, FAULT_STUCK_HRS,
+                                   FAULT_NONE))
+    return mask.to(torch.int8)
+
+
+def apply_fault_overlay(r_mem: torch.Tensor, mask: torch.Tensor,
+                        fcfg: FaultConfig) -> torch.Tensor:
+    """Bake a fault mask into programmed resistances: stuck cells read at
+    the nominal LRS/HRS mean whatever was programmed; healthy cells drift,
+    their resistance scaled by ``exp(drift_rate * read_age)`` (computed in
+    double on the host, rounded to float32 once).  Returns ``r_mem``
+    itself when ``fcfg`` is nominal."""
+    if fcfg.is_nominal:
+        return r_mem
+    drift = np.float32(math.exp(fcfg.drift_rate * fcfg.read_age))
+    drifted = r_mem * torch.tensor(drift, device=r_mem.device)
+    return torch.where(mask == FAULT_STUCK_LRS, LRS_MEAN_OHM,
+                       torch.where(mask == FAULT_STUCK_HRS, HRS_MEAN_OHM,
+                                   drifted)).to(torch.float32)
+
+
+def merge_fault_masks(mask: torch.Tensor,
+                      old: Optional[torch.Tensor]) -> torch.Tensor:
+    """Re-injection compounds: the new codes win, old faults stay."""
+    return mask if old is None else torch.where(mask != 0, mask, old)
+
+
+def inject_stack_faults(generator: torch.Generator, r_stack: torch.Tensor,
+                        fcfg: FaultConfig, replicas=None,
+                        old_mask: Optional[torch.Tensor] = None):
+    """Faults baked into the chips ``replicas`` (all when None) of an
+    ``[R, C, L]`` stack: ``(injured r_stack, merged int8 mask)``.  Each
+    chip draws its mask from its own split of ``generator``, so chip
+    ``i``'s defects do not depend on which chips are targeted; the other
+    chips keep their resistances bit for bit."""
+    n = r_stack.shape[0]
+    gens = split_generator(generator, n)
+    mask = torch.stack([sample_fault_mask(g, r_stack.shape[1:], fcfg,
+                                          r_stack.device) for g in gens])
+    injured = apply_fault_overlay(r_stack, mask, fcfg)
+    if replicas is not None:
+        sel = torch.zeros(n, dtype=torch.bool, device=r_stack.device)
+        sel[list(replicas)] = True
+        mask = torch.where(sel[:, None, None], mask, 0).to(torch.int8)
+        injured = torch.where(sel[:, None, None], injured, r_stack)
+    return injured, merge_fault_masks(mask, old_mask)

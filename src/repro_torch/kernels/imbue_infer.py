@@ -1,10 +1,25 @@
-"""The ``imbue_infer_planes`` kernel: wrapper, plain version and launch
-counter (port of ``repro.kernels.imbue_infer.imbue_infer_planes_call``).
+"""The analog IMBUE kernels: wrappers, plain versions and launch counters
+(port of ``repro.kernels.imbue_infer``).
 
-``imbue_infer_planes(litw, incw, dev, pol, scal)`` computes analog class
-sums ``[R, B, M]`` int32 from packed literals and a plane-packed replica
-stack (see ``csrc/imbue_infer_planes.cu`` for the arithmetic, the bound
-and the design):
+All three compute analog class sums ``[R, B, M]`` int32, R a grid axis of
+the kernel (one launch per replica stack):
+
+* ``imbue_infer_planes(litw, incw, dev, pol, scal)`` — packed literals and
+  a plane-packed stack; the kernel rebuilds g and leak per column
+  (``imbue_infer_planes_kernel``, ``csrc/imbue_infer_planes.cu``);
+* ``imbue_infer_packed(litw, g, leak, pol, i_ref, v_read)`` — packed
+  literals and dense float32 ``g`` / ``leak`` planes
+  (``imbue_infer_packed_kernel``, ``csrc/imbue_infer_packed.cu``);
+* ``imbue_infer(lits, g, leak, pol, i_ref, v_read)`` — the same from one
+  byte a literal (``imbue_infer_kernel``, ``csrc/imbue_infer.cu``).
+
+The two dense-plane kernels share ``csrc/imbue_dense.cuh`` (the
+arithmetic, the bound and the design).  Their operands, in the states'
+own layouts: ``litw [B, ceil(L/32)]`` int32 words or ``lits [B, L]``
+uint8, ``g`` and ``leak [R, C, L]`` float32, ``pol [C, M]`` int32, and
+``i_ref = v_ref / r_divider`` and ``v_read`` as float32 values.
+
+``imbue_infer_planes`` takes:
 
 * ``litw``  ``[B, Lw]`` int32 literal words;
 * ``incw``  ``[C, Lw]`` int32 include-index words (the state's
@@ -16,10 +31,10 @@ and the design):
 * ``scal``  the electrical scalars, each rounded to float32 once on the
   host, as the reference does.
 
-On CPU tensors the wrapper computes with :func:`imbue_infer_planes_ref`,
-the plain PyTorch version with the same signature.  On CUDA tensors it
-launches the hand-written kernel or raises — there is no fallback.
-``imbue_infer_planes.launches`` counts kernel launches, nothing else.
+On CPU tensors a wrapper computes with its plain PyTorch version (same
+signature, ``<name>_ref``).  On CUDA tensors it launches its hand-written
+kernel or raises — there is no fallback.  ``<wrapper>.launches`` counts
+kernel launches, nothing else.
 """
 
 from __future__ import annotations
@@ -32,11 +47,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bitpack import WORD, unpack_bits
+from repro_torch.kernels.bitpack import WORD, unpack_bits, words_for
 
 KERNEL = "imbue_infer_planes"
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
              + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+# <name>_launch(lits, g, leak, pol, out, R, B, L, C, M, i_ref, v_read,
+# stream) for both dense-plane kernels.
+_DENSE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
 def _f32(x: float) -> float:
@@ -99,9 +118,7 @@ def imbue_infer_planes_ref(litw: torch.Tensor, incw: torch.Tensor,
                            scal: PlaneScalars) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same signature, same float32
     reconstruction op order; column sums via einsum)."""
-    b, lw = litw.shape
-    c, m = pol.shape
-    lp = lw * WORD
+    lp = litw.shape[1] * WORD
     bits_inc = unpack_bits(incw, lp).to(torch.bool)             # [C, Lp]
     r_nom = torch.where(bits_inc, scal.r_lrs, scal.r_hrs).to(torch.float32)
     if dev is None:
@@ -114,13 +131,25 @@ def imbue_infer_planes_ref(litw: torch.Tensor, incw: torch.Tensor,
                            scal.leak_exc).to(torch.float32)
     leak = torch.where(valid, leak_nom * (r_nom / r), 0.0)     # [R, C, Lp]
     lits = unpack_bits(litw, lp).to(torch.float32)              # [B, Lp]
-    v_drive = (1.0 - lits) * scal.v_read
-    rr = r.shape[0]
+    return _class_sums_ref(lits, g, leak, pol, scal.i_ref, scal.v_read)
+
+
+def _class_sums_ref(lits: torch.Tensor, g: torch.Tensor, leak: torch.Tensor,
+                    pol: torch.Tensor, i_ref: float,
+                    v_read: float) -> torch.Tensor:
+    """The plain versions' shared tail: 0/1 float literals ``[B, Lp]``
+    and cell planes ``[R, C, Lp]`` (``Lp`` a multiple of 32, zero past the
+    real literals) -> column currents as two einsums -> CSA compare ->
+    AND over columns -> ``[R, B, M]`` int32 class sums."""
+    b, lp = lits.shape
+    rr, c, _ = g.shape
+    lw = lp // WORD
+    v_drive = (1.0 - lits) * v_read
     i_on = torch.einsum("bkw,rckw->rbck", v_drive.view(b, lw, WORD),
                         g.reshape(rr, c, lw, WORD))
     i_leak = torch.einsum("bkw,rckw->rbck", lits.view(b, lw, WORD),
                           leak.reshape(rr, c, lw, WORD))
-    clause = ((i_on + i_leak) < scal.i_ref).all(dim=-1)         # [R, B, C]
+    clause = ((i_on + i_leak) < i_ref).all(dim=-1)              # [R, B, C]
     # 0/1 clauses x {-1, 0, 1} polarity: exact integers in float32.
     return (clause.to(torch.float32) @ pol.to(torch.float32)).to(torch.int32)
 
@@ -156,4 +185,105 @@ def imbue_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
     return out
 
 
+# ------------------------------------------------- the dense-plane kernels
+
+def _check_dense(name: str, lits: torch.Tensor, g: torch.Tensor,
+                 leak: torch.Tensor, pol: torch.Tensor, packed: bool) -> None:
+    if g.dtype != torch.float32 or g.ndim != 3:
+        raise ValueError(f"{name}: g must be [R, C, L] float32, got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    if leak.dtype != torch.float32 or leak.shape != g.shape:
+        raise ValueError(f"{name}: leak must be {tuple(g.shape)} float32, "
+                         f"got {tuple(leak.shape)} {leak.dtype}")
+    _, c, l = g.shape
+    width, dtype = (words_for(l), torch.int32) if packed else (l, torch.uint8)
+    if lits.dtype != dtype or lits.ndim != 2 or lits.shape[1] != width:
+        raise ValueError(f"{name}: literals must be [B, {width}] {dtype}, "
+                         f"got {tuple(lits.shape)} {lits.dtype}")
+    if pol.dtype != torch.int32 or pol.ndim != 2 or pol.shape[0] != c:
+        raise ValueError(f"{name}: pol must be [{c}, M] int32, got "
+                         f"{tuple(pol.shape)} {pol.dtype}")
+    tensors = (lits, g, leak, pol)
+    if any(t.device != lits.device for t in tensors):
+        raise ValueError(f"{name} operands are on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} operands must be contiguous")
+
+
+def _pad_cells(x: torch.Tensor, lp: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, lp - x.shape[-1]))
+
+
+def imbue_infer_packed_ref(litw: torch.Tensor, g: torch.Tensor,
+                           leak: torch.Tensor, pol: torch.Tensor,
+                           i_ref: float, v_read: float) -> torch.Tensor:
+    """Plain PyTorch version of ``imbue_infer_packed`` (same signature)."""
+    lp = litw.shape[1] * WORD
+    return _class_sums_ref(unpack_bits(litw, lp).to(torch.float32),
+                           _pad_cells(g, lp), _pad_cells(leak, lp), pol,
+                           _f32(i_ref), _f32(v_read))
+
+
+def imbue_infer_ref(lits: torch.Tensor, g: torch.Tensor, leak: torch.Tensor,
+                    pol: torch.Tensor, i_ref: float,
+                    v_read: float) -> torch.Tensor:
+    """Plain PyTorch version of ``imbue_infer`` (same signature)."""
+    lp = words_for(lits.shape[1]) * WORD
+    return _class_sums_ref(_pad_cells(lits.to(torch.float32), lp),
+                           _pad_cells(g, lp), _pad_cells(leak, lp), pol,
+                           _f32(i_ref), _f32(v_read))
+
+
+def _launch_dense(wrapper, lits: torch.Tensor, g: torch.Tensor,
+                  leak: torch.Tensor, pol: torch.Tensor, i_ref: float,
+                  v_read: float) -> torch.Tensor:
+    """Launch ``wrapper``'s kernel on CUDA operands and count the launch
+    on ``wrapper.launches``; returns ``[R, B, M]`` int32."""
+    name = wrapper.__name__
+    if lits.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not "
+                         f"{lits.device}")
+    r, c, l = g.shape
+    b, m = lits.shape[0], pol.shape[1]
+    out = torch.zeros((r, b, m), dtype=torch.int32, device=lits.device)
+    if r == 0 or b == 0 or c == 0 or m == 0:
+        return out
+    launch = _build.load(name, _DENSE_ARGTYPES)
+    with torch.cuda.device(lits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(lits.data_ptr(), g.data_ptr(), leak.data_ptr(),
+                     pol.data_ptr(), out.data_ptr(), r, b, l, c, m,
+                     _f32(i_ref), _f32(v_read), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def imbue_infer_packed(litw: torch.Tensor, g: torch.Tensor,
+                       leak: torch.Tensor, pol: torch.Tensor, i_ref: float,
+                       v_read: float) -> torch.Tensor:
+    """``[R, B, M]`` int32 class sums from packed literal words and dense
+    ``[R, C, L]`` conductance / leak planes."""
+    _check_dense("imbue_infer_packed", litw, g, leak, pol, packed=True)
+    if litw.device.type == "cpu":
+        return imbue_infer_packed_ref(litw, g, leak, pol, i_ref, v_read)
+    return _launch_dense(imbue_infer_packed, litw, g, leak, pol, i_ref,
+                         v_read)
+
+
+def imbue_infer(lits: torch.Tensor, g: torch.Tensor, leak: torch.Tensor,
+                pol: torch.Tensor, i_ref: float,
+                v_read: float) -> torch.Tensor:
+    """``[R, B, M]`` int32 class sums from 0/1 literal bytes and dense
+    ``[R, C, L]`` conductance / leak planes."""
+    _check_dense("imbue_infer", lits, g, leak, pol, packed=False)
+    if lits.device.type == "cpu":
+        return imbue_infer_ref(lits, g, leak, pol, i_ref, v_read)
+    return _launch_dense(imbue_infer, lits, g, leak, pol, i_ref, v_read)
+
+
 imbue_infer_planes.launches = 0
+imbue_infer_packed.launches = 0
+imbue_infer.launches = 0

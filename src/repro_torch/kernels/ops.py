@@ -1,11 +1,16 @@
-"""Public wrappers around the port's kernels (port of the plane-packed
-and digital / coalesced fused parts of ``repro.kernels.ops``).
+"""Public wrappers around the port's kernels (port of the fused parts of
+``repro.kernels.ops``).
 
 * ``polarity_matrix(cfg, include)``             -> [C, M] signed one-hot
 * ``coalesced_combine(w, nonempty)``            -> [C, M] weighted combine
 * ``pack_literals(lits)``                       -> [.., ceil(L/32)] int32
 * ``imbue_class_sums_planes(litw, idx, dev)``   -> [B, M] analog sums
 * ``imbue_class_sums_stack_planes(litw, ...)``  -> [R, B, M], one launch
+* ``imbue_class_sums_raw(lits, g, leak, ...)``  -> [B, M], dense planes
+* ``imbue_class_sums_raw_packed(litw, ...)``    -> [B, M], packed literals
+* ``imbue_class_sums(lits, xbar, cfg)``         -> [B, M], one crossbar
+* ``imbue_class_sums_stack(lits, r_stack, ...)``  -> [R, B, M], one launch
+* ``imbue_class_sums_stack_packed(litw, ...)``  -> [R, B, M], one launch
 * ``tm_class_sums(lits, include, cfg)``         -> [B, M] digital, fused
 * ``tm_class_sums_packed(litw, incw, cfg)``     -> [B, M] AND + popcount
 * ``coalesced_class_sums(lits, include, w)``    -> [B, M] weighted tail
@@ -21,9 +26,12 @@ The plane-packed resident operand is the include-index bitplane plus an
 optional per-cell additive deviation plane (``dev = r - r_nom``).  C2C
 noise is drawn per read here, before the kernel, exactly as the
 reference draws it in jnp: the deviation plane becomes
-``apply_c2c(generator, r_nom + dev, include, vcfg) - r_nom``.  The CSA
-offset is not modelled (scalar reference); capability selection routes
-such reads to ``analog-torch``.
+``apply_c2c(generator, r_nom + dev, include, vcfg) - r_nom``.  The dense
+tiers read the programmed resistances: the conductance and leak planes
+``[R, C, L]`` (with the read's C2C draw, when a generator is given) are
+built here in the reference's op order (``core.imbue.conductances``)
+before the one launch.  The CSA offset is not modelled (scalar
+reference); capability selection routes such reads to ``analog-torch``.
 
 No tile padding is needed: the CUDA kernel masks the ragged batch and
 clause edges itself, and the word padding past ``l_valid`` is masked by
@@ -39,12 +47,15 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import variations as var
-from repro_torch.core.imbue import IMBUEConfig
+from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
+                                    cell_conductances, conductances)
 from repro_torch.core.tm import TMConfig, polarity
 from repro_torch.kernels import bitpack
 from repro_torch.kernels.clause_eval import (tm_infer, tm_infer_packed,
                                              tm_infer_planes)
-from repro_torch.kernels.imbue_infer import PlaneScalars, imbue_infer_planes
+from repro_torch.kernels.imbue_infer import (PlaneScalars, _f32, imbue_infer,
+                                             imbue_infer_packed,
+                                             imbue_infer_planes)
 
 
 def polarity_matrix(cfg: TMConfig, include: Optional[torch.Tensor] = None,
@@ -156,6 +167,141 @@ def imbue_class_sums_planes(
         l_valid=l_valid, n_replicas=1, device=device)[0]
 
 
+# ------------------------------------------------ analog, dense planes
+
+def _dense_class_sums(kernel, lits: torch.Tensor, g: torch.Tensor,
+                      leak: torch.Tensor, include: torch.Tensor,
+                      v_read: float, r_div: float, v_ref: float,
+                      cfg: TMConfig, width: int) -> torch.Tensor:
+    """One launch of ``kernel`` on ``[R, C, L]`` planes (on ``lits``'
+    device) -> ``[R, B, M]`` int32."""
+    if width != bitpack.WORD:
+        raise ValueError(f"the analog kernels sense {bitpack.WORD}-cell "
+                         f"columns; IMBUEConfig.width is {width}")
+    device = lits.device
+    g = g.to(device=device, dtype=torch.float32).contiguous()
+    leak = leak.to(device=device, dtype=torch.float32).contiguous()
+    pol = polarity_matrix(cfg, include.to(device=device, dtype=torch.bool),
+                          device=device)
+    return kernel(lits, g, leak, pol.contiguous(), _f32(v_ref / r_div),
+                  _f32(v_read))
+
+
+def _lits(lits: torch.Tensor, device: DeviceLike) -> torch.Tensor:
+    return lits.to(device=resolve_device(device),
+                   dtype=torch.uint8).contiguous()
+
+
+def _litw(litw: torch.Tensor, device: DeviceLike) -> torch.Tensor:
+    return litw.to(device=resolve_device(device),
+                   dtype=torch.int32).contiguous()
+
+
+def imbue_class_sums_raw(
+    lits: torch.Tensor,               # [B, L] 0/1 literals
+    g_on: torch.Tensor,               # [C, L] on-path conductance (S)
+    i_leak: torch.Tensor,             # [C, L] leak currents (A)
+    include: torch.Tensor,            # [C, L] bool (empty-clause mask)
+    v_read: float,
+    r_div: float,
+    v_ref: float,
+    cfg: TMConfig,
+    *,
+    width: int = bitpack.WORD,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Fused analog inference on explicit conductances -> ``[B, M]`` int32
+    (the ``imbue_infer`` kernel)."""
+    return _dense_class_sums(imbue_infer, _lits(lits, device), g_on[None],
+                             i_leak[None], include, v_read, r_div, v_ref,
+                             cfg, width)[0]
+
+
+def imbue_class_sums_raw_packed(
+    litw: torch.Tensor,               # [B, ceil(L/32)] int32 literal words
+    g_on: torch.Tensor,               # [C, L] on-path conductance (S)
+    i_leak: torch.Tensor,             # [C, L] leak currents (A)
+    include: torch.Tensor,            # [C, L] bool (empty-clause mask)
+    v_read: float,
+    r_div: float,
+    v_ref: float,
+    cfg: TMConfig,
+    *,
+    width: int = bitpack.WORD,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Fused analog inference from packed literals -> ``[B, M]`` int32
+    (the ``imbue_infer_packed`` kernel; the planes stay dense float32)."""
+    return _dense_class_sums(imbue_infer_packed, _litw(litw, device),
+                             g_on[None], i_leak[None], include, v_read,
+                             r_div, v_ref, cfg, width)[0]
+
+
+def imbue_class_sums(lits: torch.Tensor, xbar: ProgrammedCrossbar,
+                     cfg: TMConfig, *,
+                     generator: Optional[torch.Generator] = None,
+                     vcfg: Optional[var.VariationConfig] = None,
+                     device: DeviceLike = None) -> torch.Tensor:
+    """Fused analog inference from a ``ProgrammedCrossbar`` (one read, C2C
+    drawn from ``generator`` when given) -> ``[B, M]`` int32."""
+    vcfg = vcfg or var.VariationConfig.nominal()
+    g_on, i_leak = cell_conductances(xbar, generator, vcfg)
+    return imbue_class_sums_raw(
+        lits, g_on, i_leak, xbar.include, xbar.cfg.v_read,
+        xbar.cfg.r_divider, xbar.cfg.reference_voltage(), cfg,
+        width=xbar.cfg.width, device=device)
+
+
+def _stack_sums(kernel, lits: torch.Tensor, r_stack: torch.Tensor,
+                include: torch.Tensor, icfg: IMBUEConfig, cfg: TMConfig,
+                generator: Optional[torch.Generator],
+                vcfg: Optional[var.VariationConfig]) -> torch.Tensor:
+    vcfg = vcfg or var.VariationConfig.nominal()
+    include = include.to(device=lits.device, dtype=torch.bool)
+    g_on, i_leak = conductances(r_stack.to(lits.device), include, icfg,
+                                generator, vcfg)           # [R, C, L] each
+    return _dense_class_sums(kernel, lits, g_on, i_leak, include,
+                             icfg.v_read, icfg.r_divider,
+                             icfg.reference_voltage(), cfg, icfg.width)
+
+
+def imbue_class_sums_stack(
+    lits: torch.Tensor,               # [B, L] 0/1 literals
+    r_stack: torch.Tensor,            # [R, C, L] programmed resistances
+    include: torch.Tensor,            # [C, L] bool (shared TA actions)
+    icfg: IMBUEConfig,
+    cfg: TMConfig,
+    generator: Optional[torch.Generator] = None,
+    *,
+    vcfg: Optional[var.VariationConfig] = None,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Replica-stack inference -> ``[R, B, M]`` int32 in ONE launch (R is
+    a grid axis of ``imbue_infer``).  The conductance planes are built
+    eagerly in ``[R, C, L]`` first; a C2C read (``generator`` given and
+    ``vcfg.c2c``) draws fresh noise for every cell of every replica."""
+    return _stack_sums(imbue_infer, _lits(lits, device), r_stack, include,
+                       icfg, cfg, generator, vcfg)
+
+
+def imbue_class_sums_stack_packed(
+    litw: torch.Tensor,               # [B, ceil(L/32)] int32 literal words
+    r_stack: torch.Tensor,            # [R, C, L] programmed resistances
+    include: torch.Tensor,            # [C, L] bool (shared TA actions)
+    icfg: IMBUEConfig,
+    cfg: TMConfig,
+    generator: Optional[torch.Generator] = None,
+    *,
+    vcfg: Optional[var.VariationConfig] = None,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Packed-literal replica-stack inference -> ``[R, B, M]`` int32 in
+    ONE launch of ``imbue_infer_packed``; noise as
+    :func:`imbue_class_sums_stack`."""
+    return _stack_sums(imbue_infer_packed, _litw(litw, device), r_stack,
+                       include, icfg, cfg, generator, vcfg)
+
+
 # ------------------------------------------- digital / coalesced, fused
 
 def coalesced_combine(weights: torch.Tensor,
@@ -169,16 +315,15 @@ def coalesced_combine(weights: torch.Tensor,
 
 def _packed_operands(litw: torch.Tensor, include_w: torch.Tensor,
                      device: DeviceLike):
-    device = resolve_device(device)
-    return (litw.to(device=device, dtype=torch.int32).contiguous(),
-            include_w.to(device=device, dtype=torch.int32).contiguous())
+    litw = _litw(litw, device)
+    return litw, include_w.to(device=litw.device,
+                              dtype=torch.int32).contiguous()
 
 
 def _dense_operands(lits: torch.Tensor, include: torch.Tensor,
                     device: DeviceLike):
-    device = resolve_device(device)
-    return (lits.to(device=device, dtype=torch.uint8).contiguous(),
-            include.to(device=device, dtype=torch.bool).contiguous())
+    lits = _lits(lits, device)
+    return lits, include.to(device=lits.device, dtype=torch.bool).contiguous()
 
 
 def tm_class_sums(lits: torch.Tensor, include: torch.Tensor, cfg: TMConfig,

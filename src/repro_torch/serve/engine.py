@@ -15,16 +15,21 @@ A coalesced pool (``ServeEngine.from_coalesced``) is one shared chip
 behind the same surface: every route lands on it, the backend returns
 ``[B, M]`` sums and ensemble routing reduces to the argmax.
 
-The backend is selected once at construction; a fallback (e.g. a
-``csa_offset`` pool, which the kernel does not model, going to
+The backend is selected once at construction, down the reference's
+ladder: ``analog-cuda-packed2`` for a plane-packed state (the default),
+``analog-cuda-packed`` with ``EngineConfig(pack_planes=False)``,
+``analog-cuda`` with ``EngineConfig(packed=False)``.  A fallback (e.g. a
+``csa_offset`` pool, which the kernels do not model, going to
 ``analog-torch``) warns and is counted per dispatch in ``ServeMetrics``.
 The engine is synchronous: ``pump()`` cuts and dispatches every due
 batch, and each dispatch is collected before the next.  An injectable
 ``clock`` makes deadline behaviour deterministic under test, and every
 analog read draws its noise from one engine-owned ``torch.Generator``.
 
-The asynchronous engine (CUDA streams and events), canary, hot swap,
-health probes and repair come with later slices.
+``inject_faults`` (the chaos surface) hurts the serving pool in place,
+between dispatches, and re-packs its state: a nominal plane-packed pool
+grows a deviation plane.  The asynchronous engine (CUDA streams and
+events), canary, hot swap and health probes come with later slices.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ from repro_torch.core import tm
 from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.tm import TMConfig
-from repro_torch.core.variations import VariationConfig, split_generator
+from repro_torch.core.variations import (FaultConfig, VariationConfig,
+                                         split_generator)
 from repro_torch.serve.batching import (QOS_BULK, Batch, BatcherConfig,
                                         DynamicBatcher, QueueFull,
                                         validate_qos)
@@ -57,14 +63,15 @@ from repro_torch.serve.replica import (CoalescedPool, ReplicaPool,
 ENSEMBLE = -1      # Response.replica value when every chip voted
 EXPIRED = -3       # Response.replica value when the deadline expired queued
 
-# The default backend preferences: the plane-packed CUDA kernel when the
-# pool state is plane-packed (the default), else the eager analog path.
-# Capability selection overrides either when the pool's noise model needs
-# physics the kernel does not implement.
-DEFAULT_BACKEND = "analog-torch"
+# The default backend preferences, the reference's ladder: the
+# plane-packed kernel when the pool state is plane-packed (the default),
+# the packed-literal kernel when it is packed, else the dense kernel.
+# Capability selection overrides each when the pool's noise model needs
+# physics the kernels do not implement.
+DEFAULT_BACKEND = "analog-cuda"
+DEFAULT_PACKED_BACKEND = "analog-cuda-packed"
 DEFAULT_PLANES_BACKEND = "analog-cuda-packed2"
-# Coalesced pools get the reference's ladder in their own family: the
-# plane-packed kernel, the packed one, the dense one.
+# Coalesced pools get the same ladder in their own family.
 DEFAULT_COALESCED_BACKEND = "coalesced-cuda"
 DEFAULT_COALESCED_PACKED_BACKEND = "coalesced-cuda-packed"
 DEFAULT_COALESCED_PLANES_BACKEND = "coalesced-cuda-packed2"
@@ -74,8 +81,8 @@ def _resident_model_nbytes(state, backend: api.Backend) -> int:
     """Programmed-model operand bytes one dispatch of ``state`` reads:
     the int32 index bitplane plus the optional f32 deviation plane for the
     plane-packed backends; the include plane (int32 words when packed,
-    4 bytes a cell otherwise, as the reference counts) for a coalesced
-    pool; two f32 planes per cell for the dense analog paths."""
+    4 bytes a cell otherwise, as the reference counts) for a coalesced or
+    digital state; two f32 planes per cell for the dense analog paths."""
     if CAP_PACKED_PLANES in backend.capabilities and state.plane_packed:
         n = state.plane_index.numel() * 4
         dev = getattr(state, "plane_dev", None)
@@ -86,7 +93,11 @@ def _resident_model_nbytes(state, backend: api.Backend) -> int:
         if CAP_PACKED_IO in backend.capabilities and state.packed:
             return state.include_packed.numel() * 4
         return state.ta_state.numel() * 4
-    return 2 * state.r_stack.numel() * 4
+    if isinstance(state, api.ReplicaStackState):
+        return 2 * state.r_stack.numel() * 4
+    if isinstance(state, api.CrossbarState):
+        return 2 * state.r_mem.numel() * 4
+    return state.include.numel() * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,17 +149,12 @@ class ServeEngine:
     ):
         self.device = resolve_device(device)
         pool = pool.to(self.device)
-        self.pool = pool
         self.tm_cfg = tm_cfg     # a CoalescedConfig for a coalesced pool
         self.ecfg = ecfg
         self.clock = clock
         self.metrics = ServeMetrics()
         self.router: RouterState = pool.router()
-        self.state = pool.state(tm_cfg)
-        if ecfg.packed:
-            self.state = self.state.pack()
-            if ecfg.pack_planes:
-                self.state = self.state.pack_planes()
+        self.state = self._state_of(pool)
         self._generator = (generator if generator is not None else
                            torch.Generator(device=self.device).manual_seed(0))
         self._noise_free = not (pool.vcfg.c2c or pool.vcfg.csa_offset)
@@ -162,6 +168,7 @@ class ServeEngine:
                        else DEFAULT_COALESCED_BACKEND)
         else:
             default = (DEFAULT_PLANES_BACKEND if self.state.plane_packed
+                       else DEFAULT_PACKED_BACKEND if self.state.packed
                        else DEFAULT_BACKEND)
         self.selection: api.Selection = api.select_backend(
             self.state, generator=sel_gen, prefer=ecfg.backend or default)
@@ -175,17 +182,7 @@ class ServeEngine:
         # packed kernel also falls back to the dense uint8 queue.
         self.packed_io = CAP_PACKED_IO in self.backend.capabilities
         self.batcher = DynamicBatcher(ecfg.batcher, packed=self.packed_io)
-        # Single-replica views for routed dispatch; a coalesced pool has
-        # one shared chip, so every route lands on the full state.
-        if hasattr(self.state, "replica_slice"):
-            self._slices = [self.state.replica_slice(i)
-                            for i in range(pool.n_replicas)]
-        else:
-            self._slices = [self.state] * pool.n_replicas
-        self._resident_full = _resident_model_nbytes(self.state,
-                                                     self.backend)
-        self._resident_slice = _resident_model_nbytes(self._slices[0],
-                                                      self.backend)
+        self._set_pool(pool, self.state)
         self._mask_one = torch.ones(1, dtype=torch.bool, device=self.device)
         self._next_rid = 0
         self._submitted: List[int] = []
@@ -240,6 +237,57 @@ class ServeEngine:
                              cfg=cfg)
         return cls(pool, cfg, ecfg, generator=generator, clock=clock,
                    device=device)
+
+    def _state_of(self, pool):
+        """The pool's backend state in this engine's wire format."""
+        state = pool.state(self.tm_cfg)
+        if self.ecfg.packed:
+            state = state.pack()
+            if self.ecfg.pack_planes:
+                state = state.pack_planes()
+        return state
+
+    def _set_pool(self, pool, state=None) -> None:
+        """Replace the serving pool, its state and the routed slices in one
+        step, between dispatches.  Same shapes and static configs, so the
+        selected backend stays."""
+        state = self._state_of(pool) if state is None else state
+        self.pool = pool
+        self.state = state
+        # Single-replica views for routed dispatch; a coalesced pool has
+        # one shared chip, so every route lands on the full state.
+        if hasattr(state, "replica_slice"):
+            self._slices = [state.replica_slice(i)
+                            for i in range(pool.n_replicas)]
+        else:
+            self._slices = [state] * pool.n_replicas
+        self._refresh_resident_nbytes()
+
+    def _refresh_resident_nbytes(self) -> None:
+        """Per-dispatch resident operand bytes for the full state (ensemble)
+        and one slice (routed), recomputed whenever the pool changes: an
+        injury can grow a nominal plane-packed pool a deviation plane."""
+        self._resident_full = _resident_model_nbytes(self.state,
+                                                     self.backend)
+        self._resident_slice = _resident_model_nbytes(self._slices[0],
+                                                      self.backend)
+
+    def inject_faults(self, generator: torch.Generator,
+                      fcfg: Optional[FaultConfig] = None,
+                      replicas: Optional[Sequence[int]] = None) -> None:
+        """Chaos surface: bake persistent device faults into the serving
+        pool (``fcfg``, default the pool's ``vcfg.fault``; the chips
+        ``replicas``, default all), re-pack its state and meter the event.
+        The synchronous engine has collected every dispatch before this
+        runs, so the swap is batch-atomic.  The pool version stays (the
+        model did not change); a nominal or missing ``fcfg`` is a no-op.
+        ``generator`` must live on the engine's device."""
+        pool = self.pool.inject_faults(generator, fcfg, replicas=replicas)
+        if pool is self.pool:
+            return
+        self._set_pool(pool)
+        self.metrics.note_fault_injection(
+            None if replicas is None else sorted(int(r) for r in replicas))
 
     def _forward(self, state, lits: torch.Tensor,
                  generator: Optional[torch.Generator], mask: torch.Tensor):

@@ -2,8 +2,8 @@
 of ``repro.serve.replica``).
 
 * ``ReplicaPool`` — frozen device state: the programmed ``[R, C, L]``
-  resistances, the shared include plane, the static configs and the
-  model ``version``.
+  resistances, the shared include plane, the static configs, the model
+  ``version`` and the int8 ``fault_mask`` of the injured chips.
 * ``RouterState`` — mutable host-side routing counters (round-robin
   cursor, per-replica load, quarantined chips), kept out of the pool.
 * ``ensemble_vote`` — majority (or summed) vote over per-replica class
@@ -11,21 +11,27 @@ of ``repro.serve.replica``).
 * ``CoalescedPool`` — ONE shared coalesced clause pool (``n_replicas ==
   1``) behind the same engine surface.
 
-Sharding, re-programming, fault injection and repair come with later
-slices.
+``reprogram`` writes a new model (``version`` + 1); ``inject_faults``
+hurts the hardware and ``repair_replica`` re-programs one chip, neither
+changing ``version``.  A replica pool bakes faults into its resistances;
+the coalesced pool keeps its TA plane clean and applies the stored mask
+in ``state()``.  Sharding comes with a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Set
+from typing import Iterable, List, Optional, Set
 
 import torch
 
-from repro_torch.api.states import CoalescedState, ReplicaStackState
+from repro_torch.api.states import (CoalescedState, ReplicaStackState,
+                                    check_geometry, stuck_ta)
 from repro_torch.core import variations as var
 from repro_torch.core.coalesced import CoalescedConfig
-from repro_torch.core.imbue import IMBUEConfig, program_replica_stack
+from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
+                                    program_replica_stack)
+from repro_torch.core.mapping import CrossbarMapping
 from repro_torch.core.tm import TMConfig
 
 
@@ -88,6 +94,7 @@ class ReplicaPool:
     icfg: IMBUEConfig
     vcfg: var.VariationConfig
     version: int = 0                # monotonic model generation
+    fault_mask: Optional[torch.Tensor] = None   # [R, C, L] int8 codes
 
     @property
     def device(self) -> torch.device:
@@ -97,13 +104,23 @@ class ReplicaPool:
     def n_replicas(self) -> int:
         return int(self.r_stack.shape[0])
 
+    @property
+    def mapping(self) -> CrossbarMapping:
+        c, l = self.include.shape
+        return CrossbarMapping(n_clauses=c, n_literals=l,
+                               width=self.icfg.width)
+
     def to(self, device) -> "ReplicaPool":
         """This pool with its tensors on ``device``."""
+        fm = None if self.fault_mask is None else self.fault_mask.to(device)
         return dataclasses.replace(self, r_stack=self.r_stack.to(device),
-                                   include=self.include.to(device))
+                                   include=self.include.to(device),
+                                   fault_mask=fm)
 
     def state(self, tm_cfg: TMConfig) -> ReplicaStackState:
-        """The pool as a backend ``ReplicaStackState``."""
+        """The pool as a backend ``ReplicaStackState``.  Faults are baked
+        into ``r_stack`` already, so the state carries no mask: backends
+        need no fault plumbing."""
         return ReplicaStackState(r_stack=self.r_stack, include=self.include,
                                  tm_cfg=tm_cfg, icfg=self.icfg,
                                  vcfg=self.vcfg)
@@ -111,6 +128,59 @@ class ReplicaPool:
     def router(self) -> RouterState:
         """A fresh routing-counter block sized for this pool."""
         return RouterState.create(self.n_replicas)
+
+    def crossbar(self, i: int) -> ProgrammedCrossbar:
+        """Replica ``i`` as a standalone ``ProgrammedCrossbar``."""
+        return ProgrammedCrossbar(r_mem=self.r_stack[i], include=self.include,
+                                  mapping=self.mapping, cfg=self.icfg)
+
+    def reprogram(self, include: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> "ReplicaPool":
+        """The pool re-programmed with new TA actions: fresh D2D draws for
+        every chip (the draws of :func:`program_replica_pool` with the same
+        generator), ``version`` + 1, no faults."""
+        include = include.to(device=self.device, dtype=torch.bool)
+        check_geometry(include, self.include)
+        r_stack = program_replica_stack(include, generator, self.n_replicas,
+                                        self.vcfg)
+        return dataclasses.replace(self, r_stack=r_stack, include=include,
+                                   version=self.version + 1,
+                                   fault_mask=None)
+
+    def inject_faults(self, generator: torch.Generator,
+                      fcfg: Optional[var.FaultConfig] = None,
+                      replicas: Optional[Iterable[int]] = None
+                      ) -> "ReplicaPool":
+        """The pool with persistent faults baked into the chips
+        ``replicas`` (all when None): stuck cells pinned at the nominal
+        LRS/HRS, healthy cells aged by the drift, the mask kept.  ``fcfg``
+        defaults to ``vcfg.fault``; missing or nominal returns ``self``."""
+        fcfg = fcfg if fcfg is not None else self.vcfg.fault
+        if fcfg is None or fcfg.is_nominal:
+            return self
+        injured, mask = var.inject_stack_faults(
+            generator, self.r_stack, fcfg, replicas, self.fault_mask)
+        return dataclasses.replace(self, r_stack=injured, fault_mask=mask)
+
+    def repair_replica(self, i: int,
+                       generator: Optional[torch.Generator]) -> "ReplicaPool":
+        """Chip ``i`` re-programmed: fresh D2D draws replace its
+        resistances and clear its mask rows; the other chips are
+        bit-untouched.  When the last injured chip is repaired the mask
+        drops back to ``None``."""
+        if not 0 <= i < self.n_replicas:
+            raise IndexError(f"replica {i} out of range "
+                             f"[0, {self.n_replicas})")
+        r_stack = self.r_stack.clone()
+        r_stack[i] = var.sample_device_resistance(generator, self.include,
+                                                  self.vcfg)
+        fm = self.fault_mask
+        if fm is not None:
+            fm = fm.clone()
+            fm[i] = 0
+            if not bool(fm.any()):
+                fm = None
+        return dataclasses.replace(self, r_stack=r_stack, fault_mask=fm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +201,7 @@ class CoalescedPool:
     weights: torch.Tensor           # [C, M] per-(clause, class) weights
     cfg: CoalescedConfig
     version: int = 0                # monotonic model generation
+    fault_mask: Optional[torch.Tensor] = None   # [C, L] int8 codes
 
     @property
     def n_replicas(self) -> int:
@@ -152,20 +223,70 @@ class CoalescedPool:
 
     def to(self, device) -> "CoalescedPool":
         """This pool with its tensors on ``device``."""
+        fm = None if self.fault_mask is None else self.fault_mask.to(device)
         return dataclasses.replace(self, ta_state=self.ta_state.to(device),
-                                   weights=self.weights.to(device))
+                                   weights=self.weights.to(device),
+                                   fault_mask=fm)
 
     def state(self, cfg: Optional[CoalescedConfig] = None) -> CoalescedState:
         """The pool as a backend ``CoalescedState``; ``cfg``, if given,
-        must be the pool's own."""
+        must be the pool's own.  The stored fault mask is applied here
+        (stuck at LRS: a hard include, at HRS: a hard exclude); the
+        trained TA plane itself stays clean, so repair clears the mask."""
         if cfg is not None and cfg != self.cfg:
             raise ValueError("CoalescedPool.state(cfg) must match the "
                              "pool's own CoalescedConfig")
-        return CoalescedState(ta_state=self.ta_state, weights=self.weights,
+        ta = self.ta_state
+        if self.fault_mask is not None:
+            ta = stuck_ta(ta, self.fault_mask, self.cfg.n_states)
+        return CoalescedState(ta_state=ta, weights=self.weights,
                               cfg=self.cfg)
 
     def router(self) -> RouterState:
         return RouterState.create(self.n_replicas)
+
+    def reprogram(self, ta_state: torch.Tensor,
+                  weights: torch.Tensor) -> "CoalescedPool":
+        """The pool re-programmed with new TA states and weights;
+        ``version`` + 1.  The tail is digital: nothing is drawn."""
+        ta_state = torch.as_tensor(ta_state).to(self.device)
+        weights = torch.as_tensor(weights).to(self.device)
+        if (ta_state.shape != self.ta_state.shape
+                or weights.shape != self.weights.shape):
+            raise ValueError(
+                f"reprogram shapes {tuple(ta_state.shape)}/"
+                f"{tuple(weights.shape)} != pool shapes "
+                f"{tuple(self.ta_state.shape)}/{tuple(self.weights.shape)}")
+        return dataclasses.replace(self, ta_state=ta_state, weights=weights,
+                                   version=self.version + 1, fault_mask=None)
+
+    def inject_faults(self, generator: torch.Generator,
+                      fcfg: Optional[var.FaultConfig] = None,
+                      replicas: Optional[Iterable[int]] = None
+                      ) -> "CoalescedPool":
+        """Stuck-at faults on the one chip: the mask is stored and applied
+        by :meth:`state`.  Only chip 0 exists, so a ``replicas`` without it
+        is a no-op; drift has no digital analogue."""
+        if fcfg is None or fcfg.is_nominal:
+            return self
+        if replicas is not None and 0 not in list(replicas):
+            return self
+        mask = var.sample_fault_mask(generator, self.ta_state.shape, fcfg,
+                                     self.device)
+        return dataclasses.replace(
+            self, fault_mask=var.merge_fault_masks(mask, self.fault_mask))
+
+    def repair_replica(self, i: int,
+                       generator: Optional[torch.Generator] = None
+                       ) -> "CoalescedPool":
+        """Chip ``i`` (== 0) repaired: the stored mask is cleared and the
+        clean TA plane serves again (``generator`` is unused: digital
+        re-programming draws nothing)."""
+        del generator
+        if not 0 <= i < self.n_replicas:
+            raise IndexError(f"replica {i} out of range "
+                             f"[0, {self.n_replicas})")
+        return dataclasses.replace(self, fault_mask=None)
 
 
 def program_replica_pool(

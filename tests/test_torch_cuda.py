@@ -15,9 +15,10 @@ import numpy as np  # noqa: E402
 from repro_torch.api.states import _deviation_plane  # noqa: E402
 from repro_torch.core import tm  # noqa: E402
 from repro_torch.core.imbue import (IMBUEConfig,  # noqa: E402
-                                    program_replica_stack)
+                                    conductances, program_replica_stack)
 from repro_torch.core.variations import VariationConfig  # noqa: E402
 from repro_torch.kernels import clause_eval, ops  # noqa: E402
+from repro_torch.kernels import imbue_infer  # noqa: E402
 from repro_torch.kernels.imbue_infer import (  # noqa: E402
     imbue_infer_planes, imbue_infer_planes_ref)
 
@@ -86,3 +87,60 @@ def test_tm_infer_kernels_match_plain_versions(cuda, name, b, c, f, m):
     want = getattr(clause_eval, f"{name}_ref")(*args)
     assert torch.equal(got, want)
     assert int((want != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("name", ("imbue_infer_packed", "imbue_infer"))
+@pytest.mark.parametrize("f,b,r", [(37, 13, 3), (16, 1, 1), (24, 9, 2),
+                                   (64, 40, 2), (300, 70, 4)])
+def test_dense_plane_analog_kernels_match_plain_versions(cuda, name, f, b,
+                                                         r):
+    cfg = tm.TMConfig(n_classes=5, clauses_per_class=14, n_features=f)
+    rng = np.random.default_rng(f + b + r)
+    inc = torch.from_numpy(rng.random((cfg.n_clauses, cfg.n_literals))
+                           < 4.0 / cfg.n_literals).to(cuda)
+    inc[3] = False                                    # an empty clause
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    icfg = IMBUEConfig()
+    g, leak = conductances(
+        program_replica_stack(inc, gen, r, VariationConfig()), inc, icfg)
+    x = torch.from_numpy((rng.random((b, f)) < 0.5).astype(np.uint8))
+    lits = tm.literals(x.to(cuda)).contiguous()
+    pol = ops.polarity_matrix(cfg, inc, device=cuda).contiguous()
+    a = ops.pack_literals(lits) if name == "imbue_infer_packed" else lits
+    args = (a, g.contiguous(), leak.contiguous(), pol,
+            icfg.reference_voltage() / icfg.r_divider, icfg.v_read)
+    wrapper = getattr(imbue_infer, name)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = getattr(imbue_infer, f"{name}_ref")(*args)
+    assert torch.equal(got, want)
+    assert int((want != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("name", ("imbue_infer_planes", "imbue_infer_packed",
+                                  "imbue_infer"))
+def test_empty_batch_launches_nothing(cuda, name):
+    cfg = tm.TMConfig(n_classes=3, clauses_per_class=4, n_features=20)
+    inc = torch.zeros((cfg.n_clauses, cfg.n_literals), dtype=torch.bool,
+                      device=cuda)
+    inc[:, 0] = True
+    icfg = IMBUEConfig()
+    pol = ops.polarity_matrix(cfg, inc, device=cuda).contiguous()
+    lits = torch.zeros((0, cfg.n_literals), dtype=torch.uint8, device=cuda)
+    if name == "imbue_infer_planes":
+        args = (ops.pack_literals(lits), ops.pack_literals(inc), None, pol,
+                ops.plane_scalars(icfg, cfg.n_literals))
+    else:
+        g, leak = conductances(
+            program_replica_stack(inc, torch.Generator(device=cuda), 2,
+                                  VariationConfig()), inc, icfg)
+        a = ops.pack_literals(lits) if name == "imbue_infer_packed" else lits
+        args = (a.contiguous(), g.contiguous(), leak.contiguous(), pol,
+                icfg.reference_voltage() / icfg.r_divider, icfg.v_read)
+    wrapper = getattr(imbue_infer, name)
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before
+    assert got.shape[1:] == (0, cfg.n_classes)

@@ -57,8 +57,8 @@ def test_scan_covers_the_port():
             "coalesced.py", "chip_smoke.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
-        "imbue_infer_planes.cu", "tm_infer_planes.cu", "tm_infer_packed.cu",
-        "tm_infer.cu"}
+        "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
+        "tm_infer_planes.cu", "tm_infer_packed.cu", "tm_infer.cu"}
 
 
 @pytest.fixture
@@ -87,8 +87,10 @@ def test_entry_points_raise_without_device_and_cuda(no_cuda):
     ta = torch.ones(inc.shape, dtype=torch.int16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         engine.ServeEngine.from_ta_state(ta, CFG)
-    litw = bitpack.pack_bits(torch.ones(3, CFG.n_literals, dtype=torch.uint8))
-    idx = bitpack.pack_bits(torch.from_numpy(inc))
+    lits = torch.ones(3, CFG.n_literals, dtype=torch.uint8)
+    litw = bitpack.pack_bits(lits)
+    inc_t = torch.from_numpy(inc)
+    idx = bitpack.pack_bits(inc_t)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.imbue_class_sums_planes(litw, idx, None, IMBUEConfig(), CFG,
                                     l_valid=CFG.n_literals)
@@ -96,6 +98,22 @@ def test_entry_points_raise_without_device_and_cuda(no_cuda):
         ops.imbue_class_sums_stack_planes(litw, idx, None, IMBUEConfig(),
                                           CFG, l_valid=CFG.n_literals,
                                           n_replicas=2)
+    g = torch.ones(2, CFG.n_clauses, CFG.n_literals)
+    dense = {"imbue_class_sums_stack": (lits, g, inc_t, IMBUEConfig(), CFG),
+             "imbue_class_sums_stack_packed": (litw, g, inc_t, IMBUEConfig(),
+                                               CFG)}
+    for name, args in dense.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(ops, name)(*args)
+        assert getattr(ops, name)(*args, device="cpu").shape == (
+            2, 3, CFG.n_classes)
+    raw = (g[0], g[0], inc_t, 0.2, 100.0, 0.007, CFG)
+    for name, lit in (("imbue_class_sums_raw", lits),
+                      ("imbue_class_sums_raw_packed", litw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(ops, name)(lit, *raw)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.crossbar_state_from_numpy(r[0], inc, CFG)
     # With device="cpu" the same calls run on the plain versions.
     out = ops.imbue_class_sums_stack_planes(
         litw, idx, None, IMBUEConfig(), CFG, l_valid=CFG.n_literals,
