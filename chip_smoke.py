@@ -11,7 +11,11 @@ It drives the plane-packed analog path (``ServeEngine.from_ta_state`` ->
 ``CrossbarState`` through ``api.class_sums``, the coalesced path
 (``ServeEngine.from_coalesced`` -> ``coalesced-cuda-packed2`` ->
 ``tm_infer_planes``, with its lower tiers on ``tm_infer_packed`` and
-``tm_infer``), and the digital fused tier through ``api.class_sums``.
+``tm_infer``), the digital fused tier through ``api.class_sums``, and the
+training path: ``tm_train.fit`` (batch steps on ``clause_eval_packed``,
+sequential steps on ``clause_eval``), ``OnlineTrainer``, a checkpoint
+round trip and ``coalesced.fit``, whose trained states the engine then
+serves.
 
 Phases, each printing JSON lines (any failure raises, so the exit code
 is non-zero and no result line is printed):
@@ -30,9 +34,14 @@ is non-zero and no result line is printed):
    and the coalesced width (C = 1000), B in {8, 64, 128}, and one ragged
    shape (ragged: C not a multiple of the clause tile, L not a multiple
    of 32, B odd, an empty clause); guards on the share of non-zero sums
-   and of fired clauses.  Then the cross-tier check: on one D2D +
-   stuck-at plane-packed stack at full width, read without C2C, the
-   three analog CUDA backends return identical ``[R, B, M]``;
+   and of fired clauses.  The two clause-bit kernels
+   (``clause_eval_packed``, ``clause_eval``) at the digital and the
+   coalesced width with one clause in 16 emptied, B in {1, 8, 64, 256},
+   and the ragged shape: every empty clause reads 1, 5-95 % of bits fire
+   (at least 1 % of the non-empty clauses' bits).  Then the cross-tier
+   check: on one D2D + stuck-at plane-packed stack at full width, read
+   without C2C, the three analog CUDA backends return identical
+   ``[R, B, M]``;
 3. serving — (a) ``ServeEngine.from_ta_state`` at imbue-tm-mnist with
    R = 4 serves 512 requests in ``round_robin`` and in ``ensemble``
    through ``analog-cuda-packed2``, first with D2D + C2C (no CSA
@@ -53,7 +62,22 @@ is non-zero and no result line is printed):
    ``digital-torch`` at imbue-tm-mnist.  Each path's launch counters are
    zeroed just before it and read just after: one launch per dispatch,
    0 fallbacks;
-4. timing — each kernel's median device time (CUDA events, L2 flushed,
+4. training — on a numpy-drawn image task (``IMAGE_TASK``): at
+   imbue-tm-mnist, ``init_ta_state`` then ``TRAIN_EPOCHS`` epochs of
+   ``fit(parallel=True, batch_size=256)`` (test accuracy and ms per step
+   each epoch, one ``clause_eval_packed`` launch per step, states int16
+   in [1, 2N], the last accuracy at least ``TRAIN_ACCURACY_FLOOR``);
+   ``fit(parallel=False)`` over 256 examples (256 ``clause_eval``
+   launches); ``OnlineTrainer`` refits twice (versions 1 and 2, the
+   second replayed as ``fit`` from the first); the coalesced pool
+   (``COALESCED``) trained with ``coalesced.fit`` (weights within
+   ``±max_weight``).  Then one batch step from one CUDA generator seed
+   with the kernel and with its plain version (identical states), a
+   checkpoint round trip, and the trained states served: 512 test
+   requests through ``ServeEngine.from_ta_state`` (R = 4, nominal), each
+   equal to the digital TM, and through ``ServeEngine.from_coalesced``,
+   each equal to ``core.coalesced.forward``;
+5. timing — each kernel's median device time (CUDA events, L2 flushed,
    the host's enqueue hidden behind a spin kernel) beside
    its bound, what sets the bound, and the plain version's time:
    ``imbue_infer_planes`` at R = 4, B in {8, 64, 128}, with and without
@@ -64,16 +88,20 @@ is non-zero and no result line is printed):
    kernels at B in {8, 64, 128} at the coalesced and the digital width
    (and, for ``tm_infer``, ``torch.matmul`` of its violation product
    alone as that product's yardstick); the host time of one backend call
-   per coalesced tier.
+   per coalesced tier; the clause-bit kernels at the digital width, B in
+   {1, 8, 64, 256}, with the ``torch.matmul`` bracket, and the batch
+   training step's split into kernel and eager TA update.
 
 Then the launches of each path, the ``{"kernels": [...]}`` line (each
 kernel's launches on its main path: the plane-packed analog path for
 ``imbue_infer_planes``, the lower analog tiers for ``imbue_infer_packed``
-and ``imbue_infer``, the coalesced path for the TM kernels), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Models
-are built with numpy from a seed, without training: each clause includes
-8-16 literals that are 1 on a class prototype; requests are prototypes
-with 8 % of bits flipped.
+and ``imbue_infer``, the coalesced path for the TM kernels, the training
+path for the clause-bit kernels), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  The
+serving phases' models are built with numpy from a seed, without
+training: each clause includes 8-16 literals that are 1 on a class
+prototype; requests are prototypes with 8 % of bits flipped.  The
+training phase trains its own from ``init_ta_state``.
 """
 
 from __future__ import annotations
@@ -143,12 +171,40 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/tm_infer.cu",
         "replaces": "src/repro/kernels/clause_eval.py:65",
     },
+    "clause_eval_packed": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/clause_eval_packed.cu",
+        "replaces": "src/repro/kernels/clause_eval.py:105",
+    },
+    "clause_eval": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/clause_eval.cu",
+        "replaces": "src/repro/kernels/clause_eval.py:48",
+    },
 }
 TM_KERNELS = ("tm_infer_planes", "tm_infer_packed", "tm_infer")
 # The dense-plane analog kernels and the backends of the three analog tiers.
 DENSE_KERNELS = ("imbue_infer_packed", "imbue_infer")
 ANALOG_BACKENDS = ("analog-cuda-packed2", "analog-cuda-packed", "analog-cuda")
 CHAOS = dict(stuck_lrs_rate=0.01, stuck_hrs_rate=0.01)
+# The training-time clause-bit kernels and the batches they are checked at
+# (B = 256 is the batch training step, B = 1 the sequential step).
+CLAUSE_KERNELS = ("clause_eval_packed", "clause_eval")
+CLAUSE_BATCHES = (1, 8, 64, 256)
+# Training at imbue-tm-mnist on a numpy-drawn stand-in of the reference's
+# synthetic_image_dataset (10 classes of 28 x 28 prototypes at density
+# 0.25, 8 % of pixels flipped; 512 test rows, all served afterwards).
+IMAGE_TASK = dict(n_classes=10, side=28, density=0.25, noise=0.08,
+                  n_train=2000, n_test=512, seed=0)
+TRAIN_EPOCHS = 4
+TRAIN_BATCH = 256
+COALESCED_EPOCHS = 3
+# Test-accuracy floor of the trained imbue-tm-mnist state after
+# TRAIN_EPOCHS epochs of fit(parallel=True, batch_size=TRAIN_BATCH).  The
+# reference's own run on the same arrays, config, epochs and batch (JAX
+# on the CPU: benchmarks/reference_train_accuracy.py) is in PERF.md; the
+# floor leaves room for the port's other random draws.
+TRAIN_ACCURACY_FLOOR = 0.95
 
 
 def emit(obj) -> None:
@@ -236,6 +292,22 @@ def coalesced_task(ccfg, n, seed, flip=FLIP):
     y = rng.integers(0, m_cls, n)
     x = protos[y] ^ (rng.random((n, f)) < flip).astype(np.uint8)
     return ta, w.astype(np.int32), x.astype(np.uint8), y
+
+
+def image_task(n_classes, side, density, noise, n_train, n_test, seed):
+    """``(x_train, y_train, x_test, y_test)`` drawn with numpy: one random
+    prototype per class (each pixel on with ``density``), and each example
+    its class's prototype with every pixel flipped with ``noise``; ``x``
+    uint8 ``[n, side * side]``, ``y`` int64."""
+    rng = np.random.default_rng(seed)
+    f = side * side
+    protos = (rng.random((n_classes, f)) < density).astype(np.uint8)
+
+    def make(n):
+        y = rng.integers(0, n_classes, n)
+        flips = (rng.random((n, f)) < noise).astype(np.uint8)
+        return protos[y] ^ flips, y
+    return (*make(n_train), *make(n_test))
 
 
 def coalesced_config():
@@ -884,6 +956,333 @@ def phase_digital_fused(device):
     return path_launches(drive, ("tm_infer_packed", "tm_infer"))
 
 
+def clause_case(inc, x, device):
+    """Operands of the two clause-bit kernels for one shape, keyed by
+    kernel, and the share of (row, clause) pairs that fire, over all
+    clauses and over the non-empty ones."""
+    from repro_torch.core import tm
+    from repro_torch.kernels import ops
+    lits = tm.literals(torch.from_numpy(x).to(device)).contiguous()
+    inc = inc.to(device).contiguous()
+    fired = tm.clause_outputs_from_include(inc, lits, training=True).float()
+    nonempty = inc.any(dim=-1)
+    return ({"clause_eval_packed": (ops.pack_literals(lits),
+                                    ops.pack_include(inc)),
+             "clause_eval": (lits, inc)},
+            float(fired.mean()), float(fired[:, nonempty].mean()))
+
+
+def clause_shapes(device):
+    """``(label, include, x)`` of the clause-kernel checks: the digital
+    (C = 2000) and the coalesced (C = 1000) widths with one clause in 16
+    emptied, at each of CLAUSE_BATCHES, and one ragged shape (C = 101,
+    L = 74, B = 13, an empty clause)."""
+    from repro_torch.core.coalesced import CoalescedConfig
+    shapes = []
+    for label, inc, _, x in tm_widths(device, n=max(CLAUSE_BATCHES)):
+        inc = inc.clone()
+        inc[5::16] = False                                 # empty clauses
+        shapes += [(label, inc, x[:b]) for b in CLAUSE_BATCHES]
+    ragged = CoalescedConfig(n_classes=3, n_clauses=101, n_features=37,
+                             n_states=100)
+    rta, _, rx, _ = coalesced_task(ragged, 13, SEED + 2)
+    rinc = torch.from_numpy(rta > ragged.n_states)
+    rinc[50] = False
+    shapes.append(("ragged", rinc, rx))
+    return shapes
+
+
+def phase_clause_kernels(device):
+    """The two clause-bit kernels against their plain versions, tolerance
+    0; empty clauses read 1; between 5 % and 95 % of bits fire, and at
+    least 1 % of the non-empty clauses' bits."""
+    rows, max_err = [], dict.fromkeys(CLAUSE_KERNELS, 0)
+    for label, inc, x in clause_shapes(device):
+        args, fired, fired_nonempty = clause_case(inc, x, device)
+        empty = ~args["clause_eval"][1].any(dim=-1)
+        for name in CLAUSE_KERNELS:
+            fn, ref = kernel_pair(name)
+            got, want = fn(*args[name]), ref(*args[name])
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            rows.append({"kernel": name, "width": label,
+                         "C": int(inc.shape[0]), "L": int(inc.shape[1]),
+                         "B": int(x.shape[0]), "max_abs_err": err,
+                         "fired_frac": fired,
+                         "fired_frac_nonempty": fired_nonempty,
+                         "empty_clauses": int(empty.sum())})
+            if err != 0 or not torch.equal(got, want) or \
+                    got.dtype != torch.uint8:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {rows[-1]}")
+            if not bool((got[:, empty] == 1).all()) or not empty.any():
+                raise AssertionError(f"{name}: an empty clause did not "
+                                     f"fire: {rows[-1]}")
+            if not 0.05 <= fired <= 0.95 or fired_nonempty < 0.01:
+                raise AssertionError(f"parity of (mostly) constant clause "
+                                     f"bits: {rows[-1]}")
+            max_err[name] = max(max_err[name], err)
+    emit({"phase": "kernels", "kernels": list(CLAUSE_KERNELS),
+          "tolerance": 0, "cases": rows})
+    return max_err
+
+
+def training_data(device):
+    """The image task as tensors on ``device``, and its numpy arrays."""
+    arrays = image_task(**IMAGE_TASK)
+    return [torch.from_numpy(a).to(device) for a in arrays], arrays
+
+
+def check_states(ta, n_states, what):
+    if ta.dtype != torch.int16 or int(ta.min()) < 1 or \
+            int(ta.max()) > 2 * n_states:
+        raise AssertionError(f"{what}: TA states left [1, 2N] or int16: "
+                             f"{ta.dtype} {int(ta.min())}..{int(ta.max())}")
+
+
+def train_digital(cfg, data, gen, device):
+    """``fit(parallel=True)`` from ``init_ta_state``, one epoch a call: test
+    accuracy and host ms per step / epoch; one ``clause_eval_packed``
+    launch per step.  Returns the trained state and the timings."""
+    from repro_torch.core import tm, tm_train
+    from repro_torch.kernels.clause_eval import clause_eval_packed
+    xtr, ytr, xte, yte = data
+    steps = xtr.shape[0] // TRAIN_BATCH
+    ta = tm.init_ta_state(gen, cfg, device)
+    rows = []
+    for epoch in range(1, TRAIN_EPOCHS + 1):
+        launches0 = clause_eval_packed.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ta = tm_train.fit(ta, gen, xtr, ytr, cfg, epochs=1,
+                          batch_size=TRAIN_BATCH, parallel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = clause_eval_packed.launches - launches0
+        if launches != steps:
+            raise AssertionError(f"{launches} clause_eval_packed launches "
+                                 f"for {steps} batch steps")
+        check_states(ta, cfg.n_states, "fit(parallel=True)")
+        rows.append({"epoch": epoch, "steps": steps, "launches": launches,
+                     "test_accuracy": float(tm.accuracy(ta, xte, yte, cfg)),
+                     "ms_per_epoch": wall * 1e3,
+                     "ms_per_step": wall * 1e3 / steps})
+        emit({"phase": "training", "model": MODEL, "driver":
+              "tm_train.fit(parallel=True)", "batch": TRAIN_BATCH,
+              **rows[-1]})
+    if rows[-1]["test_accuracy"] < TRAIN_ACCURACY_FLOOR:
+        raise AssertionError(f"trained accuracy {rows[-1]['test_accuracy']}"
+                             f" below the floor {TRAIN_ACCURACY_FLOOR}")
+    return ta, rows
+
+
+def train_sequential(cfg, ta, data, gen, n=TRAIN_BATCH):
+    """``fit(parallel=False)`` over ``n`` examples: one ``clause_eval``
+    launch per example."""
+    from repro_torch.core import tm, tm_train
+    from repro_torch.kernels.clause_eval import clause_eval
+    xtr, ytr, xte, yte = data
+    launches0 = clause_eval.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tm_train.fit(ta, gen, xtr[:n], ytr[:n], cfg, epochs=1,
+                       parallel=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = clause_eval.launches - launches0
+    if launches != n:
+        raise AssertionError(f"{launches} clause_eval launches for {n} "
+                             "sequential examples")
+    check_states(out, cfg.n_states, "fit(parallel=False)")
+    emit({"phase": "training", "model": MODEL,
+          "driver": "tm_train.fit(parallel=False)", "examples": n,
+          "launches": launches, "ms_per_example": wall * 1e3 / n,
+          "test_accuracy": float(tm.accuracy(out, xte, yte, cfg))})
+
+
+def train_online(cfg, arrays, gen, device):
+    """``OnlineTrainer``: ingest the train set, refit twice (versions 1 and
+    2); the second refit must be ``fit`` from the first one's state."""
+    from repro_torch.core import tm_train
+    from repro_torch.train.online import OnlineTrainer, OnlineTrainerConfig
+    xtr, ytr = arrays[0], arrays[1]
+    trainer = OnlineTrainer(cfg, gen, device=device, cfg=OnlineTrainerConfig(
+        epochs=1, batch_size=TRAIN_BATCH))
+    if trainer.ingest(xtr, ytr) != len(xtr):
+        raise AssertionError("OnlineTrainer dropped rows below its cap")
+    tv1 = trainer.refit()
+    gen_state = gen.get_state()
+    tv2 = trainer.refit()
+    replay_gen = torch.Generator(device=device)
+    replay_gen.set_state(gen_state)
+    replay = tm_train.fit(tv1.ta_state, replay_gen, xtr, ytr, cfg, epochs=1,
+                          batch_size=TRAIN_BATCH, parallel=True)
+    if (tv1.version, tv2.version) != (1, 2) or \
+            not torch.equal(replay, tv2.ta_state):
+        raise AssertionError("OnlineTrainer: versions "
+                             f"{tv1.version}, {tv2.version}; second refit "
+                             "not warm from the first")
+    check_states(tv2.ta_state, cfg.n_states, "OnlineTrainer")
+    emit({"phase": "training", "driver": "OnlineTrainer.refit",
+          "versions": [tv1.version, tv2.version],
+          "train_accuracy": [tv1.accuracy, tv2.accuracy],
+          "n_examples": tv2.n_examples, "warm_start_replayed": True})
+
+
+def checkpoint_round_trip(ta, weights, device):
+    """``checkpoint.save`` then ``restore`` onto the card: identical leaves
+    and the manifest's digest."""
+    import tempfile
+    from repro_torch.distributed import checkpoint
+    tree = {"ta_state": ta, "weights": weights}
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, 1, tree, extra={"model": MODEL})
+        step, got, manifest = checkpoint.restore_latest(d, tree, device)
+    digest = checkpoint.content_digest(
+        {k: v.cpu().numpy() for k, v in tree.items()})
+    if step != 1 or manifest["extra"][checkpoint.DIGEST_KEY] != digest or \
+            not all(torch.equal(got[k], tree[k]) for k in tree):
+        raise AssertionError("checkpoint round trip changed the model")
+    emit({"phase": "training", "check": "checkpoint", "identical": True,
+          "digest": digest[:16]})
+
+
+def batch_step_exactness(cfg, ta, data, device):
+    """One ``train_step_batch`` from one CUDA generator seed, as shipped
+    and with the ops wrapper swapped for its plain version: bit-identical
+    TA states."""
+    from repro_torch.core import tm_train
+    from repro_torch.kernels import clause_eval
+    xtr, ytr = data[0][:TRAIN_BATCH], data[1][:TRAIN_BATCH]
+    outs = []
+    for plain in (False, True):
+        real = clause_eval.clause_eval_packed
+        if plain:
+            clause_eval.clause_eval_packed = clause_eval.clause_eval_packed_ref
+        try:
+            gen = torch.Generator(device=device).manual_seed(SEED + 800)
+            outs.append(tm_train.train_step_batch(ta, gen, xtr, ytr, cfg))
+        finally:
+            clause_eval.clause_eval_packed = real
+    moved = int((outs[0] != ta).sum())
+    if not torch.equal(outs[0], outs[1]) or moved == 0:
+        raise AssertionError(f"batch step: kernel and plain states differ "
+                             f"(or nothing moved: {moved})")
+    emit({"phase": "training", "check": "batch step, kernel == plain",
+          "B": TRAIN_BATCH, "identical": True, "states_moved": moved})
+
+
+def phase_training(device):
+    """The training path at imbue-tm-mnist and at the coalesced width;
+    returns the clause kernels' launches on it and the timings."""
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import coalesced as co
+    from repro_torch.core.variations import VariationConfig
+    cfg = tm_config(MODEL)
+    ccfg = coalesced_config()
+    data, arrays = training_data(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 700)
+    out = {}
+
+    def drive():
+        ta, out["epochs"] = train_digital(cfg, data, gen, device)
+        out["ta"] = ta
+        train_sequential(cfg, ta, data, gen)
+        train_online(cfg, arrays, gen, device)
+        cta, cw = co.init_coalesced(gen, ccfg, device)
+        rows = []
+        for epoch in range(1, COALESCED_EPOCHS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cta, cw = co.fit(cta, cw, gen, data[0], data[1], ccfg, epochs=1,
+                             batch_size=TRAIN_BATCH)
+            torch.cuda.synchronize()
+            steps = data[0].shape[0] // TRAIN_BATCH
+            rows.append({"epoch": epoch, "ms_per_step":
+                         (time.perf_counter() - t0) * 1e3 / steps,
+                         "test_accuracy": float(co.accuracy(
+                             cta, cw, data[2], data[3], ccfg))})
+        check_states(cta, ccfg.n_states, "coalesced.fit")
+        if int(cw.abs().max()) > ccfg.max_weight or cw.dtype != torch.int32:
+            raise AssertionError("coalesced weights left ±max_weight")
+        emit({"phase": "training", "model": "coalesced", "config": COALESCED,
+              "driver": "coalesced.fit", "batch": TRAIN_BATCH,
+              "epochs": rows, "max_abs_weight": int(cw.abs().max())})
+        out["coalesced"] = (cta, cw)
+
+    launches = path_launches(drive, CLAUSE_KERNELS)
+    ta = out["ta"]
+    batch_step_exactness(cfg, ta, data, device)
+    checkpoint_round_trip(ta, out["coalesced"][1], device)
+    # Hand the trained states to the serving paths built in slices 1-3.
+    xte, yte = arrays[2], arrays[3]
+    serve_round(cfg, ta.cpu().numpy(), xte, yte, VariationConfig.nominal(),
+                {}, "analog-cuda-packed2", "imbue_infer_planes", device)
+    cta, cw = out["coalesced"]
+    coalesced_round(ccfg, cta.cpu().numpy(), cw.cpu().numpy(), xte, yte, {},
+                    "coalesced-cuda-packed2", "tm_infer_planes", device)
+    return launches, out["epochs"]
+
+
+def clause_bytes_and_work(name, args):
+    """Bytes each input is read once and the ``[B, C]`` bits written once,
+    and the operations: B*C*Lw word steps at the POPC rate (packed), or
+    2*B*C*L operations on 0/1 bytes at the card's int8 rate (dense)."""
+    a, inc = args
+    b, k = a.shape
+    c = inc.shape[0]
+    nbytes = (a.numel() * a.element_size() + inc.numel() * inc.element_size()
+              + b * c)
+    if name == "clause_eval":
+        return nbytes, [(2 * b * c * k, INT8_OP_PER_S)]
+    return nbytes, [(b * c * k, popc_per_s())]
+
+
+def phase_clause_timing(device, train_epochs):
+    """Both clause kernels at the digital width, B in CLAUSE_BATCHES:
+    device time, plain version, bound and the ``torch.matmul`` bracket
+    (``(1 - lits) @ include^T == 0`` on float32 operands, TF32 off); and
+    the training step's split into kernel and eager TA update."""
+    flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
+                        device=device)
+    label, inc, _, x = tm_widths(device, n=max(CLAUSE_BATCHES))[0]
+    rows = []
+    for b in CLAUSE_BATCHES:
+        args, _, _ = clause_case(inc, x[:b], device)
+        lit0 = 1.0 - args["clause_eval"][0].float()
+        inc_f = args["clause_eval"][1].float()
+        bracket = time_ms(lambda: torch.matmul(lit0, inc_f.T) == 0, 20,
+                          flush)
+        for name in CLAUSE_KERNELS:
+            fn, ref = kernel_pair(name)
+            a = args[name]
+            ms = time_ms(lambda: fn(*a), 20, flush)
+            plain = time_ms(lambda: ref(*a), 5, flush)
+            nbytes, work = clause_bytes_and_work(name, a)
+            bms, by = bound_ms(nbytes, work)
+            rows.append({"kernel": name, "width": label,
+                         "C": int(inc.shape[0]), "L": int(inc.shape[1]),
+                         "B": b, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                         "ops": [ops for ops, _ in work],
+                         "ops_per_s": [rate for _, rate in work],
+                         "bound_share": bms / ms, "matmul_bracket_ms":
+                         bracket})
+    step_ms = train_epochs[-1]["ms_per_step"]
+    kernel_ms = next(r["ms"] for r in rows if r["B"] == TRAIN_BATCH
+                     and r["kernel"] == "clause_eval_packed")
+    emit({"phase": "timing", "kernels": list(CLAUSE_KERNELS),
+          "clock": "cuda events, median, L2 flushed, host enqueue "
+                   "hidden behind a spin kernel",
+          "bound": "max(bytes / 3.35 TB/s, ops / rate); packed: B*C*Lw "
+                   "word steps at the POPC rate; dense: 2*B*C*L at 1979 "
+                   "TOP/s (int8)", "rows": rows,
+          "train_step_B256": {"host_ms_per_step": step_ms,
+                              "clause_eval_packed_ms": kernel_ms,
+                              "rest_ms": step_ms - kernel_ms}})
+    return rows
+
+
 def time_ms(fn, reps, flush):
     """Median device ms of ``fn`` over ``reps`` runs, CUDA events around
     each.  Before every run L2 is flushed and the card is held busy by a
@@ -1083,18 +1482,21 @@ def main() -> int:
     max_err = phase_kernels(device)
     max_err.update(phase_dense_kernels(device))
     max_err.update(phase_tm_kernels(device))
+    max_err.update(phase_clause_kernels(device))
     by_path = {"analog": phase_serving(device),
                "analog_tiers": phase_analog_tiers(device),
                "chaos": phase_chaos(device),
                "crossbar": phase_crossbar(device),
                "coalesced": phase_coalesced_serving(device),
                "digital": phase_digital_fused(device)}
+    by_path["training"], train_epochs = phase_training(device)
     emit({"phase": "launches", "by_path": by_path})
     # The kernels line counts each kernel on its main path: the analog
     # path for imbue_infer_planes, the lower analog tiers for the
-    # dense-plane kernels, the coalesced path for the TM kernels.
+    # dense-plane kernels, the coalesced path for the TM kernels, the
+    # training path for the clause-bit kernels.
     launches = {**by_path["analog"], **by_path["analog_tiers"],
-                **by_path["coalesced"]}
+                **by_path["coalesced"], **by_path["training"]}
     main_rows = {"imbue_infer_planes": next(
         r for r in phase_timing(device) if r["dev"] and r["B"] == 128)}
     for r in phase_dense_timing(device):
@@ -1103,15 +1505,25 @@ def main() -> int:
     for r in phase_tm_timing(device):
         if r["width"] == "coalesced" and r["B"] == 128:
             main_rows[r["kernel"]] = r
-    # No single PyTorch call computes thresholded class sums, so no kernel
-    # has a library yardstick; the partial ones (a product alone) are in
-    # the timing lines.
+    # The clause kernels' main-path rows: the batch training step (B = 256)
+    # for the packed one, the sequential step (B = 1) for the dense one.
+    for r in phase_clause_timing(device, train_epochs):
+        if (r["kernel"], r["B"]) in (("clause_eval_packed", TRAIN_BATCH),
+                                     ("clause_eval", 1)):
+            main_rows[r["kernel"]] = r
+    # No single PyTorch call computes thresholded class sums, so the
+    # inference kernels have no library yardstick (the partial ones, a
+    # product alone, are in the timing lines).  clause_eval's is
+    # torch.matmul of its own operands as float32 then == 0; the packed
+    # words have none.
+    library = {"clause_eval": main_rows["clause_eval"]["matmul_bracket_ms"]}
     emit({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
         max_abs_err=max_err[name], ms=main_rows[name]["ms"],
         plain_ms=main_rows[name]["plain_ms"],
         bound_ms=main_rows[name]["bound_ms"],
-        bound_by=main_rows[name]["bound_by"], library_ms=None)
+        bound_by=main_rows[name]["bound_by"],
+        library_ms=library.get(name))
         for name in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

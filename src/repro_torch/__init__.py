@@ -11,7 +11,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 CPU tensor a kernel wrapper computes with its plain PyTorch version; on a
 CUDA tensor it launches the kernel or raises.
 
-Ported so far (the plane-packed analog serving path):
+Ported so far (the serving paths and TM training):
 
 * ``kernels.bitpack`` / ``kernels.ops`` / ``kernels.imbue_infer`` — the
   packed wire format and the ``imbue_infer_planes`` CUDA kernel;
@@ -21,5 +21,12 @@ Ported so far (the plane-packed analog serving path):
   registry and its backends;
 * ``serve`` — batcher, metrics, replica pool and the synchronous
   ``ServeEngine``;
-* ``convert`` — carries programmed arrays across from the reference.
+* ``convert`` — carries programmed arrays across from the reference;
+* ``core.tm_train`` / the training half of ``core.coalesced`` — TM and
+  coalesced training, clauses evaluated by the ``clause_eval_packed``
+  (batch steps) and ``clause_eval`` (sequential steps) CUDA kernels;
+* ``train.online`` — the replay-buffer ``OnlineTrainer``;
+* ``distributed.checkpoint`` — digest-verified checkpoints, in the
+  reference's format;
+* ``data.tm_datasets`` — noisy XOR and the synthetic image set.
 """

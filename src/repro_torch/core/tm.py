@@ -1,10 +1,11 @@
 """Tsetlin Machine inference in PyTorch (port of ``repro.core.tm``).
 
-The inference half of the digital TM: literals, include actions, clause
-outputs, polarity-weighted class sums, ``forward`` and ``predict``.  It is
-the bit-exact Boolean-domain reference that every analog path of the port
-must reproduce at nominal.  Training (``init_ta_state`` and the feedback
-rules) comes with a later slice.
+The digital TM: literals, include actions, clause outputs,
+polarity-weighted class sums, ``forward`` and ``predict`` — the bit-exact
+Boolean-domain reference that every analog path of the port must
+reproduce at nominal — plus what training starts and reports from:
+``init_ta_state``, ``accuracy`` and ``include_stats``.  The feedback
+rules are in ``core.tm_train``.
 
 Shape conventions: ``B`` batch, ``F`` features, ``L = 2F`` literals,
 ``M`` classes, ``J`` clauses per class, ``C = M*J`` clauses.  TA state is
@@ -18,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch._device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +52,16 @@ class TMConfig:
             raise ValueError("clauses_per_class must be even (polarity pairs)")
         if self.n_states < 1:
             raise ValueError("n_states must be >= 1")
+
+
+def init_ta_state(generator: torch.Generator, cfg: TMConfig,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """Random init on the include/exclude boundary: each state is ``N`` or
+    ``N + 1`` with probability 1/2, drawn from ``generator`` (which must
+    live on ``device``)."""
+    u = torch.rand((cfg.n_clauses, cfg.n_literals), generator=generator,
+                   device=resolve_device(device)) < 0.5
+    return (cfg.n_states + u.to(cfg.state_dtype)).to(cfg.state_dtype)
 
 
 def literals(x: torch.Tensor) -> torch.Tensor:
@@ -114,3 +127,21 @@ def predict(ta_state: torch.Tensor, x: torch.Tensor,
     """Argmax classification ``[B, F] -> [B]`` (ties to the lowest
     class)."""
     return torch.argmax(forward(ta_state, x, cfg), dim=-1)
+
+
+def accuracy(ta_state: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+             cfg: TMConfig) -> torch.Tensor:
+    """Share of rows of ``x`` whose prediction is ``y`` (float32)."""
+    return (predict(ta_state, x, cfg) == y).to(torch.float32).mean()
+
+
+def include_stats(ta_state: torch.Tensor, cfg: TMConfig) -> dict:
+    """Model statistics used throughout the paper's evaluation (Table IV)."""
+    n_inc = int(include_mask(ta_state, cfg).sum())
+    return {
+        "ta_cells": cfg.n_ta,
+        "includes": n_inc,
+        "include_pct": 100.0 * n_inc / cfg.n_ta,
+        "clauses": cfg.n_clauses,
+        "classes": cfg.n_classes,
+    }

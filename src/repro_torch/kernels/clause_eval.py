@@ -1,10 +1,10 @@
-"""The digital / coalesced TM inference kernels: wrappers, plain versions
-and launch counters (port of the fused half of
-``repro.kernels.clause_eval``).
+"""The digital / coalesced TM kernels: wrappers, plain versions and launch
+counters (port of ``repro.kernels.clause_eval``).
 
-Each computes class sums ``[B, M]`` int32: clause ``c`` fires for batch
-row ``b`` iff its violation count is 0, and the fired clauses' rows of
-the combine matrix are summed (see ``csrc/tm_common.cuh``):
+The fused inference kernels compute class sums ``[B, M]`` int32: clause
+``c`` fires for batch row ``b`` iff its violation count is 0, and the
+fired clauses' rows of the combine matrix are summed (see
+``csrc/tm_common.cuh``):
 
 * ``tm_infer_planes(litw, incw, comb)`` — packed words, AND + popcount,
   the include plane streamed through a two-stage ``cp.async`` ring
@@ -14,6 +14,16 @@ the combine matrix are summed (see ``csrc/tm_common.cuh``):
   ``*-packed`` backends);
 * ``tm_infer(lits, include, comb)`` — dense 0/1 bytes, float32 violation
   product (``tm_infer_kernel``; the unpacked fused backends).
+
+The clause-evaluation kernels stop before the combine and return the
+clause bits ``[B, C]`` uint8 with training semantics — a clause fires
+iff it has no violation, so an empty clause fires:
+
+* ``clause_eval_packed(litw, incw)`` — packed words, AND + popcount
+  (``clause_eval_packed_kernel``; the batch training steps);
+* ``clause_eval(lits, include)`` — dense 0/1 bytes, folded to bit words
+  in shared memory and counted the same way (``clause_eval_kernel``; the
+  sequential training step).
 
 Operands, in the layouts the states hold (nothing is transposed per
 dispatch): ``litw [B, Lw]`` and ``incw [C, Lw]`` int32 words,
@@ -35,27 +45,38 @@ import torch
 
 from repro_torch.kernels import _build
 
-# <name>_launch(a, inc, comb, out, B, K, C, M, stream) for all three.
+# <name>_launch(a, inc, comb, out, B, K, C, M, stream) for the fused three;
+# <name>_launch(a, inc, out, B, K, C, stream) for the clause-bit two.
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_EVAL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def _check(name: str, a: torch.Tensor, inc: torch.Tensor,
-           comb: torch.Tensor, dtypes) -> None:
+def _check_pair(name: str, a: torch.Tensor, inc: torch.Tensor,
+                dtypes) -> None:
     if a.dtype not in dtypes or a.ndim != 2:
         raise ValueError(f"{name}: literals must be [B, K] {dtypes}, got "
                          f"{tuple(a.shape)} {a.dtype}")
     if inc.dtype not in dtypes or inc.ndim != 2 or inc.shape[1] != a.shape[1]:
         raise ValueError(f"{name}: include must be [C, {a.shape[1]}] "
                          f"{dtypes}, got {tuple(inc.shape)} {inc.dtype}")
+    if inc.device != a.device:
+        raise ValueError(f"{name} operands are on different devices: "
+                         f"{a.device}, {inc.device}")
+    if not (a.is_contiguous() and inc.is_contiguous()):
+        raise ValueError(f"{name} operands must be contiguous")
+
+
+def _check(name: str, a: torch.Tensor, inc: torch.Tensor,
+           comb: torch.Tensor, dtypes) -> None:
+    _check_pair(name, a, inc, dtypes)
     if (comb.dtype != torch.int32 or comb.ndim != 2
             or comb.shape[0] != inc.shape[0]):
         raise ValueError(f"{name}: comb must be [{inc.shape[0]}, M] int32, "
                          f"got {tuple(comb.shape)} {comb.dtype}")
-    tensors = (a, inc, comb)
-    if any(t.device != a.device for t in tensors):
+    if comb.device != a.device:
         raise ValueError(f"{name} operands are on different devices: "
-                         f"{[str(t.device) for t in tensors]}")
-    if not all(t.is_contiguous() for t in tensors):
+                         f"{a.device}, {comb.device}")
+    if not comb.is_contiguous():
         raise ValueError(f"{name} operands must be contiguous")
 
 
@@ -75,6 +96,28 @@ def _launch(name: str, a: torch.Tensor, inc: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(a.data_ptr(), inc.data_ptr(), comb.data_ptr(),
                      out.data_ptr(), b, k, c, m, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    return out
+
+
+def _launch_eval(name: str, a: torch.Tensor,
+                 inc: torch.Tensor) -> torch.Tensor:
+    """Launch the clause-bit kernel ``name`` on CUDA operands; returns
+    ``[B, C]`` uint8.  An empty batch or clause set launches nothing."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not "
+                         f"{a.device}")
+    b, k = a.shape
+    c = inc.shape[0]
+    out = torch.empty((b, c), dtype=torch.uint8, device=a.device)
+    if b == 0 or c == 0:
+        return out
+    launch = _build.load(name, _EVAL_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(a.data_ptr(), inc.data_ptr(), out.data_ptr(), b, k, c,
+                     stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return out
@@ -117,6 +160,23 @@ def tm_infer_ref(lits: torch.Tensor, include: torch.Tensor,
     return _combine(viol == 0, comb)
 
 
+def clause_eval_packed_ref(litw: torch.Tensor,
+                           incw: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``clause_eval_packed``: AND + popcount over
+    every ``[B, C, Lw]`` word triple; a clause fires iff its count is 0
+    (an empty clause fires)."""
+    viol = _popcount(~litw[:, None, :] & incw[None, :, :]).sum(-1)
+    return (viol == 0).to(torch.uint8)
+
+
+def clause_eval_ref(lits: torch.Tensor, include: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``clause_eval``: the float32 violation
+    product (exact for 0/1 operands), then ``== 0`` (an empty clause
+    fires)."""
+    viol = (1.0 - lits.to(torch.float32)) @ include.to(torch.float32).T
+    return (viol == 0).to(torch.uint8)
+
+
 def tm_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
                     comb: torch.Tensor) -> torch.Tensor:
     """``[B, M]`` int32 class sums, include words streamed by the kernel's
@@ -155,6 +215,35 @@ def tm_infer(lits: torch.Tensor, include: torch.Tensor,
     return out
 
 
+def clause_eval_packed(litw: torch.Tensor, incw: torch.Tensor) -> torch.Tensor:
+    """``[B, C]`` uint8 clause bits from packed words, training semantics
+    (empty clauses fire)."""
+    _check_pair("clause_eval_packed", litw, incw, (torch.int32,))
+    if litw.device.type == "cpu":
+        return clause_eval_packed_ref(litw, incw)
+    out = _launch_eval("clause_eval_packed", litw, incw)
+    if out.numel():                     # an empty output launched nothing
+        clause_eval_packed.launches += 1
+    return out
+
+
+def clause_eval(lits: torch.Tensor, include: torch.Tensor) -> torch.Tensor:
+    """``[B, C]`` uint8 clause bits from dense 0/1 bytes, training
+    semantics (a bool include plane is read as its bytes, without a
+    copy)."""
+    if include.dtype == torch.bool:
+        include = include.view(torch.uint8)
+    _check_pair("clause_eval", lits, include, (torch.uint8,))
+    if lits.device.type == "cpu":
+        return clause_eval_ref(lits, include)
+    out = _launch_eval("clause_eval", lits, include)
+    if out.numel():                     # an empty output launched nothing
+        clause_eval.launches += 1
+    return out
+
+
 tm_infer_planes.launches = 0
 tm_infer_packed.launches = 0
 tm_infer.launches = 0
+clause_eval_packed.launches = 0
+clause_eval.launches = 0

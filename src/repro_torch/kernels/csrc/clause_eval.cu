@@ -1,0 +1,145 @@
+// clause_eval: training-time clause bits from dense 0/1 literal and
+// include bytes, written by hand for Hopper (sm_90a).
+//
+// Replaces the TPU kernel
+//   src/repro/kernels/clause_eval.py :: clause_eval_kernel
+//   (launched by clause_eval_call).
+//
+// What it computes: for batch row b and clause c,
+//   viol[b, c]  = sum over literals l of (1 - lits[b, l]) * include[c, l]
+//   fired[b, c] = (viol[b, c] == 0)            as one uint8 byte
+// with lits [B, L] and include [C, L] as 0/1 bytes in the layouts the
+// state holds (the include plane is `state > N` as bool bytes; nothing
+// is transposed per call).  Training semantics: an empty clause fires.
+// The TPU kernel runs the violation count as a float32 MXU product; here
+// it is an integer count, exact for the same reason the product is (each
+// term is 0 or 1, a count is at most L).
+//
+// Bound, at imbue-tm-mnist (C = 2000, L = 1568): at B = 256 the operands
+// and the clause bits are 4.1 MB, 1.2 us at 3.35 TB/s, while the
+// 2*B*C*L = 1.6 G operations on 0/1 bytes take 0.8 us at the H100's dense
+// int8 tensor-core rate (1979 TOP/s): bound by bytes.  On its main path,
+// the sequential training step, B = 1: 3.1 MB of include bytes, 0.9 us,
+// below the cost of a launch.
+//
+// Design, simple and right first:
+// * The tiling of the packed kernels (tm_common.cuh): one block of 128
+//   threads per 32 rows x 64 clauses, a 4 x 4 register tile a thread.
+// * K runs inside the block in steps of KW words (256 literals).  Each
+//   thread reads 32 bytes of a row with two 16-byte loads (byte by byte
+//   at a ragged edge or when L is not a multiple of 16) and folds them
+//   into one 32-bit word in registers, bit j = byte j (a multiply moves
+//   four 0/1 bytes into four neighbouring bits), then stores the word in
+//   shared memory.  The count is then the packed kernels' AND + popcount
+//   (count_words): 32 literals a POPC instead of 32 products.
+// * Bytes past L and rows or clauses past the edge read as 0: a 0
+//   include bit kills the inverted 0 literal, so padding adds nothing.
+// * store_fired writes the tile's bits; rows >= B and clauses >= C are
+//   not written.
+// * Later work: the next step's loads in flight during the count; a tile
+//   shaped to B = 1 (31 of the block's 32 rows are padding there).
+
+#include "tm_common.cuh"
+
+namespace {
+
+constexpr int KW = 8;                                  // words per K step
+constexpr int INC_STRIDE = KW + 1;
+constexpr int LIT_W = tmk::BT * KW / tmk::THREADS;     // literal words/thread
+constexpr int INC_W = tmk::CT * KW / tmk::THREADS;     // include words/thread
+
+// Four 0/1 bytes of v (bit 0 of each) -> four neighbouring bits: the
+// multiply places byte i's bit 0 at bit 28 + i, and no partial product
+// carries into bits 28-31.
+__device__ __forceinline__ uint32_t fold4(uint32_t v) {
+  return ((v & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+// Bit j of the result is bit 0 of byte k + j of row `row` of a [rows, L]
+// byte matrix; bytes past L and rows past `rows` read as 0.  VEC: L is a
+// multiple of 16 and the matrix 16-byte aligned, so a full word is two
+// 16-byte loads.
+template <bool VEC>
+__device__ __forceinline__ uint32_t load_bits(const uint8_t* __restrict__ m,
+                                              int row, int rows, int k,
+                                              int L) {
+  if (row >= rows || k >= L) return 0u;
+  const uint8_t* p = m + static_cast<size_t>(row) * L + k;
+  if (VEC && k + tmk::WORD <= L) {
+    const uint4 a = reinterpret_cast<const uint4*>(p)[0];
+    const uint4 b = reinterpret_cast<const uint4*>(p)[1];
+    return fold4(a.x) | fold4(a.y) << 4 | fold4(a.z) << 8 |
+           fold4(a.w) << 12 | fold4(b.x) << 16 | fold4(b.y) << 20 |
+           fold4(b.z) << 24 | fold4(b.w) << 28;
+  }
+  const int n = min(tmk::WORD, L - k);
+  uint32_t w = 0u;
+  for (int j = 0; j < n; ++j) w |= static_cast<uint32_t>(p[j] & 1u) << j;
+  return w;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(tmk::THREADS) clause_eval_kernel(
+    const uint8_t* __restrict__ lits,   // [B, L] 0/1 literals
+    const uint8_t* __restrict__ inc,    // [C, L] 0/1 include actions
+    uint8_t* __restrict__ out,          // [B, C] clause bits
+    int B, int L, int C) {
+  __shared__ uint32_t lit_s[tmk::BT][KW];
+  __shared__ uint32_t inc_s[tmk::CT][INC_STRIDE];
+  const tmk::Tile t;
+
+  int viol[tmk::TB][tmk::TC] = {};
+  for (int k0 = 0; k0 < L; k0 += KW * tmk::WORD) {
+    const int kn = min(KW, (L - k0 + tmk::WORD - 1) / tmk::WORD);
+    uint32_t lw[LIT_W], iw[INC_W];
+#pragma unroll
+    for (int s = 0; s < LIT_W; ++s) {   // word q: row q / KW, word q % KW
+      const int q = threadIdx.x + tmk::THREADS * s;
+      lw[s] = load_bits<VEC>(lits, t.b0 + q / KW, B,
+                             k0 + tmk::WORD * (q % KW), L);
+    }
+#pragma unroll
+    for (int s = 0; s < INC_W; ++s) {
+      const int q = threadIdx.x + tmk::THREADS * s;
+      iw[s] = load_bits<VEC>(inc, t.c0 + q / KW, C,
+                             k0 + tmk::WORD * (q % KW), L);
+    }
+    __syncthreads();                 // the last step has been counted
+#pragma unroll
+    for (int s = 0; s < LIT_W; ++s) {
+      const int q = threadIdx.x + tmk::THREADS * s;
+      lit_s[q / KW][q % KW] = lw[s];
+    }
+#pragma unroll
+    for (int s = 0; s < INC_W; ++s) {
+      const int q = threadIdx.x + tmk::THREADS * s;
+      inc_s[q / KW][q % KW] = iw[s];
+    }
+    __syncthreads();
+    tmk::count_words(&lit_s[0][0], KW, &inc_s[0][0], INC_STRIDE, kn, t, viol);
+  }
+  tmk::store_fired(viol, t, B, C, out);
+}
+
+}  // namespace
+
+// Launch on `stream`.  Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int clause_eval_launch(const void* lits, const void* inc,
+                                  void* out, int B, int L, int C,
+                                  void* stream) {
+  const auto* l = static_cast<const uint8_t*>(lits);
+  const auto* i = static_cast<const uint8_t*>(inc);
+  auto* o = static_cast<uint8_t*>(out);
+  const bool vec = L % 16 == 0 && reinterpret_cast<uintptr_t>(l) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(i) % 16 == 0;
+  const dim3 grid = tmk::grid_for(B, C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    clause_eval_kernel<true><<<grid, tmk::THREADS, 0, st>>>(l, i, o, B, L, C);
+  } else {
+    clause_eval_kernel<false><<<grid, tmk::THREADS, 0, st>>>(l, i, o, B, L,
+                                                             C);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

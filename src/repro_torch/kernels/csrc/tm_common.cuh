@@ -1,6 +1,8 @@
 // tm_common.cuh: the tiling and the device functions shared by the
 // digital / coalesced TM inference kernels (tm_infer_planes.cu,
-// tm_infer_packed.cu, tm_infer.cu).
+// tm_infer_packed.cu, tm_infer.cu) and the training-time clause-bit
+// kernels (clause_eval_packed.cu, clause_eval.cu), which stop after the
+// violation count and write fired[b, c] with store_fired.
 //
 // Each kernel computes, for a block tile of BT batch rows x CT clauses,
 // the violation count viol[b, c] of every (row, clause) pair, then
@@ -118,6 +120,27 @@ __device__ __forceinline__ void combine(uint32_t (*fired)[FW],
     }
     if (sum != 0) {
       atomicAdd(&out[static_cast<size_t>(t.b0 + bl) * M + m], sum);
+    }
+  }
+}
+
+// Training semantics: out[b, c] = (viol[b, c] == 0) as one byte, for the
+// pairs inside [B, C] (an empty clause has no violation, so it fires).
+// A warp's stores for one j cover sixteen neighbouring clause bytes of
+// two rows.
+template <typename T>
+__device__ __forceinline__ void store_fired(const T (&viol)[TB][TC],
+                                            const Tile& t, int B, int C,
+                                            uint8_t* __restrict__ out) {
+#pragma unroll
+  for (int i = 0; i < TB; ++i) {
+    const int b = t.b0 + t.ty + NTY * i;
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      const int c = t.c0 + t.tx + NTX * j;
+      if (b < B && c < C) {
+        out[static_cast<size_t>(b) * C + c] = viol[i][j] == T(0) ? 1 : 0;
+      }
     }
   }
 }

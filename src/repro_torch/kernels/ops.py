@@ -4,6 +4,9 @@
 * ``polarity_matrix(cfg, include)``             -> [C, M] signed one-hot
 * ``coalesced_combine(w, nonempty)``            -> [C, M] weighted combine
 * ``pack_literals(lits)``                       -> [.., ceil(L/32)] int32
+* ``pack_include(include)``                     -> [.., C, ceil(L/32)] int32
+* ``clause_eval(lits, include)``                -> [B, C] uint8 clause bits
+* ``clause_eval_packed(litw, include_w)``       -> [B, C] uint8, AND + popcount
 * ``imbue_class_sums_planes(litw, idx, dev)``   -> [B, M] analog sums
 * ``imbue_class_sums_stack_planes(litw, ...)``  -> [R, B, M], one launch
 * ``imbue_class_sums_raw(lits, g, leak, ...)``  -> [B, M], dense planes
@@ -17,6 +20,10 @@
 * ``coalesced_class_sums_packed(litw, incw, w)``  -> [B, M]
 * ``coalesced_class_sums_planes(litw, incw, w)``  -> [B, M], include plane
   streamed by the kernel's own two-stage ring
+
+The two ``clause_eval`` wrappers return clause bits with training
+semantics (an empty clause fires): they are what the training steps
+evaluate clauses with, one launch per call.
 
 The combine matrices are int32 ``[C, M]`` with the rows of empty clauses
 zeroed (the inference-time empty-clause mask, folded into the sum), and
@@ -51,6 +58,7 @@ from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
                                     cell_conductances, conductances)
 from repro_torch.core.tm import TMConfig, polarity
 from repro_torch.kernels import bitpack
+from repro_torch.kernels import clause_eval as clause_kernels
 from repro_torch.kernels.clause_eval import (tm_infer, tm_infer_packed,
                                              tm_infer_planes)
 from repro_torch.kernels.imbue_infer import (PlaneScalars, _f32, imbue_infer,
@@ -75,6 +83,12 @@ def polarity_matrix(cfg: TMConfig, include: Optional[torch.Tensor] = None,
 def pack_literals(lits: torch.Tensor) -> torch.Tensor:
     """``[..., L]`` 0/1 literals -> ``[..., ceil(L/32)] int32`` words."""
     return bitpack.pack_bits(lits)
+
+
+def pack_include(include: torch.Tensor) -> torch.Tensor:
+    """``[..., C, L]`` bool include plane -> ``[..., C, ceil(L/32)]``
+    int32 words."""
+    return bitpack.pack_bits(include)
 
 
 def _nonempty_from_packed(include_w: torch.Tensor) -> torch.Tensor:
@@ -380,3 +394,26 @@ def coalesced_class_sums_planes(litw: torch.Tensor, include_w: torch.Tensor,
     comb = coalesced_combine(weights.to(incw.device),
                              _nonempty_from_packed(incw))
     return tm_infer_planes(litw, incw, comb)
+
+
+# ------------------------------------------- clause bits, training semantics
+
+def clause_eval(lits: torch.Tensor, include: torch.Tensor, *,
+                device: DeviceLike = None) -> torch.Tensor:
+    """Digital clause outputs ``[B, C]`` uint8 with training semantics
+    (empty clauses fire) from ``[B, L]`` 0/1 literals and the ``[C, L]``
+    include plane (bool or 0/1 bytes): one launch of ``clause_eval``."""
+    lits = _lits(lits, device)
+    include = include.to(device=lits.device)
+    if include.dtype != torch.bool:
+        include = include.to(torch.uint8)
+    return clause_kernels.clause_eval(lits, include.contiguous())
+
+
+def clause_eval_packed(litw: torch.Tensor, include_w: torch.Tensor, *,
+                       device: DeviceLike = None) -> torch.Tensor:
+    """Digital clause outputs ``[B, C]`` uint8 from packed operands
+    (:func:`pack_literals` / :func:`pack_include`), training semantics as
+    :func:`clause_eval`: one launch of ``clause_eval_packed``."""
+    litw, incw = _packed_operands(litw, include_w, device)
+    return clause_kernels.clause_eval_packed(litw, incw)

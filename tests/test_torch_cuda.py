@@ -144,3 +144,98 @@ def test_empty_batch_launches_nothing(cuda, name):
     got = wrapper(*args)
     assert wrapper.launches == before
     assert got.shape[1:] == (0, cfg.n_classes)
+
+
+def _clause_case(b, c, l, seed, device):
+    """0/1 literals ``[B, L]`` and an include plane ``[C, L]`` with 1-6
+    includes per clause from one row's ones (two clauses in three) or from
+    any literal; clause C // 2 is empty and must fire."""
+    rng = np.random.default_rng(seed)
+    lits = (rng.random((b, l)) < 0.5).astype(np.uint8)
+    inc = np.zeros((c, l), bool)
+    for ci in range(c):
+        src = lits[rng.integers(0, b)]
+        ones = np.flatnonzero(src) if src.any() and ci % 3 else np.arange(l)
+        inc[ci, rng.choice(ones, size=int(rng.integers(1, 7)))] = True
+    inc[c // 2] = False
+    return (torch.from_numpy(lits).to(device),
+            torch.from_numpy(inc).to(device))
+
+
+@pytest.mark.parametrize("name", ("clause_eval_packed", "clause_eval"))
+@pytest.mark.parametrize("b,c,l", [
+    (13, 101, 74), (1, 64, 16), (9, 70, 102), (70, 130, 600), (1, 2000, 1568),
+    (256, 2000, 1568), (33, 1000, 1568), (5, 37, 96)])
+def test_clause_eval_kernels_match_plain_versions(cuda, name, b, c, l):
+    lits, inc = _clause_case(b, c, l, b + c + l, cuda)
+    if name == "clause_eval":
+        args = (lits.contiguous(), inc.contiguous())
+    else:
+        args = (ops.pack_literals(lits), ops.pack_include(inc))
+    wrapper = getattr(clause_eval, name)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = getattr(clause_eval, f"{name}_ref")(*args)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert bool((got[:, c // 2] == 1).all())          # the empty clause
+    share = float(want.float().mean())
+    assert 0.0 < share < 1.0
+
+
+@pytest.mark.parametrize("name", ("clause_eval_packed", "clause_eval"))
+def test_clause_eval_empty_batch_launches_nothing(cuda, name):
+    lits, inc = _clause_case(3, 9, 40, 0, cuda)
+    lits = lits[:0].contiguous()
+    args = ((lits, inc) if name == "clause_eval"
+            else (ops.pack_literals(lits), ops.pack_include(inc)))
+    wrapper = getattr(clause_eval, name)
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before and tuple(got.shape) == (0, 9)
+
+
+def test_training_steps_launch_once_per_step_or_example(cuda):
+    from repro_torch.core import coalesced, tm_train
+    cfg = tm.TMConfig(n_classes=3, clauses_per_class=6, n_features=40)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state = tm.init_ta_state(gen, cfg, cuda)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.random((7, 40)) < 0.5).astype(np.uint8))
+    y = torch.from_numpy(rng.integers(0, 3, 7))
+    packed, dense = clause_eval.clause_eval_packed, clause_eval.clause_eval
+    p0, d0 = packed.launches, dense.launches
+    tm_train.train_step_batch(state, gen, x, y, cfg)
+    assert (packed.launches, dense.launches) == (p0 + 1, d0)
+    tm_train.train_step(state, gen, x, y, cfg)
+    assert (packed.launches, dense.launches) == (p0 + 1, d0 + 7)
+    ccfg = coalesced.CoalescedConfig(n_classes=3, n_clauses=20,
+                                     n_features=40)
+    ta, w = coalesced.init_coalesced(gen, ccfg, cuda)
+    coalesced.train_step_batch(ta, w, gen, x, y, ccfg)
+    assert packed.launches == p0 + 2
+
+
+def test_batch_step_on_the_kernel_equals_the_plain_version(cuda,
+                                                           monkeypatch):
+    """One train_step_batch from one CUDA generator seed, with the kernel
+    and with the wrapper swapped for its plain version: identical TA
+    states."""
+    from repro_torch.core import tm_train
+    cfg = tm.TMConfig(n_classes=4, clauses_per_class=10, n_features=300)
+    rng = np.random.default_rng(2)
+    inc = rng.random((cfg.n_clauses, cfg.n_literals)) < 0.01
+    state = torch.from_numpy(np.where(inc, cfg.n_states + 5,
+                                      cfg.n_states - 5).astype(np.int16))
+    state = state.to(cuda)
+    x = torch.from_numpy((rng.random((64, 300)) < 0.5).astype(np.uint8))
+    y = torch.from_numpy(rng.integers(0, 4, 64))
+    outs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(clause_eval, "clause_eval_packed",
+                                clause_eval.clause_eval_packed_ref)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        outs.append(tm_train.train_step_batch(state, gen, x, y, cfg))
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], state)

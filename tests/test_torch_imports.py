@@ -23,6 +23,9 @@ import numpy as np  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import coalesced, tm, variations  # noqa: E402
+from repro_torch.data import tm_datasets  # noqa: E402
+from repro_torch.distributed import checkpoint  # noqa: E402
+from repro_torch.train import online  # noqa: E402
 from repro_torch.core.imbue import IMBUEConfig  # noqa: E402
 from repro_torch.kernels import bitpack, ops  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
@@ -54,11 +57,13 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "ops.py", "imbue_infer.py", "clause_eval.py",
-            "coalesced.py", "chip_smoke.py"} <= names
+            "coalesced.py", "tm_train.py", "online.py", "checkpoint.py",
+            "tm_datasets.py", "chip_smoke.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
-        "tm_infer_planes.cu", "tm_infer_packed.cu", "tm_infer.cu"}
+        "tm_infer_planes.cu", "tm_infer_packed.cu", "tm_infer.cu",
+        "clause_eval_packed.cu", "clause_eval.cu"}
 
 
 @pytest.fixture
@@ -154,6 +159,36 @@ def test_coalesced_entry_points_raise_without_device_and_cuda(no_cuda):
     eng = engine.ServeEngine.from_coalesced(
         torch.from_numpy(ta), torch.from_numpy(w), ccfg, device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_device_and_cuda(no_cuda,
+                                                            tmp_path):
+    gen = torch.Generator()
+    ccfg = coalesced.CoalescedConfig(n_classes=2, n_clauses=4, n_features=5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm.init_ta_state(gen, CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        coalesced.init_coalesced(gen, ccfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm_datasets.noisy_xor(gen, 4, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm_datasets.synthetic_image_dataset(gen, 2, 4, 4, side=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        online.OnlineTrainer(CFG, gen)
+    lits = torch.ones(3, CFG.n_literals, dtype=torch.uint8)
+    inc = torch.zeros(CFG.n_clauses, CFG.n_literals, dtype=torch.bool)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.clause_eval(lits, inc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ops.clause_eval_packed(ops.pack_literals(lits), ops.pack_include(inc))
+    checkpoint.save(str(tmp_path), 1, {"w": torch.ones(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        checkpoint.restore(str(tmp_path), 1, {"w": None})
+    # With device="cpu" they run on the plain versions.
+    assert ops.clause_eval(lits, inc, device="cpu").shape == (
+        3, CFG.n_clauses)
+    assert tm.init_ta_state(gen, CFG, "cpu").device.type == "cpu"
+    assert online.OnlineTrainer(CFG, gen, device="cpu").device.type == "cpu"
 
 
 def _run_smoke(cwd: Path):
