@@ -15,7 +15,10 @@ It drives the plane-packed analog path (``ServeEngine.from_ta_state`` ->
 training path: ``tm_train.fit`` (batch steps on ``clause_eval_packed``,
 sequential steps on ``clause_eval``), ``OnlineTrainer``, a checkpoint
 round trip and ``coalesced.fit``, whose trained states the engine then
-serves.
+serves; and flash attention (``flash_attention_trainable`` forward and
+backward -> ``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``;
+``flash_attention`` -> ``flash_fwd``) at the attention widths of
+qwen2-0.5b, gemma2-2b and the whisper-large-v3 encoder.
 
 Phases, each printing JSON lines (any failure raises, so the exit code
 is non-zero and no result line is printed):
@@ -41,7 +44,20 @@ is non-zero and no result line is printed):
    (at least 1 % of the non-empty clauses' bits).  Then the cross-tier
    check: on one D2D + stuck-at plane-packed stack at full width, read
    without C2C, the three analog CUDA backends return identical
-   ``[R, B, M]``;
+   ``[R, B, M]``.  The three flash kernels on ``FLASH_ROWS`` (main:
+   qwen2-0.5b ``[4, 4096, 14, 64]`` bf16 causal, 2 kv heads gathered to
+   14; local: gemma2-2b ``[1, 8192, 8, 256]`` bf16, causal, window 4096,
+   softcap 50; bidir: whisper-large-v3 encoder ``[4, 1500, 20, 64]`` bf16)
+   and ``FLASH_SMALL`` (each mask combination of ``tests/test_kernels.py``
+   at every float32 head dim and the bf16 ones the rows leave out): each
+   kernel against its plain version on the same inputs, then
+   ``flash_attention_trainable``'s ``o`` and the gradients of ``sum((o -
+   tgt)^2)`` against the plain ones, within ``FLASH_TOL`` (float32: the
+   reference's bounds on ``max|err| / max|plain|``; bf16: one ulp plus
+   2e-3 (``o``) or 1e-3 (``dq``, ``dk``, ``dv``) of ``max|plain|``
+   elementwise, the trainable's gradients 5e-3 of ``||plain||``); ``o``, ``dq``, ``dk`` and ``dv`` non-zero on 99 % of
+   their rows, ``lse`` finite, ``flash_attention`` equal to the trainable
+   forward;
 3. serving — (a) ``ServeEngine.from_ta_state`` at imbue-tm-mnist with
    R = 4 serves 512 requests in ``round_robin`` and in ``ensemble``
    through ``analog-cuda-packed2``, first with D2D + C2C (no CSA
@@ -76,7 +92,10 @@ is non-zero and no result line is printed):
    checkpoint round trip, and the trained states served: 512 test
    requests through ``ServeEngine.from_ta_state`` (R = 4, nominal), each
    equal to the digital TM, and through ``ServeEngine.from_coalesced``,
-   each equal to ``core.coalesced.forward``;
+   each equal to ``core.coalesced.forward``; then the flash path: at the
+   main row, ``FLASH_PATH_STEPS`` forward + backward steps of
+   ``flash_attention_trainable`` (exactly one launch of each flash kernel
+   a step) and one ``flash_attention`` (the forward kernel alone);
 5. timing — each kernel's median device time (CUDA events, L2 flushed,
    the host's enqueue hidden behind a spin kernel) beside
    its bound, what sets the bound, and the plain version's time:
@@ -90,14 +109,20 @@ is non-zero and no result line is printed):
    alone as that product's yardstick); the host time of one backend call
    per coalesced tier; the clause-bit kernels at the digital width, B in
    {1, 8, 64, 256}, with the ``torch.matmul`` bracket, and the batch
-   training step's split into kernel and eager TA update.
+   training step's split into kernel and eager TA update; the flash
+   kernels on each bf16 row with their plain versions and bounds
+   (bytes, matmul FLOPs at the tensor rate, exp / tanh at the SFU rate),
+   SDPA's forward, backward and both on the ``[b, h, s, d]`` transposes
+   with the backend that ran (none for the softcapped local row), and the
+   port's trainable forward + backward.
 
 Then the launches of each path, the ``{"kernels": [...]}`` line (each
 kernel's launches on its main path: the plane-packed analog path for
 ``imbue_infer_planes``, the lower analog tiers for ``imbue_infer_packed``
 and ``imbue_infer``, the coalesced path for the TM kernels, the training
-path for the clause-bit kernels), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  The
+path for the clause-bit kernels, the trainable attention steps for the
+flash kernels), the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``.  The
 serving phases' models are built with numpy from a seed, without
 training: each clause includes 8-16 literals that are 1 on a class
 prototype; requests are prototypes with 8 % of bits flipped.  The
@@ -181,6 +206,21 @@ KERNELS = {
         "source": "src/repro_torch/kernels/csrc/clause_eval.cu",
         "replaces": "src/repro/kernels/clause_eval.py:48",
     },
+    "flash_fwd": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+    },
+    "flash_bwd_dkv": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd_dkv.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:179",
+    },
+    "flash_bwd_dq": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_bwd_dq.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:219",
+    },
 }
 TM_KERNELS = ("tm_infer_planes", "tm_infer_packed", "tm_infer")
 # The dense-plane analog kernels and the backends of the three analog tiers.
@@ -205,6 +245,63 @@ COALESCED_EPOCHS = 3
 # on the CPU: benchmarks/reference_train_accuracy.py) is in PERF.md; the
 # floor leaves room for the port's other random draws.
 TRAIN_ACCURACY_FLOOR = 0.95
+# Flash attention at the attention widths of three architectures the repo
+# registers (src/repro/configs/archs.py; the numbers are copied, the port
+# imports nothing of the reference), in the models' compute dtype (bf16),
+# the kv heads gathered up to the q heads as the models' _expand_kv does
+# (q head i reads kv head i // (h // kv)).
+FLASH_ROWS = {
+    # train_4k's sequence; 2 kv heads gathered to 14.
+    "main": dict(arch="qwen2-0.5b", b=4, s=4096, h=14, kv=2, d=64,
+                 causal=True, window=0, softcap=0.0, dtype="bfloat16"),
+    # Every mask at once; S > window, so the window bites.
+    "local": dict(arch="gemma2-2b", b=1, s=8192, h=8, kv=4, d=256,
+                  causal=True, window=4096, softcap=50.0, dtype="bfloat16"),
+    # Non-causal and ragged (1500 post-conv frames) at a real width.
+    "bidir": dict(arch="whisper-large-v3 encoder", b=4, s=1500, h=20, kv=20,
+                  d=64, causal=False, window=0, softcap=0.0,
+                  dtype="bfloat16"),
+}
+# Edge cases, each mask combination of tests/test_kernels.py:148-154, so
+# that every dtype x head-dim instance of the kernels is checked: float32
+# at every head dim, bfloat16 at the two the model rows leave out.
+FLASH_SMALL = [dict(arch="small", b=2, s=s, h=2, kv=2, d=d, causal=causal,
+                    window=window, softcap=cap, dtype=dtype)
+               for dtype, shapes in (
+                   ("float32", ((300, 32), (200, 64), (256, 128), (160, 256))),
+                   ("bfloat16", ((300, 32), (256, 128))))
+               for s, d in shapes
+               for causal, window, cap in ((True, 0, 0.0), (True, 100, 0.0),
+                                           (True, 0, 50.0), (False, 0, 0.0))]
+# One bf16 ulp is at most 2^-7 of the value it rounds.
+BF16_ULP = 2.0 ** -7
+# Each compared tensor's limit, as (measure, limit) on the measures of
+# flash_err.  float32: the reference's own bounds on max|kernel - plain| /
+# max|plain| (tests/test_kernels.py:166,207), 2e-5 forward, 5e-4
+# gradients.  bfloat16: kernel and plain version read the same bf16
+# inputs, compute in float32 and round to bf16, so they may differ by one
+# ulp where the two float32 values straddle a rounding step, plus float
+# order; "ulp_excess" holds every element at |kernel - plain| <= BF16_ULP
+# |plain| + limit * max|plain|: 1e-3 for dQ, dK and dV, 2e-3 for o, whose
+# P is rounded to bf16 on both sides, so a float-order difference in a
+# score can move P by one bf16 ulp and o by up to 2^-8 |v| / l.  lse is
+# float32 from float32 scores in both dtypes.  The trainable's bf16
+# gradients run through dO = 2 (o - tgt) of the kernel's own o, whose
+# one-ulp flips spread over whole rows of dK / dV: "norm_rel", ||kernel -
+# plain|| / ||plain||.  Readings and margins are in PERF.md (PR 15).
+FLASH_TOL = {
+    "float32": {"o": ("max_rel", 2e-5), "lse": ("max_rel", 2e-5),
+                "grad": ("max_rel", 5e-4), "trainable": ("max_rel", 5e-4)},
+    "bfloat16": {"o": ("ulp_excess", 2e-3), "lse": ("max_rel", 2e-5),
+                 "grad": ("ulp_excess", 1e-3),
+                 "trainable": ("norm_rel", 5e-3)},
+}
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+FLASH_PATH_STEPS = 3
+BF16_FLOP_PER_S = 989e12       # dense, tensor cores
+# Special-function unit (exp, tanh) rate on compute capability 9.0, per
+# clock per SM (the same table as the POPC rate).
+SFU_PER_CLOCK_PER_SM = 16
 
 
 def emit(obj) -> None:
@@ -234,7 +331,10 @@ def popc_per_s() -> float:
 
 def kernel_pair(name):
     """``(wrapper, plain version)`` of kernel ``name``."""
-    from repro_torch.kernels import clause_eval, imbue_infer
+    from repro_torch.kernels import clause_eval, flash_attention, imbue_infer
+    if name.startswith("flash"):
+        return (getattr(flash_attention, name),
+                getattr(flash_attention, f"{name}_plain"))
     mod = imbue_infer if name.startswith("imbue") else clause_eval
     return getattr(mod, name), getattr(mod, f"{name}_ref")
 
@@ -1470,6 +1570,301 @@ def phase_tm_timing(device):
     return rows
 
 
+# ------------------------------------------------------- flash attention
+
+def flash_inputs(row, seed, device):
+    """``(q, k, v, tgt)`` ``[b, s, h, d]`` in the row's dtype, drawn with
+    numpy from ``seed``; k and v drawn with ``kv`` heads and gathered up to
+    ``h``."""
+    rng = np.random.default_rng(seed)
+    b, s, h, kv, d = (row[x] for x in ("b", "s", "h", "kv", "d"))
+    dtype = getattr(torch, row["dtype"])
+
+    def draw(heads):
+        a = rng.standard_normal((b, s, heads, d), dtype=np.float32)
+        return torch.from_numpy(a).to(device).to(dtype)
+    idx = torch.arange(h, device=device) // (h // kv)
+    q = draw(h)
+    k, v = (draw(kv)[:, :, idx].contiguous() for _ in range(2))
+    return q, k, v, draw(h)
+
+
+def flash_opts(row):
+    return dict(causal=row["causal"], window=row["window"],
+                softcap=row["softcap"])
+
+
+def flash_label(row):
+    return {x: row[x] for x in ("arch", "b", "s", "h", "kv", "d", "causal",
+                                "window", "softcap", "dtype")}
+
+
+def flash_err(got, want):
+    """The measures FLASH_TOL holds: ``max_rel`` (max|got - want| /
+    max|want|), ``norm_rel`` (||got - want|| / ||want||), ``ulp_excess``
+    (max(|got - want| - BF16_ULP |want|, 0) / max|want|), and ``max_abs``
+    (max|got - want|)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    wmax = float(w.abs().max())
+    return {"max_rel": float(diff.max()) / wmax,
+            "norm_rel": float(torch.linalg.vector_norm(diff)
+                              / torch.linalg.vector_norm(w)),
+            "ulp_excess": float((diff - BF16_ULP * w.abs()).clamp_min(0)
+                                .max()) / wmax,
+            "max_abs": float(diff.max())}
+
+
+def flash_plain(q, k, v, tgt, opts):
+    """The plain versions on one input: ``o``, ``lse`` (valid rows), the
+    ``dO`` of ``sum((o - tgt)^2)``, ``D`` and ``(dq, dk, dv)``."""
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa.flash_fwd_plain(q, k, v, **opts)
+    do = (2.0 * (o.float() - tgt.float())).to(q.dtype)
+    dd = fa.row_dots(do, o)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd, **opts)
+    dq = fa.flash_bwd_dq_plain(q, k, v, do, lse, dd, **opts)
+    return o, lse, do, dd, (dq, dk, dv)
+
+
+def nonzero_rows(g):
+    """Share of the ``[b, s, h]`` rows of ``g`` with a non-zero entry."""
+    return float((g.float().abs().amax(-1) > 0).float().mean())
+
+
+def flash_check(row, seed, device):
+    """Each flash kernel against its plain version on the same inputs, then
+    ``flash_attention_trainable``'s ``o`` and gradients of ``sum((o -
+    tgt)^2)`` against the plain ones, and ``flash_attention`` equal to the
+    trainable forward.  Returns the row and each kernel's max abs error."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, tgt = flash_inputs(row, seed, device)
+    opts = flash_opts(row)
+    tol = FLASH_TOL[row["dtype"]]
+    o_p, lse_p, do, dd, grads_p = flash_plain(q, k, v, tgt, opts)
+    o, lse = fa.flash_fwd(q, k, v, **opts)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, dd, **opts)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, dd, **opts)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fa.flash_attention_trainable(*leaves, **opts)
+    ((out.float() - tgt.float()) ** 2).sum().backward()
+    fwd_only = fa.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    # name -> (kernel, plain, FLASH_TOL key)
+    pairs = {"o": (o, o_p, "o"), "lse": (lse, lse_p, "lse"),
+             "dq": (dq, grads_p[0], "grad"), "dk": (dk, grads_p[1], "grad"),
+             "dv": (dv, grads_p[2], "grad"),
+             "trainable o": (out.detach(), o_p, "o")}
+    pairs.update({f"trainable {n}": (t.grad, g, "trainable") for n, t, g in
+                  zip(("dq", "dk", "dv"), leaves, grads_p)})
+    err = {n: flash_err(got, want) for n, (got, want, _) in pairs.items()}
+    rows = {n: nonzero_rows(t) for n, t in
+            (("o", o), *zip(("dq", "dk", "dv"), (t.grad for t in leaves)))}
+    result = {"phase": "kernels", "check": "flash", **flash_label(row),
+              "err": err,
+              "tolerance": {n: tol[key] for n, (_, _, key) in pairs.items()},
+              "nonzero_rows": rows,
+              "o_max_abs": float(o.float().abs().max()),
+              "o_mean_abs": float(o.float().abs().mean()),
+              "fwd_equals_trainable": torch.equal(fwd_only, out.detach())}
+    emit(result)
+    bad = [n for n, (_, _, key) in pairs.items()
+           if not err[n][tol[key][0]] <= tol[key][1]]
+    if bad:
+        raise AssertionError(f"flash kernels disagree with their plain "
+                             f"versions ({bad}): {result}")
+    if (result["o_max_abs"] == 0.0
+            or not bool(torch.isfinite(lse).all())
+            or min(rows.values()) < 0.99
+            or not result["fwd_equals_trainable"]):
+        raise AssertionError(f"flash check vacuous or inconsistent: "
+                             f"{result}")
+    return {"flash_fwd": max(err["o"]["max_abs"], err["lse"]["max_abs"]),
+            "flash_bwd_dkv": max(err["dk"]["max_abs"], err["dv"]["max_abs"]),
+            "flash_bwd_dq": err["dq"]["max_abs"]}
+
+
+def phase_flash_kernels(device):
+    """The flash kernels against their plain versions at the three model
+    rows and the float32 edge cases; returns each kernel's max abs
+    error."""
+    max_err = dict.fromkeys(FLASH_KERNELS, 0.0)
+    rows = [*FLASH_ROWS.values(), *FLASH_SMALL]
+    for i, row in enumerate(rows):
+        for name, e in flash_check(row, SEED + 900 + i, device).items():
+            max_err[name] = max(max_err[name], e)
+        torch.cuda.empty_cache()
+    return max_err
+
+
+def phase_flash_path(device):
+    """``flash_attention_trainable`` forward and backward FLASH_PATH_STEPS
+    times at the main row (one launch of each kernel a step), then
+    ``flash_attention`` once (the forward kernel alone); returns the
+    launches of the training steps."""
+    from repro_torch.kernels import flash_attention as fa
+    row = FLASH_ROWS["main"]
+    q, k, v, tgt = flash_inputs(row, SEED + 950, device)
+    opts = flash_opts(row)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    losses = []
+
+    def drive():
+        for _ in range(FLASH_PATH_STEPS):
+            for t in leaves:
+                t.grad = None
+            out = fa.flash_attention_trainable(*leaves, **opts)
+            loss = ((out.float() - tgt.float()) ** 2).sum()
+            loss.backward()
+            losses.append(float(loss.detach()))
+    counts = path_launches(drive, FLASH_KERNELS)
+    if counts != dict.fromkeys(FLASH_KERNELS, FLASH_PATH_STEPS) or not all(
+            bool(torch.isfinite(t.grad).all()) for t in leaves):
+        raise AssertionError(f"flash training path: launches {counts}")
+    fns = [kernel_pair(name)[0] for name in FLASH_KERNELS]
+    for fn in fns:
+        fn.launches = 0
+    o = fa.flash_attention(q, k, v, **opts)
+    infer = {name: fn.launches for name, fn in zip(FLASH_KERNELS, fns)}
+    if infer != {"flash_fwd": 1, "flash_bwd_dkv": 0, "flash_bwd_dq": 0} \
+            or not bool(torch.isfinite(o).all()):
+        raise AssertionError(f"flash_attention path: launches {infer}")
+    emit({"phase": "flash_path", **flash_label(row),
+          "driver": "flash_attention_trainable forward + backward",
+          "steps": FLASH_PATH_STEPS, "losses": losses, "launches": counts,
+          "flash_attention_launches": infer})
+    return counts
+
+
+def visible_pairs(row):
+    """The (query, key) pairs the masks keep, over every head."""
+    s, window = row["s"], row["window"]
+    q = np.arange(s)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(s, np.int64)
+    hi = q + 1 if row["causal"] else np.full(s, s)
+    return row["b"] * row["h"] * int(np.maximum(hi - lo, 0).sum())
+
+
+def sfu_per_s():
+    """The card's exp / tanh rate: 16 per clock per SM, like POPC."""
+    return popc_per_s() * SFU_PER_CLOCK_PER_SM / POPC_PER_CLOCK_PER_SM
+
+
+def flash_bound(name, row, pairs):
+    """``(bound_ms, by, terms)``: the largest of bytes (each input read
+    once, each output written once) at 3.35 TB/s, the matmul FLOPs (2, 4
+    and 3 products of 2 * d a visible pair for the forward, dK / dV and dQ)
+    at the dense tensor rate of the row's dtype, and the exp (and softcap
+    tanh) count at the SFU rate."""
+    b, s, h, d = row["b"], row["s"], row["h"], row["d"]
+    esize = 2 if row["dtype"] == "bfloat16" else 4
+    t = b * s * h * d * esize                       # one [b, s, h, d] tensor
+    stats = b * h * s * 4                           # one [b * h, s] f32
+    nbytes, products = {"flash_fwd": (4 * t + stats, 2),
+                        "flash_bwd_dkv": (6 * t + 2 * stats, 4),
+                        "flash_bwd_dq": (5 * t + 2 * stats, 3)}[name]
+    rate = BF16_FLOP_PER_S if esize == 2 else FP32_FLOP_PER_S
+    sfu = pairs * (2 if row["softcap"] else 1)
+    terms = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "matmul_ms": products * 2 * d * pairs / rate * 1e3,
+             "sfu_ms": sfu / sfu_per_s() * 1e3}
+    bms = max(terms.values())
+    return bms, ("bytes" if bms == terms["bytes_ms"] else "operations"), \
+        {**terms, "bytes": nbytes, "flop": products * 2 * d * pairs,
+         "sfu_ops": sfu}
+
+
+def sdpa_backends(fn):
+    """The ``aten`` SDPA ops one call of ``fn`` ran (which backend)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted({e.key for e in prof.key_averages()
+                   if "scaled_dot_product" in e.key
+                   and e.key != "aten::scaled_dot_product_attention"})
+
+
+def sdpa_times(q, k, v, do, causal, flush):
+    """``torch.nn.functional.scaled_dot_product_attention`` on the
+    ``[b, h, s, d]`` transposes: the forward alone, the backward alone
+    (dQ, dK and dV in one call) and both, and the backends they ran."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return sdpa(qt, kt, vt, is_causal=causal)
+    with torch.no_grad():
+        fwd_ms = time_ms(fwd, 10, flush)
+        fwd_backend = sdpa_backends(fwd)
+    out = fwd()
+    bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10, flush)
+    both_ms = time_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot),
+                      10, flush)
+    return {"sdpa_fwd_ms": fwd_ms, "sdpa_bwd_ms": bwd_ms,
+            "sdpa_fwd_bwd_ms": both_ms, "sdpa_fwd_backend": fwd_backend,
+            "sdpa_train_backend": sdpa_backends(lambda: torch.autograd.grad(
+                fwd(), (qt, kt, vt), dot))}
+
+
+def phase_flash_timing(device):
+    """On each bf16 model row: each flash kernel's device time, its plain
+    version's, its bound, and the library call (SDPA; none takes a
+    softcap, so the local row has none); the port's trainable forward +
+    backward beside SDPA's.  Returns the rows."""
+    from repro_torch.kernels import flash_attention as fa
+    flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
+                        device=device)
+    rows = []
+    for label, row in FLASH_ROWS.items():
+        q, k, v, tgt = flash_inputs(row, SEED + 980, device)
+        opts = flash_opts(row)
+        o, lse, do, dd, _ = flash_plain(q, k, v, tgt, opts)
+        pairs = visible_pairs(row)
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **opts),
+                          lambda: fa.flash_fwd_plain(q, k, v, **opts)),
+            "flash_bwd_dkv": (
+                lambda: fa.flash_bwd_dkv(q, k, v, do, lse, dd, **opts),
+                lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd,
+                                               **opts)),
+            "flash_bwd_dq": (
+                lambda: fa.flash_bwd_dq(q, k, v, do, lse, dd, **opts),
+                lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, dd, **opts))}
+        lib = (None if row["softcap"]
+               else sdpa_times(q, k, v, do, row["causal"], flush))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        port_ms = time_ms(lambda: torch.autograd.grad(
+            fa.flash_attention_trainable(*leaves, **opts), leaves, do), 5,
+            flush)
+        for name, (kernel, plain) in calls.items():
+            bms, by, terms = flash_bound(name, row, pairs)
+            ms = time_ms(kernel, 10, flush)
+            library = None
+            if lib is not None:
+                library = lib["sdpa_fwd_ms" if name == "flash_fwd"
+                              else "sdpa_bwd_ms"]
+            rows.append({"kernel": name, "row": label, **flash_label(row),
+                         "pairs": pairs, "ms": ms,
+                         "plain_ms": time_ms(plain, 3, flush),
+                         "bound_ms": bms, "bound_by": by, **terms,
+                         "bound_share": bms / ms, "library_ms": library})
+        emit({"phase": "timing", "kernels": list(FLASH_KERNELS),
+              "row": label, **flash_label(row),
+              "clock": "cuda events, median, L2 flushed, host enqueue "
+                       "hidden behind a spin kernel",
+              "bound": "max(bytes / 3.35 TB/s, matmul FLOPs / dense "
+                       "tensor rate, exp (+ tanh) / SFU rate)",
+              "rows": rows[-3:], "port_fwd_bwd_ms": port_ms,
+              "library": lib if lib is not None else
+              "null: no SDPA call takes a softcap"})
+        del q, k, v, tgt, o, lse, do, dd, leaves, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1483,6 +1878,7 @@ def main() -> int:
     max_err.update(phase_dense_kernels(device))
     max_err.update(phase_tm_kernels(device))
     max_err.update(phase_clause_kernels(device))
+    max_err.update(phase_flash_kernels(device))
     by_path = {"analog": phase_serving(device),
                "analog_tiers": phase_analog_tiers(device),
                "chaos": phase_chaos(device),
@@ -1490,13 +1886,16 @@ def main() -> int:
                "coalesced": phase_coalesced_serving(device),
                "digital": phase_digital_fused(device)}
     by_path["training"], train_epochs = phase_training(device)
+    by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})
     # The kernels line counts each kernel on its main path: the analog
     # path for imbue_infer_planes, the lower analog tiers for the
     # dense-plane kernels, the coalesced path for the TM kernels, the
-    # training path for the clause-bit kernels.
+    # training path for the clause-bit kernels, the trainable attention
+    # steps for the flash kernels.
     launches = {**by_path["analog"], **by_path["analog_tiers"],
-                **by_path["coalesced"], **by_path["training"]}
+                **by_path["coalesced"], **by_path["training"],
+                **by_path["flash"]}
     main_rows = {"imbue_infer_planes": next(
         r for r in phase_timing(device) if r["dev"] and r["B"] == 128)}
     for r in phase_dense_timing(device):
@@ -1517,6 +1916,13 @@ def main() -> int:
     # torch.matmul of its own operands as float32 then == 0; the packed
     # words have none.
     library = {"clause_eval": main_rows["clause_eval"]["matmul_bracket_ms"]}
+    # The flash kernels at the main row (qwen2-0.5b); the library call is
+    # SDPA's forward for flash_fwd and SDPA's one backward call (dQ, dK and
+    # dV together) for both backward kernels.
+    for r in phase_flash_timing(device):
+        if r["row"] == "main":
+            main_rows[r["kernel"]] = r
+            library[r["kernel"]] = r["library_ms"]
     emit({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
         max_abs_err=max_err[name], ms=main_rows[name]["ms"],

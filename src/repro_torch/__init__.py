@@ -11,7 +11,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 CPU tensor a kernel wrapper computes with its plain PyTorch version; on a
 CUDA tensor it launches the kernel or raises.
 
-Ported so far (the serving paths and TM training):
+Ported so far (the serving paths, TM training and flash attention):
 
 * ``kernels.bitpack`` / ``kernels.ops`` / ``kernels.imbue_infer`` — the
   packed wire format and the ``imbue_infer_planes`` CUDA kernel;
@@ -28,5 +28,10 @@ Ported so far (the serving paths and TM training):
 * ``train.online`` — the replay-buffer ``OnlineTrainer``;
 * ``distributed.checkpoint`` — digest-verified checkpoints, in the
   reference's format;
-* ``data.tm_datasets`` — noisy XOR and the synthetic image set.
+* ``data.tm_datasets`` — noisy XOR and the synthetic image set;
+* ``kernels.flash_attention`` — ``flash_attention`` and the
+  differentiable ``flash_attention_trainable`` on the ``flash_fwd``,
+  ``flash_bwd_dkv`` and ``flash_bwd_dq`` CUDA kernels.  Unlike the
+  other entry points they take no ``device``: they run where their
+  tensors lie.
 """

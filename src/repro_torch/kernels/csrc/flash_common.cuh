@@ -1,0 +1,260 @@
+// flash_common.cuh: the tiling and the device functions shared by the
+// flash-attention kernels (flash_fwd.cu, flash_bwd_dkv.cu,
+// flash_bwd_dq.cu), ports of src/repro/kernels/flash_attention.py.
+//
+// Layout: q, k, v, dO, o, dq, dk, dv are [B, S, H, D] (heads already
+// expanded), read and written in place: row s of head (b, h) starts at
+// ((b * S + s) * H + h) * D.  lse and D = rowsum(dO * o) are float32.
+// Inputs are float32 or bfloat16; every product and sum runs in float32
+// FFMA (bf16 x bf16 products are exact in float32, as the TPU kernel's
+// preferred_element_type=float32 keeps them).
+//
+// The mask of one (query q, key k) pair is the reference's _block_mask
+// (flash_attention.py:47-60): k < S, and q >= k if causal (top-left
+// aligned, equal lengths), and q - k < window if window > 0.  A tile of
+// keys (or queries) that holds no visible pair for the block's tile is
+// never visited: the key range of a query tile is k_begin..k_end, the
+// query range of a key tile q_begin..q_end (the reference's `run` test).
+//
+// Scores: x = (q . k) * scale, s = cap * tanh(x / cap) if cap > 0 else x
+// (_scores, :63-70), with IEEE tanhf / expf / logf (no fast math: the
+// approximate tanh's ~2^-11 error is past the float32 tolerance).  A
+// masked score is the finite NEG_INF = -1e30 of the reference (:44): the
+// online softmax relies on exp(-1e30 - m) == 0 and exp(0) == 1 where an
+// infinite one would give exp(-inf + inf) = NaN.
+
+#pragma once
+
+#include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace flash {
+
+constexpr int THREADS = 256;       // a 16 x 16 grid of threads
+constexpr float NEG_INF = -1e30f;
+
+// Query rows (BQ) and key rows (BK) of a tile.  Every tile is staged in
+// shared memory as float32 rows padded to D + 4 floats; at D = 256 the
+// tiles are 32 rows so that four 32 x 256 tiles (133 KB) fit.
+template <int D>
+struct Tiles {
+  static constexpr int BQ = D >= 256 ? 32 : 64;
+  static constexpr int BK = D >= 256 ? 32 : 64;
+  static constexpr int DS = D + 4;        // row stride of a [rows, D] tile
+  static constexpr int PS = BK + 16;      // row stride of a [BQ, BK] tile
+  static constexpr int TQ = BQ / 16;      // query rows a thread owns
+  static constexpr int TK = BK / 16;      // key rows (columns) a thread owns
+  static constexpr int TD = D / 16;       // head-dim columns a thread owns
+};
+
+// Thread (ty, tx) of a [rows, cols] score tile owns rows ty + 16 i and
+// columns tx + 16 j.  A warp is two values of ty by sixteen of tx: its
+// float4 reads of sixteen neighbouring key rows (stride D + 4 floats,
+// D / 4 a multiple of 8) fall in distinct banks, its reads of two query
+// rows are broadcasts.  Of a [rows, D] accumulator, thread (ty, tx) owns
+// rows ty + 16 i and the head-dim columns dcol(tx, j): four neighbouring
+// columns in each 64-wide group (two at D = 32).
+template <int D>
+__device__ __forceinline__ int dcol(int tx, int j) {
+  if constexpr (D / 16 >= 4) {
+    return tx * 4 + 64 * (j / 4) + j % 4;
+  } else {
+    return tx * (D / 16) + j;
+  }
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// v rounded to T and back: the forward casts P to v's dtype before P . V
+// (flash_attention.py:97-99).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+
+// Rows r0 .. r0 + ROWS - 1 of one head of a [B, S, H, D] tensor (`src`
+// points at row 0 of the head, rows `row_stride` elements apart) into a
+// [ROWS, D + 4] float32 tile; rows >= limit read as 0.
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst,
+                                          const T* __restrict__ src,
+                                          size_t row_stride, int r0,
+                                          int limit) {
+  constexpr int C4 = D / 4;
+  for (int e = threadIdx.x; e < ROWS * C4; e += THREADS) {
+    const int r = e / C4;
+    const int c = (e % C4) * 4;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r0 + r < limit) load4(src + static_cast<size_t>(r0 + r) * row_stride
+                                  + c, v);
+    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) =
+        make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The head-dim columns dcol(tx, j) of one tile row.
+template <int D>
+__device__ __forceinline__ void load_cols(const float* __restrict__ row,
+                                          int tx, float (&out)[D / 16]) {
+  if constexpr (D / 16 >= 4) {
+#pragma unroll
+    for (int g = 0; g < D / 64; ++g) {
+      const float4 x = *reinterpret_cast<const float4*>(row + tx * 4 + 64 * g);
+      out[4 * g] = x.x;
+      out[4 * g + 1] = x.y;
+      out[4 * g + 2] = x.z;
+      out[4 * g + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) out[j] = row[tx * (D / 16) + j];
+  }
+}
+
+// acc[i][j] += a[ty + 16 i] . b[tx + 16 j] over the D columns of two
+// [rows, D + 4] tiles.
+template <int D, int TR, int TC>
+__device__ __forceinline__ void tile_dot(const float* __restrict__ a,
+                                         const float* __restrict__ b,
+                                         int ty, int tx,
+                                         float (&acc)[TR][TC]) {
+  constexpr int DS = D + 4;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 av[TR], bv[TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * DS + d);
+    }
+#pragma unroll
+    for (int j = 0; j < TC; ++j) {
+      bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * DS + d);
+    }
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        float s = acc[i][j];
+        s = fmaf(av[i].x, bv[j].x, s);
+        s = fmaf(av[i].y, bv[j].y, s);
+        s = fmaf(av[i].z, bv[j].z, s);
+        s = fmaf(av[i].w, bv[j].w, s);
+        acc[i][j] = s;
+      }
+    }
+  }
+}
+
+// Max and sum over the sixteen threads of one tile row (one half-warp).
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The key-side mask of _block_mask; the backward kernels add q < S.
+__device__ __forceinline__ bool visible(int q, int k, int S, int causal,
+                                        int window) {
+  return k < S && (!causal || q >= k) && (window == 0 || q - k < window);
+}
+
+// The first key a query tile starting at q0 can see, and one past the
+// last (before rounding down to a tile boundary).
+__device__ __forceinline__ int k_begin(int q0, int window) {
+  return window ? max(0, q0 - window + 1) : 0;
+}
+__device__ __forceinline__ int k_end(int q0, int bq, int S, int causal) {
+  return causal ? min(S, q0 + bq) : S;
+}
+
+// The first query that can see a key tile starting at k0, and one past
+// the last.
+__device__ __forceinline__ int q_begin(int k0, int causal) {
+  return causal ? k0 : 0;
+}
+__device__ __forceinline__ int q_end(int k0, int bk, int S, int window) {
+  return window ? min(S, k0 + bk - 1 + window) : S;
+}
+
+// s from the pre-cap scaled score x.
+__device__ __forceinline__ float capped(float x, float cap) {
+  return cap > 0.f ? cap * tanhf(x / cap) : x;
+}
+
+// ds of one pair (flash_attention.py:205-208): p (dp - D), times the
+// softcap's derivative 1 - tanh(x / cap)^2 at the pre-cap x, times scale.
+__device__ __forceinline__ float dscore(float p, float dp, float dd, float x,
+                                        float cap, float scale) {
+  float ds = p * (dp - dd);
+  if (cap > 0.f) {
+    const float t = tanhf(x / cap);
+    ds = ds * (1.f - t * t);
+  }
+  return ds * scale;
+}
+
+// f(T{}, std::integral_constant<int, D>{}) for the runtime dtype flag
+// (0 float32, 1 bfloat16) and head dim; cudaErrorInvalidValue for any
+// other head dim.
+template <typename F>
+int dispatch(int d, int bf16, F&& f) {
+  using I32 = std::integral_constant<int, 32>;
+  using I64 = std::integral_constant<int, 64>;
+  using I128 = std::integral_constant<int, 128>;
+  using I256 = std::integral_constant<int, 256>;
+  if (bf16) {
+    switch (d) {
+      case 32: return f(__nv_bfloat16{}, I32{});
+      case 64: return f(__nv_bfloat16{}, I64{});
+      case 128: return f(__nv_bfloat16{}, I128{});
+      case 256: return f(__nv_bfloat16{}, I256{});
+    }
+  } else {
+    switch (d) {
+      case 32: return f(float{}, I32{});
+      case 64: return f(float{}, I64{});
+      case 128: return f(float{}, I128{});
+      case 256: return f(float{}, I256{});
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace flash

@@ -239,3 +239,114 @@ def test_batch_step_on_the_kernel_equals_the_plain_version(cuda,
         gen = torch.Generator(device=cuda).manual_seed(7)
         outs.append(tm_train.train_step_batch(state, gen, x, y, cfg))
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], state)
+
+
+# ------------------------------------------------------- flash attention
+# float32: max|kernel - plain| <= tol * max|plain| at the reference's
+# bounds (tests/test_kernels.py:166,207), 2e-5 forward, 5e-4 gradients.
+# bfloat16: both sides read the same inputs, compute in float32 and round
+# to bf16, so each element is held at one bf16 ulp (<= 2^-7 of the value)
+# plus 2e-3 (o, whose P is rounded to bf16 on both sides) or 1e-3 (dQ, dK,
+# dV) of max|plain|, as chip_smoke.FLASH_TOL; lse is float32 in both.
+FLASH_CASES = [
+    (2, 300, 2, 32, True, 0, 0.0, torch.float32),
+    (2, 256, 2, 128, True, 0, 50.0, torch.float32),
+    (2, 97, 1, 64, False, 40, 30.0, torch.float32),
+    (1, 200, 3, 64, False, 0, 0.0, torch.bfloat16),
+    (1, 130, 2, 256, True, 64, 50.0, torch.bfloat16),
+]
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / float(
+        want.float().abs().max())
+
+
+def _within(got, want, dtype, f32_tol, bf16_atol=1e-3):
+    if dtype == torch.float32:
+        return _rel(got, want) <= f32_tol
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= 2.0 ** -7 * w.abs()
+                 + bf16_atol * w.abs().max()).all())
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,window,cap,dtype", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(cuda, b, s, h, d, causal,
+                                            window, cap, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(s + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(cuda, dtype) for _ in range(4))
+    opts = dict(causal=causal, window=window, softcap=cap)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
+              fa.flash_bwd_dq.launches)
+    o, lse = fa.flash_fwd(q, k, v, **opts)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, causal, window, cap)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and _within(o, want_o, dtype, 2e-5, 2e-3)
+    assert lse.shape == (b * h, s) and bool(torch.isfinite(lse).all())
+    assert _rel(lse, want_lse) <= 2e-5
+    dd = fa.row_dots(do, want_o)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, want_lse, dd, **opts)
+    dq = fa.flash_bwd_dq(q, k, v, do, want_lse, dd, **opts)
+    want_dk, want_dv = fa.flash_bwd_dkv_plain(q, k, v, do, want_lse, dd,
+                                              causal, window, cap)
+    want_dq = fa.flash_bwd_dq_plain(q, k, v, do, want_lse, dd, causal,
+                                    window, cap)
+    torch.cuda.synchronize()
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dtype and _within(got, want, dtype, 5e-4)
+    for got in (o, dq, dk, dv):
+        assert float((got.float().abs().amax(-1) > 0).float().mean()) > 0.99
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+
+
+def test_flash_trainable_launches_each_kernel_once(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 70, 2, 64)).astype(
+        np.float32)).to(cuda).requires_grad_(True) for _ in range(3))
+    def counts():
+        return (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
+                fa.flash_bwd_dq.launches)
+    c0 = counts()
+    fa.flash_attention_trainable(q, k, v, True, 16, 0.0).sum().backward()
+    assert counts() == (c0[0] + 1, c0[1] + 1, c0[2] + 1)
+    c1 = counts()
+    fa.flash_attention_trainable(q.detach(), k.detach(), v).sum().backward()
+    assert counts() == (c1[0] + 1, c1[1] + 1, c1[2])     # no dQ wanted
+    fa.flash_attention(q.detach(), k.detach(), v.detach())
+    assert counts() == (c1[0] + 2, c1[1] + 1, c1[2])
+    empty = q.detach()[:, :0].contiguous()
+    assert fa.flash_attention(empty, empty, empty).shape == (1, 0, 2, 64)
+    assert counts() == (c1[0] + 2, c1[1] + 1, c1[2])
+
+
+def test_flash_plain_backward_gradcheck_on_the_card(cuda):
+    """The plain forward and backward in float64 on the card, through
+    torch.autograd.gradcheck."""
+    from repro_torch.kernels import flash_attention as fa
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = fa.flash_fwd_plain(q, k, v, True, 3, 2.0, bk=8)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, lse = ctx.saved_tensors
+            do = do.contiguous()
+            dd = fa.row_dots(do, o)
+            dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, dd, True, 3,
+                                            2.0)
+            return (fa.flash_bwd_dq_plain(q, k, v, do, lse, dd, True, 3,
+                                          2.0), dk, dv)
+
+    rng = np.random.default_rng(4)
+    ts = [torch.from_numpy(rng.standard_normal((1, 7, 2, 4))).to(cuda)
+          .requires_grad_(True) for _ in range(3)]
+    assert torch.autograd.gradcheck(Plain.apply, ts, eps=1e-6, atol=1e-6,
+                                    rtol=1e-5)

@@ -27,7 +27,7 @@ from repro_torch.data import tm_datasets  # noqa: E402
 from repro_torch.distributed import checkpoint  # noqa: E402
 from repro_torch.train import online  # noqa: E402
 from repro_torch.core.imbue import IMBUEConfig  # noqa: E402
-from repro_torch.kernels import bitpack, ops  # noqa: E402
+from repro_torch.kernels import bitpack, flash_attention, ops  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,12 +58,13 @@ def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "ops.py", "imbue_infer.py", "clause_eval.py",
             "coalesced.py", "tm_train.py", "online.py", "checkpoint.py",
-            "tm_datasets.py", "chip_smoke.py"} <= names
+            "tm_datasets.py", "flash_attention.py", "chip_smoke.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
         "tm_infer_planes.cu", "tm_infer_packed.cu", "tm_infer.cu",
-        "clause_eval_packed.cu", "clause_eval.cu"}
+        "clause_eval_packed.cu", "clause_eval.cu", "flash_fwd.cu",
+        "flash_bwd_dkv.cu", "flash_bwd_dq.cu"}
 
 
 @pytest.fixture
@@ -189,6 +190,22 @@ def test_training_entry_points_raise_without_device_and_cuda(no_cuda,
         3, CFG.n_clauses)
     assert tm.init_ta_state(gen, CFG, "cpu").device.type == "cpu"
     assert online.OnlineTrainer(CFG, gen, device="cpu").device.type == "cpu"
+
+
+def test_flash_wrappers_take_only_cpu_or_cuda_tensors():
+    """The flash entry points run where their tensors lie: the plain
+    versions for CPU tensors, the kernels for CUDA ones, and nothing else
+    (here: the meta device) quietly."""
+    q, k, v = (torch.zeros(1, 8, 1, 32, device="meta") for _ in range(3))
+    stats = torch.zeros(1, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention.flash_bwd_dkv(q, k, v, q, stats, stats)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention.flash_bwd_dq(q, k, v, q, stats, stats)
+    cpu = [torch.zeros(t.shape) for t in (q, k, v)]
+    assert flash_attention.flash_attention(*cpu).device.type == "cpu"
 
 
 def _run_smoke(cwd: Path):
