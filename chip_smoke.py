@@ -26,7 +26,8 @@ is non-zero and no result line is printed):
 1. environment — the card's name, power limit and max SM clock
    (``nvidia-smi``), the torch and CUDA versions, and the build of every
    kernel (``nvcc``, sm_90a, one process per source, all started
-   together);
+   together), with each flash bf16 instance's route (the backward on
+   ``wgmma``, the forward on FFMA), registers, spills and shared memory;
 2. kernels — every kernel against its plain PyTorch version on the card,
    tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
    {1, 4}, B in {8, 64, 128}, with and without the deviation plane) and
@@ -50,7 +51,10 @@ is non-zero and no result line is printed):
    softcap 50; bidir: whisper-large-v3 encoder ``[4, 1500, 20, 64]`` bf16)
    and ``FLASH_SMALL`` (each mask combination of ``tests/test_kernels.py``
    at every float32 head dim and the bf16 ones the rows leave out): each
-   kernel against its plain version on the same inputs, then
+   kernel against its plain version on the same inputs (the bf16
+   backward kernels on the tensor cores, ``wgmma`` fed by TMA, with P and
+   dS split into bf16 hi + lo; the float32 instances and the forward on
+   FFMA), then
    ``flash_attention_trainable``'s ``o`` and the gradients of ``sum((o -
    tgt)^2)`` against the plain ones, within ``FLASH_TOL`` (float32: the
    reference's bounds on ``max|err| / max|plain|``; bf16: one ulp plus
@@ -113,8 +117,9 @@ is non-zero and no result line is printed):
    kernels on each bf16 row with their plain versions and bounds
    (bytes, matmul FLOPs at the tensor rate, exp / tanh at the SFU rate),
    SDPA's forward, backward and both on the ``[b, h, s, d]`` transposes
-   with the backend that ran (none for the softcapped local row), and the
-   port's trainable forward + backward.
+   with the backend that ran (none for the softcapped local row), the
+   backward pair's ms over SDPA's backward, the split's tensor work
+   beside the bound, and the port's trainable forward + backward.
 
 Then the launches of each path, the ``{"kernels": [...]}`` line (each
 kernel's launches on its main path: the plane-packed analog path for
@@ -133,6 +138,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -298,6 +304,12 @@ FLASH_TOL = {
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 FLASH_PATH_STEPS = 3
+# The bf16 backward kernels split P and dS into bf16 hi + lo and run
+# two products for each of them: 6 products of 2 * d a visible pair
+# where the algorithm needs 4 (dK / dV), 4 where it needs 3 (dQ).  The
+# bound stays the algorithm's; the timing rows show the split's tensor
+# work beside it.
+SPLIT_PRODUCTS = {"flash_bwd_dkv": 6 / 4, "flash_bwd_dq": 4 / 3}
 BF16_FLOP_PER_S = 989e12       # dense, tensor cores
 # Special-function unit (exp, tanh) rate on compute capability 9.0, per
 # clock per SM (the same table as the POPC rate).
@@ -572,8 +584,52 @@ def phase_environment():
           "max_sm_clock_mhz": nvidia_smi("clocks.max.sm", "nounits"),
           "popc_per_s": popc_per_s(),
           "build_s": time.perf_counter() - t0, "build_s_per_kernel": secs,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "flash_bf16_instances": flash_bf16_instances()})
     return smi
+
+
+def ptxas_entries(log):
+    """``{mangled entry: {"registers", "spill_stores", "spill_loads",
+    "smem_static"}}`` from the ``-Xptxas -v`` lines of a build log."""
+    entries, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = entries.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_static"] = int(m.group(1)) if m else 0
+    return entries
+
+
+def flash_bf16_instances():
+    """Each bf16 instance of the flash kernels: its route (the backward's
+    ``_tc`` kernels on wgmma, the forward on FFMA), head dim, registers,
+    spills and shared memory (static from ptxas; the backward's dynamic
+    share from its ``<name>_tc_smem`` query)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    rows = []
+    for name in FLASH_KERNELS:
+        lib = ctypes.CDLL(str(_build.library_path(name)))
+        smem = getattr(lib, f"{name}_tc_smem", None)
+        for entry, info in ptxas_entries(_build.build_log(name)).items():
+            tc = "_tc" in entry
+            if not (tc or "__nv_bfloat16" in entry):
+                continue
+            d = int(re.search(r"Li(\d+)E", entry).group(1))
+            rows.append({"kernel": name, "d": d,
+                         "route": "wgmma" if tc else "ffma", **info,
+                         "smem_dynamic": smem(d) if tc and smem else None})
+    return sorted(rows, key=lambda r: (r["kernel"], r["d"]))
 
 
 def phase_kernels(device):
@@ -1850,9 +1906,20 @@ def phase_flash_timing(device):
                          "pairs": pairs, "ms": ms,
                          "plain_ms": time_ms(plain, 3, flush),
                          "bound_ms": bms, "bound_by": by, **terms,
-                         "bound_share": bms / ms, "library_ms": library})
+                         "bound_share": bms / ms, "library_ms": library,
+                         "split_matmul_ms": (terms["matmul_ms"]
+                                             * SPLIT_PRODUCTS[name]
+                                             if name in SPLIT_PRODUCTS
+                                             and row["dtype"] == "bfloat16"
+                                             else None)})
+        # The backward pair against SDPA's one backward call in this run:
+        # a ratio that compares across cards and power limits.
+        pair_ms = sum(r["ms"] for r in rows[-2:])
         emit({"phase": "timing", "kernels": list(FLASH_KERNELS),
               "row": label, **flash_label(row),
+              "bwd_pair_ms": pair_ms,
+              "bwd_pair_over_sdpa_bwd": (None if lib is None
+                                         else pair_ms / lib["sdpa_bwd_ms"]),
               "clock": "cuda events, median, L2 flushed, host enqueue "
                        "hidden behind a spin kernel",
               "bound": "max(bytes / 3.35 TB/s, matmul FLOPs / dense "

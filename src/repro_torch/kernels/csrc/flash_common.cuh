@@ -6,8 +6,10 @@
 // expanded), read and written in place: row s of head (b, h) starts at
 // ((b * S + s) * H + h) * D.  lse and D = rowsum(dO * o) are float32.
 // Inputs are float32 or bfloat16; every product and sum runs in float32
-// FFMA (bf16 x bf16 products are exact in float32, as the TPU kernel's
-// preferred_element_type=float32 keeps them).
+// (bf16 x bf16 products are exact in float32, as the TPU kernel's
+// preferred_element_type=float32 keeps them): FFMA on CUDA cores in the
+// forward and in the float32 backward, wgmma on the tensor cores in the
+// bf16 backward (TcTiles below, hopper.cuh).
 //
 // The mask of one (query q, key k) pair is the reference's _block_mask
 // (flash_attention.py:47-60): k < S, and q >= k if causal (top-left
@@ -18,13 +20,15 @@
 //
 // Scores: x = (q . k) * scale, s = cap * tanh(x / cap) if cap > 0 else x
 // (_scores, :63-70), with IEEE tanhf / expf / logf (no fast math: the
-// approximate tanh's ~2^-11 error is past the float32 tolerance).  A
-// masked score is the finite NEG_INF = -1e30 of the reference (:44): the
-// online softmax relies on exp(-1e30 - m) == 0 and exp(0) == 1 where an
-// infinite one would give exp(-inf + inf) = NaN.
+// approximate tanh's ~2^-11 error is past the float32 tolerance); the
+// bf16 tensor-core kernels take exp as exp2f of a base-2 exponent (p_ds).
+// A masked score is the finite NEG_INF = -1e30 of the reference (:44):
+// the online softmax relies on exp(-1e30 - m) == 0 and exp(0) == 1 where
+// an infinite one would give exp(-inf + inf) = NaN.
 
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
@@ -47,6 +51,36 @@ struct Tiles {
   static constexpr int TQ = BQ / 16;      // query rows a thread owns
   static constexpr int TK = BK / 16;      // key rows (columns) a thread owns
   static constexpr int TD = D / 16;       // head-dim columns a thread owns
+};
+
+// The tiles of the bf16 backward kernels on the tensor cores: a block is
+// two consumer warpgroups and one producer warpgroup, whose first warp
+// works and which hands most of its registers to the consumers
+// (PRODUCER_REGS, CONSUMER_REGS: 2 x 128 x 232 + 128 x 40 <= 65536).  The
+// producer keeps the block's resident rows (k and v for dK / dV, q and
+// dO for dQ; ROWS of them) and streams the other side's tiles (STREAM
+// rows) through a ring of STAGES by TMA, as deep as shared memory
+// allows.  Each consumer warpgroup owns 64 resident rows and
+// all D columns of their output; at D = 256, where one warpgroup cannot
+// hold a 64 x 256 float32 output twice over, both own the same 64 rows
+// and split the columns (DN each): each computes the scores of half the
+// streamed rows and the two trade their A fragments.
+template <int D>
+struct TcTiles {
+  static constexpr int THREADS = 384;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle = chunk row bytes
+  static constexpr int CW = SW / 2;               // columns of a chunk
+  static constexpr int NCH = D / CW;              // chunks of a row
+  static constexpr bool SPLIT = D >= 256;
+  static constexpr int DN = SPLIT ? D / 2 : D;    // output columns a WG owns
+  static constexpr int ROWS = SPLIT ? 64 : 128;
+  static constexpr int STREAM = 64;
+  static constexpr int STAGES = D <= 64 ? 4 : D <= 128 ? 3 : 2;
+  // Whether the dK / dV kernel can hold one tile's fragments while the
+  // next tile's scores arrive (registers: D <= 64).
+  static constexpr bool PINGPONG = DN <= 64;
 };
 
 // Thread (ty, tx) of a [rows, cols] score tile owns rows ty + 16 i and
@@ -195,6 +229,15 @@ __device__ __forceinline__ bool visible(int q, int k, int S, int causal,
   return k < S && (!causal || q >= k) && (window == 0 || q - k < window);
 }
 
+// Whether every pair of queries q_lo .. q_hi and keys k_lo .. k_hi is
+// visible (then a tile needs no mask).
+__device__ __forceinline__ bool all_visible(int q_lo, int q_hi, int k_lo,
+                                            int k_hi, int S, int causal,
+                                            int window) {
+  return q_hi < S && k_hi < S && (!causal || q_lo >= k_hi) &&
+         (window == 0 || q_hi - k_lo < window);
+}
+
 // The first key a query tile starting at q0 can see, and one past the
 // last (before rounding down to a tile boundary).
 __device__ __forceinline__ int k_begin(int q0, int window) {
@@ -228,6 +271,31 @@ __device__ __forceinline__ float dscore(float p, float dp, float dd, float x,
     ds = ds * (1.f - t * t);
   }
   return ds * scale;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// p and ds / scale of one pair from its raw score s = q . k, branch-free
+// (the tensor-core kernels keep a tile in registers, where a branch per
+// element would serialise the exp chains), with the exponent in base 2:
+// p = 2^(x log2e - lse2), lse2 = lse log2e, x = s scale (one FFMA without
+// a softcap; with one, the cap's tanh once).  A masked pair's exponent is
+// -inf, so p = +0 as exp(-1e30 - lse) gives.  The kernel multiplies the
+// summed dK or dQ by scale once, at the end.  Against capped / dscore:
+// float32 rounding differences of a few ulp, far below bf16's.
+__device__ __forceinline__ void p_ds(float s, bool on, float lse2, float dp,
+                                     float dd, float cap, float scale,
+                                     float& p, float& ds) {
+  float arg, dcap = 1.f;
+  if (cap > 0.f) {
+    const float t = tanhf(s * scale / cap);
+    arg = cap * t * LOG2E - lse2;
+    dcap = 1.f - t * t;
+  } else {
+    arg = fmaf(s, scale * LOG2E, -lse2);
+  }
+  p = exp2f(on ? arg : -INFINITY);
+  ds = p * (dp - dd) * dcap;
 }
 
 // f(T{}, std::integral_constant<int, D>{}) for the runtime dtype flag

@@ -254,6 +254,14 @@ FLASH_CASES = [
     (2, 97, 1, 64, False, 40, 30.0, torch.float32),
     (1, 200, 3, 64, False, 0, 0.0, torch.bfloat16),
     (1, 130, 2, 256, True, 64, 50.0, torch.bfloat16),
+    # The bf16 backward's tensor-core instances at the other head dims
+    # (D = 32 reads 64-byte swizzled rows), and S = 197, a multiple of
+    # neither the 64- nor the 128-row tiles, non-causal, with a window and
+    # with a softcap.
+    (2, 300, 2, 32, True, 0, 0.0, torch.bfloat16),
+    (1, 256, 2, 128, True, 100, 0.0, torch.bfloat16),
+    (1, 197, 2, 64, False, 50, 30.0, torch.bfloat16),
+    (2, 197, 1, 128, False, 0, 30.0, torch.bfloat16),
 ]
 
 
@@ -300,6 +308,30 @@ def test_flash_kernels_match_plain_versions(cuda, b, s, h, d, causal,
         assert float((got.float().abs().amax(-1) > 0).float().mean()) > 0.99
     assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
             fa.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_backward_is_deterministic(cuda, d):
+    """Two launches of each bf16 backward kernel on the same inputs are
+    bit-identical: every block owns its output rows (no atomics), so the
+    result does not depend on the order in which blocks run."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 333, 3, d))
+                                    .astype(np.float32)).to(cuda,
+                                                            torch.bfloat16)
+                   for _ in range(4))
+    opts = dict(causal=True, window=0, softcap=0.0)
+    o, lse = fa.flash_fwd(q, k, v, **opts)
+    dd = fa.row_dots(do, o)
+    first = (*fa.flash_bwd_dkv(q, k, v, do, lse, dd, **opts),
+             fa.flash_bwd_dq(q, k, v, do, lse, dd, **opts))
+    second = (*fa.flash_bwd_dkv(q, k, v, do, lse, dd, **opts),
+              fa.flash_bwd_dq(q, k, v, do, lse, dd, **opts))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        assert float(a.float().abs().max()) > 0.0
 
 
 def test_flash_trainable_launches_each_kernel_once(cuda):
