@@ -26,8 +26,9 @@ is non-zero and no result line is printed):
 1. environment — the card's name, power limit and max SM clock
    (``nvidia-smi``), the torch and CUDA versions, and the build of every
    kernel (``nvcc``, sm_90a, one process per source, all started
-   together), with each flash bf16 instance's route (the backward on
-   ``wgmma``, the forward on FFMA), registers, spills and shared memory;
+   together), with each flash bf16 instance's route (all on ``wgmma``),
+   registers, spills, shared memory and ``HGMMA`` count in its SASS
+   (``cuobjdump -sass``; an instance on ``wgmma`` without one fails);
 2. kernels — every kernel against its plain PyTorch version on the card,
    tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
    {1, 4}, B in {8, 64, 128}, with and without the deviation plane) and
@@ -52,9 +53,8 @@ is non-zero and no result line is printed):
    and ``FLASH_SMALL`` (each mask combination of ``tests/test_kernels.py``
    at every float32 head dim and the bf16 ones the rows leave out): each
    kernel against its plain version on the same inputs (the bf16
-   backward kernels on the tensor cores, ``wgmma`` fed by TMA, with P and
-   dS split into bf16 hi + lo; the float32 instances and the forward on
-   FFMA), then
+   kernels on the tensor cores, ``wgmma`` fed by TMA, the backward with P
+   and dS split into bf16 hi + lo; the float32 instances on FFMA), then
    ``flash_attention_trainable``'s ``o`` and the gradients of ``sum((o -
    tgt)^2)`` against the plain ones, within ``FLASH_TOL`` (float32: the
    reference's bounds on ``max|err| / max|plain|``; bf16: one ulp plus
@@ -112,7 +112,10 @@ is non-zero and no result line is printed):
    (and, for ``tm_infer``, ``torch.matmul`` of its violation product
    alone as that product's yardstick); the host time of one backend call
    per coalesced tier; the clause-bit kernels at the digital width, B in
-   {1, 8, 64, 256}, with the ``torch.matmul`` bracket, and the batch
+   {1, 8, 64, 256}, with the route each took (``clause_eval``: a warp
+   per clause up to ``B_SMALL`` rows of ``csrc/clause_eval.cu``, tiles
+   above) and the
+   ``torch.matmul`` bracket, and the batch
    training step's split into kernel and eager TA update; the flash
    kernels on each bf16 row with their plain versions and bounds
    (bytes, matmul FLOPs at the tensor rate, exp / tanh at the SFU rate),
@@ -574,7 +577,12 @@ def phase_environment():
     secs = _build.build(list(KERNELS))
     ptxas = [ln.strip() for name in KERNELS
              for ln in _build.build_log(name).splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "wgmma" in ln]
+    instances = flash_bf16_instances()
+    bare = [r for r in instances if r["route"] == "wgmma" and not r["hgmma"]]
+    if bare:
+        raise AssertionError(f"flash bf16 instances on wgmma without an "
+                             f"HGMMA in their SASS: {bare}")
     emit({"phase": "environment", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
@@ -584,7 +592,7 @@ def phase_environment():
           "max_sm_clock_mhz": nvidia_smi("clocks.max.sm", "nounits"),
           "popc_per_s": popc_per_s(),
           "build_s": time.perf_counter() - t0, "build_s_per_kernel": secs,
-          "ptxas": ptxas, "flash_bf16_instances": flash_bf16_instances()})
+          "ptxas": ptxas, "flash_bf16_instances": instances})
     return smi
 
 
@@ -610,17 +618,38 @@ def ptxas_entries(log):
     return entries
 
 
+def hgmma_counts(lib):
+    """``{mangled function: number of HGMMA.*.F32.BF16 instructions}`` in
+    the SASS of a built library (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur and re.search(r"HGMMA\.\S*\.F32\.BF16", ln):
+            counts[cur] += 1
+    return counts
+
+
 def flash_bf16_instances():
-    """Each bf16 instance of the flash kernels: its route (the backward's
-    ``_tc`` kernels on wgmma, the forward on FFMA), head dim, registers,
-    spills and shared memory (static from ptxas; the backward's dynamic
-    share from its ``<name>_tc_smem`` query)."""
+    """Each bf16 instance of the flash kernels: its route (the ``_tc``
+    kernels on wgmma; any bf16 instance of the FFMA kernels would show as
+    ``ffma``), head dim, registers, spills and shared memory (static from
+    ptxas; the dynamic share from the ``<name>_tc_smem`` query), and the
+    HGMMA instructions in its SASS."""
     import ctypes
     from repro_torch.kernels import _build
     rows = []
     for name in FLASH_KERNELS:
-        lib = ctypes.CDLL(str(_build.library_path(name)))
+        path = _build.library_path(name)
+        lib = ctypes.CDLL(str(path))
         smem = getattr(lib, f"{name}_tc_smem", None)
+        hgmma = hgmma_counts(path)
         for entry, info in ptxas_entries(_build.build_log(name)).items():
             tc = "_tc" in entry
             if not (tc or "__nv_bfloat16" in entry):
@@ -628,7 +657,8 @@ def flash_bf16_instances():
             d = int(re.search(r"Li(\d+)E", entry).group(1))
             rows.append({"kernel": name, "d": d,
                          "route": "wgmma" if tc else "ffma", **info,
-                         "smem_dynamic": smem(d) if tc and smem else None})
+                         "smem_dynamic": smem(d) if tc and smem else None,
+                         "hgmma": hgmma.get(entry, 0)})
     return sorted(rows, key=lambda r: (r["kernel"], r["d"]))
 
 
@@ -1394,11 +1424,24 @@ def clause_bytes_and_work(name, args):
     return nbytes, [(b * c * k, popc_per_s())]
 
 
+def clause_route(name, b, l):
+    """Which kernel of ``name``'s library a ``[b, l]`` launch takes:
+    ``clause_eval`` has a warp-per-clause kernel for small batches and the
+    32 x 64 tile kernel, as ``clause_eval_small_route`` reports."""
+    import ctypes
+    from repro_torch.kernels import _build
+    if name != "clause_eval":
+        return "tile"
+    lib = ctypes.CDLL(str(_build.library_path(name)))
+    return "warp per clause" if lib.clause_eval_small_route(b, l) else "tile"
+
+
 def phase_clause_timing(device, train_epochs):
     """Both clause kernels at the digital width, B in CLAUSE_BATCHES:
-    device time, plain version, bound and the ``torch.matmul`` bracket
-    (``(1 - lits) @ include^T == 0`` on float32 operands, TF32 off); and
-    the training step's split into kernel and eager TA update."""
+    device time, the route taken, plain version, bound and the
+    ``torch.matmul`` bracket (``(1 - lits) @ include^T == 0`` on float32
+    operands, TF32 off); and the training step's split into kernel and
+    eager TA update."""
     flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
                         device=device)
     label, inc, _, x = tm_widths(device, n=max(CLAUSE_BATCHES))[0]
@@ -1418,7 +1461,9 @@ def phase_clause_timing(device, train_epochs):
             bms, by = bound_ms(nbytes, work)
             rows.append({"kernel": name, "width": label,
                          "C": int(inc.shape[0]), "L": int(inc.shape[1]),
-                         "B": b, "ms": ms, "plain_ms": plain,
+                         "B": b, "route": clause_route(
+                             name, b, int(inc.shape[1])),
+                         "ms": ms, "plain_ms": plain,
                          "bound_ms": bms, "bound_by": by, "bytes": nbytes,
                          "ops": [ops for ops, _ in work],
                          "ops_per_s": [rate for _, rate in work],

@@ -22,8 +22,10 @@ iff it has no violation, so an empty clause fires:
 * ``clause_eval_packed(litw, incw)`` — packed words, AND + popcount
   (``clause_eval_packed_kernel``; the batch training steps);
 * ``clause_eval(lits, include)`` — dense 0/1 bytes, folded to bit words
-  in shared memory and counted the same way (``clause_eval_kernel``; the
-  sequential training step).
+  and counted the same way (``clause_eval_kernel``; the sequential
+  training step): a warp per clause up to ``B_SMALL`` rows
+  (``csrc/clause_eval.cu``, which reports its choice through
+  ``clause_eval_small_route(B, L)``), the packed kernels' tiles above.
 
 Operands, in the layouts the states hold (nothing is transposed per
 dispatch): ``litw [B, Lw]`` and ``incw [C, Lw]`` int32 words,

@@ -8,8 +8,8 @@
 // Inputs are float32 or bfloat16; every product and sum runs in float32
 // (bf16 x bf16 products are exact in float32, as the TPU kernel's
 // preferred_element_type=float32 keeps them): FFMA on CUDA cores in the
-// forward and in the float32 backward, wgmma on the tensor cores in the
-// bf16 backward (TcTiles below, hopper.cuh).
+// float32 instances, wgmma on the tensor cores in the bf16 ones (TcTiles
+// below, hopper.cuh).
 //
 // The mask of one (query q, key k) pair is the reference's _block_mask
 // (flash_attention.py:47-60): k < S, and q >= k if causal (top-left
@@ -19,12 +19,23 @@
 // query range of a key tile q_begin..q_end (the reference's `run` test).
 //
 // Scores: x = (q . k) * scale, s = cap * tanh(x / cap) if cap > 0 else x
-// (_scores, :63-70), with IEEE tanhf / expf / logf (no fast math: the
-// approximate tanh's ~2^-11 error is past the float32 tolerance); the
-// bf16 tensor-core kernels take exp as exp2f of a base-2 exponent (p_ds).
-// A masked score is the finite NEG_INF = -1e30 of the reference (:44):
-// the online softmax relies on exp(-1e30 - m) == 0 and exp(0) == 1 where
-// an infinite one would give exp(-inf + inf) = NaN.
+// (_scores, :63-70), with IEEE tanhf / logf (no fast math: the
+// approximate tanh's ~2^-11 error is past the float32 tolerance).  exp is
+// IEEE expf in the float32 kernels and exp2f of a base-2 exponent in the
+// bf16 backward (p_ds, whose masked exponent is -inf against a finite
+// lse).  In the float32 forward a masked score is the finite NEG_INF =
+// -1e30 of the reference (:44): its online softmax relies on
+// exp(-1e30 - m) == 0 and exp(0) == 1 where an infinite one would give
+// exp(-inf + inf) = NaN.
+//
+// The bf16 forward (flash_fwd_tc) differs on both counts.  It takes exp
+// as one ex2.approx.ftz (relative error ~2^-22, and results below 2^-126
+// flushed to 0: both far under its tolerances, since p is rounded to
+// bf16 for P . V and lse is held to 2e-5 relative).  It masks with -inf:
+// while a row has seen no visible key its max m is -inf, and it then
+// subtracts a base of 0 instead of m, so exp2(-inf) = 0 gives p = 0 and
+// the rescale factor 0, never -inf + inf.  Every valid row sees its own
+// key, so its final m is finite and its lse is exact.
 
 #pragma once
 
@@ -53,7 +64,8 @@ struct Tiles {
   static constexpr int TD = D / 16;       // head-dim columns a thread owns
 };
 
-// The tiles of the bf16 backward kernels on the tensor cores: a block is
+// The tiles of the bf16 backward kernels on the tensor cores (the forward
+// takes its swizzle from here too): a block is
 // two consumer warpgroups and one producer warpgroup, whose first warp
 // works and which hands most of its registers to the consumers
 // (PRODUCER_REGS, CONSUMER_REGS: 2 x 128 x 232 + 128 x 40 <= 65536).  The

@@ -134,6 +134,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// The same for register A fragments: keeps them (and their registers)
+// alive until after the wait of the wgmma that reads them.
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[k][j]) :: "memory");
+  }
+}
+
 // The 64-bit shared-memory matrix descriptor: start address, leading and
 // stride byte offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B).
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
@@ -142,6 +153,14 @@ __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+// 2^x in one MUFU.EX2, results below 2^-126 flushed to zero (exp2f also
+// keeps subnormal results, at three more instructions each).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats as the bf16x2 register of an A fragment (x in the low half).
@@ -178,11 +197,13 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 }
 
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16, for the N the flash
-// backward's tiles need:
-// * ss (N = 32, 64: score tiles): A and B from shared memory, both
-//   K-major; `accumulate` 0 starts from zero;
-// * rs (N = 32, 64, 128: output columns): A from registers, B from shared
-//   memory MN-major; accumulates.
+// kernels' tiles need:
+// * ss (N = 32, 64, 128: score tiles; 128 for the forward's 128-key
+//   tiles): A and B from shared memory, both K-major; `accumulate` 0
+//   starts from zero;
+// * rs (N = 32, 64, 128: output columns; the forward runs D = 256 as two
+//   N = 128 halves): A from registers, B from shared memory MN-major;
+//   accumulates.
 template <int N>
 struct Mma;
 
@@ -250,6 +271,24 @@ struct Mma<64> {
 
 template <>
 struct Mma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : F8(0), F8(8), F8(16), F8(24),
+          F8(32), F8(40), F8(48), F8(56)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
   static __device__ __forceinline__ void rs(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t b) {

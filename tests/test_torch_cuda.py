@@ -162,11 +162,40 @@ def _clause_case(b, c, l, seed, device):
             torch.from_numpy(inc).to(device))
 
 
+def _small_route():
+    """clause_eval's route(B, L): 1 where a launch takes its
+    warp-per-clause kernel, 0 where it takes the tile kernel."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _build.build(["clause_eval"])
+    return ctypes.CDLL(str(_build.library_path("clause_eval"))
+                       ).clause_eval_small_route
+
+
+def _rows(b):
+    """A batch size of the parametrisations below: an int, or "small" /
+    "small+1" for the most rows clause_eval's warp-per-clause kernel takes
+    at L = 1568 (the threshold lives in csrc/clause_eval.cu alone) and
+    one more."""
+    if isinstance(b, int):
+        return b
+    route = _small_route()
+    small = max((n for n in range(1, 33) if route(n, 1568)), default=0)
+    return small + (b == "small+1")
+
+
 @pytest.mark.parametrize("name", ("clause_eval_packed", "clause_eval"))
 @pytest.mark.parametrize("b,c,l", [
     (13, 101, 74), (1, 64, 16), (9, 70, 102), (70, 130, 600), (1, 2000, 1568),
-    (256, 2000, 1568), (33, 1000, 1568), (5, 37, 96)])
+    (256, 2000, 1568), (33, 1000, 1568), (5, 37, 96),
+    # Around clause_eval's small-batch route (B_SMALL = 8 rows in
+    # csrc/clause_eval.cu): C not a multiple of its 8 warps a block,
+    # ragged L, L past 64 words (a lane's second step of include words).
+    (2, 37, 1568), (3, 2001, 200), ("small", 75, 1568),
+    ("small+1", 75, 1568), (2, 13, 47), ("small", 2000, 1568),
+    (1, 9, 4000)])
 def test_clause_eval_kernels_match_plain_versions(cuda, name, b, c, l):
+    b = _rows(b)
     lits, inc = _clause_case(b, c, l, b + c + l, cuda)
     if name == "clause_eval":
         args = (lits.contiguous(), inc.contiguous())
@@ -182,6 +211,40 @@ def test_clause_eval_kernels_match_plain_versions(cuda, name, b, c, l):
     assert bool((got[:, c // 2] == 1).all())          # the empty clause
     share = float(want.float().mean())
     assert 0.0 < share < 1.0
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, "small", "small+1"])
+def test_clause_eval_unaligned_views_match_plain_version(cuda, b):
+    """Operands that start one byte past a 16-byte boundary take the
+    byte-by-byte loads of both clause_eval kernels."""
+    b, c, l = _rows(b), 75, 1568
+    lits, inc = _clause_case(b, c, l, 7 * b, cuda)
+    views = []
+    for t in (lits, inc.view(torch.uint8)):
+        buf = torch.empty(t.numel() + 1, dtype=torch.uint8, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 1
+        views.append(view)
+    before = clause_eval.clause_eval.launches
+    got = clause_eval.clause_eval(*views)
+    torch.cuda.synchronize()
+    assert clause_eval.clause_eval.launches == before + 1
+    assert torch.equal(got, clause_eval.clause_eval_ref(lits, views[1]))
+    assert bool((got[:, c // 2] == 1).all())          # the empty clause
+
+
+def test_clause_eval_small_route_takes_a_prefix_of_batches(cuda):
+    """At L = 1568 the library takes its warp-per-clause kernel for every
+    B up to a threshold of at least 1 row (the sequential step), the tile
+    kernel above; a literal row too long for its shared memory takes the
+    tile kernel."""
+    route = _small_route()
+    small = _rows("small")
+    assert small >= 1
+    assert [route(b, 1568) for b in range(1, 257)] == \
+        [1] * small + [0] * (256 - small)
+    assert route(1, 1 << 20) == 0
 
 
 @pytest.mark.parametrize("name", ("clause_eval_packed", "clause_eval"))
@@ -262,6 +325,24 @@ FLASH_CASES = [
     (1, 256, 2, 128, True, 100, 0.0, torch.bfloat16),
     (1, 197, 2, 64, False, 50, 30.0, torch.bfloat16),
     (2, 197, 1, 128, False, 0, 30.0, torch.bfloat16),
+    # The bf16 forward's tensor-core edges (query tiles of 192 rows at
+    # D <= 64 and 128 above, key tiles of 128 rows at D <= 128 and 64 at
+    # D = 256): S = 1, 63 and 129 at D = 64 and 256, a window smaller
+    # than one key tile, and non-causal ragged S with a softcap.  A query
+    # row that sees one key has dS = p (dP - D) = 0 in exact arithmetic,
+    # so its dQ is float noise on both sides: with S = 1 only o, lse and
+    # dV are compared, and S = 63 (where causal row 0 would be more than
+    # 1 % of the rows) is not causal.
+    (2, 1, 2, 64, True, 0, 0.0, torch.bfloat16),
+    (1, 1, 2, 256, False, 0, 50.0, torch.bfloat16),
+    (2, 63, 2, 64, False, 0, 0.0, torch.bfloat16),
+    (1, 63, 2, 256, False, 30, 0.0, torch.bfloat16),
+    (2, 129, 2, 64, False, 0, 0.0, torch.bfloat16),
+    (1, 129, 2, 256, True, 0, 50.0, torch.bfloat16),
+    (1, 300, 2, 64, True, 16, 0.0, torch.bfloat16),
+    (1, 200, 2, 128, False, 20, 0.0, torch.bfloat16),
+    (2, 333, 2, 32, False, 0, 20.0, torch.bfloat16),
+    (1, 150, 2, 256, False, 0, 50.0, torch.bfloat16),
 ]
 
 
@@ -302,9 +383,11 @@ def test_flash_kernels_match_plain_versions(cuda, b, s, h, d, causal,
     want_dq = fa.flash_bwd_dq_plain(q, k, v, do, want_lse, dd, causal,
                                     window, cap)
     torch.cuda.synchronize()
-    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+    grads = ((dq, want_dq), (dk, want_dk), (dv, want_dv)) if s > 1 else \
+        ((dv, want_dv),)
+    for got, want in grads:
         assert got.dtype == dtype and _within(got, want, dtype, 5e-4)
-    for got in (o, dq, dk, dv):
+    for got in (o, *(g for g, _ in grads)):
         assert float((got.float().abs().amax(-1) > 0).float().mean()) > 0.99
     assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
             fa.flash_bwd_dq.launches) == tuple(n + 1 for n in before)
@@ -332,6 +415,38 @@ def test_flash_backward_is_deterministic(cuda, d):
     for a, b in zip(first, second):
         assert torch.equal(a, b)
         assert float(a.float().abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_forward_is_deterministic(cuda, d):
+    """Two launches of the bf16 forward on the same inputs are
+    bit-identical (each block owns its query rows)."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(10 + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 333, 3, d))
+                                .astype(np.float32)).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    opts = dict(causal=True, window=100, softcap=30.0)
+    first = fa.flash_fwd(q, k, v, **opts)
+    second = fa.flash_fwd(q, k, v, **opts)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a.float()).all())
+    assert float(first[0].float().abs().max()) > 0.0
+
+
+def test_flash_fwd_tensor_core_shared_memory(cuda):
+    """The bf16 forward's tensor-core instance at each head dim reports its
+    dynamic shared memory, within the 227 KB a block can have."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _build.build(["flash_fwd"])
+    smem = ctypes.CDLL(str(_build.library_path("flash_fwd"))
+                       ).flash_fwd_tc_smem
+    for d in (32, 64, 128, 256):
+        assert 0 < smem(d) <= 232448
+    assert smem(48) == 0
 
 
 def test_flash_trainable_launches_each_kernel_once(cuda):
