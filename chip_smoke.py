@@ -28,13 +28,17 @@ is non-zero and no result line is printed):
    kernel (``nvcc``, sm_90a, one process per source, all started
    together), with each flash bf16 instance's route (all on ``wgmma``),
    registers, spills, shared memory and ``HGMMA`` count in its SASS
-   (``cuobjdump -sass``; an instance on ``wgmma`` without one fails);
+   (``cuobjdump -sass``; an instance on ``wgmma`` without one fails),
+   and each analog kernel instance's registers, spills, static shared
+   memory and its ``LOP3`` bit tests, ``FSEL``, ``FADD`` and predicated
+   ``FADD`` counts (a tensor-core instruction in any of them fails);
 2. kernels — every kernel against its plain PyTorch version on the card,
    tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
-   {1, 4}, B in {8, 64, 128}, with and without the deviation plane) and
-   one ragged small shape; ``imbue_infer_packed`` and ``imbue_infer`` at
-   the same width on the g / leak planes of D2D-programmed and of
-   nominal chips (R in {1, 4}, B in {8, 64, 128}) and one ragged shape;
+   {1, 4}, B in ``CHECK_BATCHES`` = {1, 8, 64, 128, 129}, with and
+   without the deviation plane) and one ragged small shape;
+   ``imbue_infer_packed`` and ``imbue_infer`` at the same width on the
+   g / leak planes of D2D-programmed and of nominal chips (R in {1, 4},
+   B in ``CHECK_BATCHES``) and one ragged shape;
    the three TM kernels at the digital width (imbue-tm-mnist, C = 2000)
    and the coalesced width (C = 1000), B in {8, 64, 128}, and one ragged
    shape (ragged: C not a multiple of the clause tile, L not a multiple
@@ -103,11 +107,17 @@ is non-zero and no result line is printed):
 5. timing — each kernel's median device time (CUDA events, L2 flushed,
    the host's enqueue hidden behind a spin kernel) beside
    its bound, what sets the bound, and the plain version's time:
-   ``imbue_infer_planes`` at R = 4, B in {8, 64, 128}, with and without
-   the deviation plane (and the C2C pre-pass); ``imbue_infer_packed``
-   and ``imbue_infer`` at R = 4, B in {8, 64, 128} (with the eager
-   conductance pre-pass, with and without C2C, and ``torch.einsum`` of
-   the two column-current products alone as a partial yardstick); the TM
+   ``imbue_infer_planes`` at R = 4 and R = 1 with the deviation plane
+   (and the C2C pre-pass) and at R = 1 without it, B in {8, 64, 128};
+   ``imbue_infer_packed`` and ``imbue_infer`` at R = 4, B in {8, 64, 128}
+   (with the eager conductance pre-pass, with and without C2C, and
+   ``torch.einsum`` of the two column-current products alone as a
+   partial yardstick); each analog row with the inner loop's issue floor
+   and the digital TM's fired share, and for the two kernels on
+   ``csrc/imbue_core.cuh`` their grid, block, resident blocks an SM,
+   launched warps an SM and the share of (warp, row, column) steps the
+   early exit skipped (``imbue_infer_packed``, on its old body, is the
+   control); the TM
    kernels at B in {8, 64, 128} at the coalesced and the digital width
    (and, for ``tm_infer``, ``torch.matmul`` of its violation product
    alone as that product's yardstick); the host time of one backend call
@@ -166,6 +176,9 @@ REPLICAS = 4
 COALESCED = dict(n_classes=10, n_clauses=1000, n_features=784,
                  n_states=127)
 BATCHES = (8, 64, 128)
+# The analog kernels' checks against their plain versions at full width:
+# one row, the timed batches, and one row past a 128-row block.
+CHECK_BATCHES = (1, 8, 64, 128, 129)
 SPIN_CYCLES = 2_000_000        # the timing spin kernel: ~1 ms at 1.98 GHz
 # Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -336,12 +349,16 @@ def nvidia_smi_line() -> str:
 
 
 @functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's max SM clock (``nvidia-smi``)."""
+    return float(nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+
+
 def popc_per_s() -> float:
     """The card's POPC rate: 16 per clock per SM x its SMs x its max SM
-    clock (``nvidia-smi``)."""
-    sm_mhz = float(nvidia_smi("clocks.max.sm", "nounits"))
+    clock."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    return POPC_PER_CLOCK_PER_SM * n_sm * sm_mhz * 1e6
+    return POPC_PER_CLOCK_PER_SM * n_sm * sm_clock_hz()
 
 
 def kernel_pair(name):
@@ -466,6 +483,16 @@ def tm_widths(device, n=128, seed=SEED):
     return out
 
 
+def check_rows(x, b):
+    """The first ``b`` rows of the 128 requests ``x``; past 128 the rest
+    are the first rows again, each with one bit flipped."""
+    if b <= len(x):
+        return x[:b]
+    extra = x[:b - len(x)].copy()
+    extra[:, 0] ^= 1
+    return np.concatenate([x, extra])
+
+
 def planes_case(cfg, ta, x, n_replicas, with_dev, seed, device):
     """Kernel operands for one shape: literal words, index words, the
     deviation plane of ``n_replicas`` D2D-programmed chips (or None), the
@@ -542,6 +569,14 @@ def dense_bytes_and_ops(a, g, leak, pol, i_ref, v_read):
     return nbytes, 4 * r * b * c * l
 
 
+def issue_floor_ms(fp32_ops):
+    """The analog inner loop's issue floor: three instructions a (row,
+    cell) (bit to predicate, FSEL, FADD) where the bound counts four fp32
+    operations, at 4 schedulers x 32 lanes an SM and the max SM clock."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return 0.75 * fp32_ops / (n_sm * 4 * 32 * sm_clock_hz()) * 1e3
+
+
 def bound_ms(nbytes, work):
     """The larger of the bytes' time and the operations' time; ``work`` is
     ``[(ops, ops_per_s), ...]``, one term per operand type."""
@@ -592,7 +627,8 @@ def phase_environment():
           "max_sm_clock_mhz": nvidia_smi("clocks.max.sm", "nounits"),
           "popc_per_s": popc_per_s(),
           "build_s": time.perf_counter() - t0, "build_s_per_kernel": secs,
-          "ptxas": ptxas, "flash_bf16_instances": instances})
+          "ptxas": ptxas, "flash_bf16_instances": instances,
+          "analog_instances": analog_instances()})
     return smi
 
 
@@ -618,9 +654,9 @@ def ptxas_entries(log):
     return entries
 
 
-def hgmma_counts(lib):
-    """``{mangled function: number of HGMMA.*.F32.BF16 instructions}`` in
-    the SASS of a built library (``cuobjdump -sass``)."""
+def sass_counts(lib, patterns):
+    """``{mangled function: {key: number of SASS instructions matching
+    patterns[key]}}`` in a built library (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
@@ -630,10 +666,49 @@ def hgmma_counts(lib):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur and re.search(r"HGMMA\.\S*\.F32\.BF16", ln):
-            counts[cur] += 1
+            counts[cur] = dict.fromkeys(patterns, 0)
+        elif cur:
+            for key, pat in patterns.items():
+                if re.search(pat, ln):
+                    counts[cur][key] += 1
     return counts
+
+
+def hgmma_counts(lib):
+    """``{mangled function: number of HGMMA.*.F32.BF16 instructions}`` in
+    the SASS of a built library."""
+    return {f: c["hgmma"] for f, c in sass_counts(
+        lib, {"hgmma": r"HGMMA\.\S*\.F32\.BF16"}).items()}
+
+
+# SASS opcodes recorded for the analog kernels: the inner loop's bit
+# test (LOP3 to a predicate), its predicated adds (two a (row, cell) on
+# csrc/imbue_core.cuh, one of which runs) or select and add (the packed
+# kernel), and any tensor-core instruction (there must be none: the
+# column currents are IEEE float32).
+ANALOG_SASS = {"LOP3_to_P": r"\bLOP3\.LUT P\d", "FSEL": r"\bFSEL\b",
+               "FADD": r"\bFADD\b",
+               "FADD_predicated": r"@!?P\d+\s+FADD\b",
+               "tensor": r"\b(HMMA|HGMMA|IMMA|DMMA)\b"}
+
+
+def analog_instances():
+    """Each entry function of the three analog kernels: registers, spills
+    and static shared memory (ptxas), and its ``ANALOG_SASS``
+    instruction counts (``cuobjdump -sass``).  A tensor-core instruction
+    fails."""
+    from repro_torch.kernels import _build
+    rows = []
+    for name in ("imbue_infer_planes",) + DENSE_KERNELS:
+        sass = sass_counts(_build.library_path(name), ANALOG_SASS)
+        for entry, info in ptxas_entries(_build.build_log(name)).items():
+            rows.append({"kernel": name, "entry": entry, **info,
+                         **sass.get(entry, {})})
+    bad = [r for r in rows if r.get("tensor")]
+    if bad or not rows:
+        raise AssertionError(f"analog kernels with tensor-core "
+                             f"instructions, or none built: {bad}")
+    return rows
 
 
 def flash_bf16_instances():
@@ -670,10 +745,10 @@ def phase_kernels(device):
                                                  imbue_infer_planes_ref)
     cfg = tm_config(MODEL)
     ta, x, _ = prototype_task(cfg, 128, SEED)
-    shapes = [(cfg, ta, x[:b], r, with_dev)
+    shapes = [(cfg, ta, check_rows(x, b), r, with_dev)
               for with_dev in (False, True)
               for r in ((1, 4) if with_dev else (1,))
-              for b in (8, 64, 128)]
+              for b in CHECK_BATCHES]
     small = TMConfig(n_classes=4, clauses_per_class=8, n_features=37,
                      n_states=100)
     sta, sx, _ = prototype_task(small, 13, SEED + 1)
@@ -746,8 +821,8 @@ def phase_dense_kernels(device):
     from repro_torch.core.tm import TMConfig
     cfg = tm_config(MODEL)
     ta, x, _ = prototype_task(cfg, 128, SEED)
-    shapes = [(cfg, ta, x[:b], r, d2d) for d2d in (True, False)
-              for r in (1, 4) for b in BATCHES]
+    shapes = [(cfg, ta, check_rows(x, b), r, d2d) for d2d in (True, False)
+              for r in (1, 4) for b in CHECK_BATCHES]
     small = TMConfig(n_classes=4, clauses_per_class=8, n_features=37,
                      n_states=100)                         # C=32, L=74
     sta, sx, _ = prototype_task(small, 13, SEED + 1)       # B=13
@@ -1504,7 +1579,76 @@ def time_ms(fn, reps, flush):
     return statistics.median(times)
 
 
+def analog_launch_record(name, args):
+    """Kernel ``name``'s launch on the wrapper's operands ``args`` (an
+    analog kernel on ``csrc/imbue_core.cuh``): its grid, block, shared
+    memory, resident blocks an SM (``<name>_geometry``), the launched
+    warps an SM (the grid's warps / SMs, capped by what is resident), and
+    from one counted launch (``<name>_launch_counted``, outside every
+    launch counter) the share of (warp, row, column) steps the early exit
+    skipped."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import imbue_infer as ii
+    lib = ctypes.CDLL(str(_build.library_path(name)))
+    info = (ctypes.c_int * 9)()
+    steps_run = torch.zeros(1, dtype=torch.int64, device=args[0].device)
+    stream = torch.cuda.current_stream().cuda_stream
+    counted = getattr(lib, f"{name}_launch_counted")
+    if name == "imbue_infer_planes":
+        litw, incw, dev, pol, scal = args
+        (b, lw), (c, m) = litw.shape, pol.shape
+        r = 1 if dev is None else dev.shape[0]
+        err = lib.imbue_infer_planes_geometry(r, b, c, lw, int(dev is not None),
+                                              info)
+        counted.argtypes = ii._ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+        out = torch.zeros((r, b, m), dtype=torch.int32, device=litw.device)
+        err = err or counted(
+            litw.data_ptr(), incw.data_ptr(),
+            None if dev is None else dev.data_ptr(), pol.data_ptr(),
+            out.data_ptr(), r, b, lw, c, m, scal.l_valid, scal.i_ref,
+            scal.v_read, scal.r_lrs, scal.r_hrs, scal.leak_inc,
+            scal.leak_exc, scal.series_factor, steps_run.data_ptr(), stream)
+        want = ii.imbue_infer_planes_ref(*args)
+    else:
+        lits, g, leak, pol, i_ref, v_read = args
+        (r, c, l), (b, m) = g.shape, (lits.shape[0], pol.shape[1])
+        lw = -(-l // 32)
+        err = lib.imbue_infer_geometry(r, b, c, l, info)
+        counted.argtypes = ii._DENSE_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+        out = torch.zeros((r, b, m), dtype=torch.int32, device=lits.device)
+        err = err or counted(
+            lits.data_ptr(), g.data_ptr(), leak.data_ptr(), pol.data_ptr(),
+            out.data_ptr(), r, b, l, c, m, ii._f32(i_ref), ii._f32(v_read),
+            steps_run.data_ptr(), stream)
+        want = ii.imbue_infer_ref(*args)
+    torch.cuda.synchronize()
+    if err != 0 or not torch.equal(out, want):
+        raise AssertionError(f"{name}: the counted launch failed ({err}) or "
+                             "disagrees with the plain version")
+    gx, gy, gz, threads, smem, per_sm, ks, ng, steps = list(info)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = gx * gy * gz * threads // 32
+    return {"grid": [gx, gy, gz], "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "column_splits": ks,
+            "row_groups": ng, "steps": steps,
+            "warps_per_sm": min(warps / n_sm, per_sm * threads / 32),
+            "skipped_share": 1.0 - int(steps_run) / (r * gy * b * lw)}
+
+
+def fired_share(cfg, ta, x, device):
+    """The share of (row, clause) pairs that fire in the digital TM."""
+    from repro_torch.core import tm
+    include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
+    lits = tm.literals(torch.from_numpy(x).to(device))
+    return float(tm.clause_outputs_from_include(include, lits).float()
+                 .mean())
+
+
 def phase_timing(device):
+    """``imbue_infer_planes`` at R = 4 and R = 1 with the deviation plane
+    (and the C2C pre-pass) and at R = 1 without it (nominal), B in
+    BATCHES."""
     from repro_torch.configs.imbue_tm import tm_config
     from repro_torch.core.variations import VariationConfig
     from repro_torch.kernels import ops
@@ -1516,24 +1660,26 @@ def phase_timing(device):
                         device=device)              # > 50 MB of L2
     vcfg = VariationConfig(csa_offset=False)
     rows = []
-    for with_dev in (True, False):
-        for b in (8, 64, 128):
-            args = planes_case(cfg, ta, x[:b], REPLICAS, with_dev, SEED,
-                               device)
+    for r, with_dev in ((REPLICAS, True), (1, True), (1, False)):
+        for b in BATCHES:
+            args = planes_case(cfg, ta, x[:b], r, with_dev, SEED, device)
             ms = time_ms(lambda: imbue_infer_planes(*args), 20, flush)
             plain = time_ms(lambda: imbue_infer_planes_ref(*args), 3, flush)
             nbytes, nops = operand_bytes_and_ops(*args)
             bms, by = bound_ms(nbytes, [(nops, FP32_FLOP_PER_S)])
-            row = {"R": REPLICAS if with_dev else 1, "B": b,
-                   "dev": with_dev, "ms": ms, "plain_ms": plain,
-                   "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-                   "fp32_ops": nops, "bound_share": bms / ms}
+            row = {"R": r, "B": b, "dev": with_dev, "ms": ms,
+                   "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                   "issue_floor_ms": issue_floor_ms(nops),
+                   "bytes": nbytes, "fp32_ops": nops,
+                   "bound_share": bms / ms,
+                   "fired_frac": fired_share(cfg, ta, x[:b], device),
+                   **analog_launch_record("imbue_infer_planes", args)}
             if with_dev:
                 litw, incw, dev, _, _ = args
                 gen = torch.Generator(device=device).manual_seed(SEED)
                 row["c2c_prepass_ms"] = time_ms(
-                    lambda: ops.c2c_deviation(gen, incw, dev, REPLICAS,
-                                              vcfg, cfg.n_literals),
+                    lambda: ops.c2c_deviation(gen, incw, dev, r, vcfg,
+                                              cfg.n_literals),
                     10, flush)
             rows.append(row)
     emit({"phase": "timing", "kernel": "imbue_infer_planes",
@@ -1556,7 +1702,8 @@ def phase_dense_timing(device):
                         device=device)              # > 50 MB of L2
     rows = []
     for b in BATCHES:
-        cases, _ = dense_case(cfg, ta, x[:b], REPLICAS, True, SEED, device)
+        cases, fired = dense_case(cfg, ta, x[:b], REPLICAS, True, SEED,
+                                  device)
         for name in DENSE_KERNELS:
             fn, ref = kernel_pair(name)
             args = cases[name]
@@ -1578,11 +1725,15 @@ def phase_dense_timing(device):
             einsum_ms = time_ms(lambda: (
                 torch.einsum("bkw,rckw->rbck", v_drive, g4),
                 torch.einsum("bkw,rckw->rbck", lit1, leak4)), 10, flush)
-            rows.append({"kernel": name, "R": r, "B": b, "ms": ms,
-                         "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                         "bytes": nbytes, "fp32_ops": nops,
-                         "bound_share": bms / ms,
-                         "column_current_einsum_ms": einsum_ms})
+            row = {"kernel": name, "R": r, "B": b, "ms": ms,
+                   "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                   "issue_floor_ms": issue_floor_ms(nops),
+                   "bytes": nbytes, "fp32_ops": nops,
+                   "bound_share": bms / ms, "fired_frac": fired,
+                   "column_current_einsum_ms": einsum_ms}
+            if name == "imbue_infer":     # imbue_infer_packed: the control
+                row.update(analog_launch_record(name, args))
+            rows.append(row)
     include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
     vcfg = VariationConfig(csa_offset=False)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2009,7 +2160,8 @@ def main() -> int:
                 **by_path["coalesced"], **by_path["training"],
                 **by_path["flash"]}
     main_rows = {"imbue_infer_planes": next(
-        r for r in phase_timing(device) if r["dev"] and r["B"] == 128)}
+        r for r in phase_timing(device)
+        if r["dev"] and r["R"] == REPLICAS and r["B"] == 128)}
     for r in phase_dense_timing(device):
         if r["B"] == 128:
             main_rows[r["kernel"]] = r

@@ -1,57 +1,35 @@
-// imbue_dense.cuh: the body of the two dense-plane analog kernels,
-// imbue_infer_packed.cu (packed literal words) and imbue_infer.cu (one
-// byte a literal).  They differ only in how a block stages its literals.
+// imbue_dense.cuh: the body of imbue_infer_packed.cu, analog class sums
+// from packed literal words and dense float32 g / leak planes.  (The
+// byte-literal kernel, imbue_infer.cu, moved to imbue_core.cuh with
+// imbue_infer_planes.cu; this body stays as it was until it moves too.)
 //
-// What they compute, per replica r, batch row b and clause c, over the
+// What it computes, per replica r, batch row b and clause c, over the
 // clause's 32-cell CSA columns k (literals 32k .. 32k + 31):
 //   i_col   = sum over the column's cells j = 0..31, in that order, of
 //             lit ? leak[r, c, l] : v_read * g[r, c, l]     (l = 32k + j)
 //             (cells past L add 0)
 //   partial = i_col < i_ref;   clause = AND over the clause's columns
-// and then out[r, b, m] += clause * pol[c, m].  The conductance g and the
-// leak current are read as given, in the state's own [R, C, L] layout:
-// the caller builds them (with the read's C2C draw) in the reference's op
-// order.  Each column is summed exactly as imbue_infer_planes.cu sums it
-// (one float32 accumulator per row, cells in order, v_read * g as
-// __fmul_rn), so on the same plane-packed state read without C2C the
-// three analog kernels give the same integers.
+// and then out[r, b, m] += clause * pol[c, m], summed exactly as
+// imbue_core.cuh sums it, so the three analog kernels give the same
+// integers on the same cells.
 //
-// Bound at imbue-tm-mnist (C = 2000, L = 1568, M = 10) and R = 4: the two
-// float32 planes are 2 x 4 x 2000 x 1568 x 4 B = 100.4 MB, 30 us at
-// 3.35 TB/s, whatever B is.  The work is 4 * R * B * C * L fp32
-// operations (select, add, bit test and compare amortised): at B = 128
-// 6.4 GFLOP, 96 us at 67 TFLOP/s, so bound by operations; at B = 8
-// 0.4 GFLOP, 6 us, so bound by bytes.
+// Bound on an H100 SXM at imbue-tm-mnist (C = 2000, L = 1568, M = 10),
+// R = 4: the two float32 planes are 100.4 MB, 0.030 ms at 3.35 TB/s;
+// 4 * R * B * C * L fp32 operations are 0.096 ms at B = 128 (67 TFLOP/s).
 //
-// Design (the structure of imbue_infer_planes.cu):
-// * One block per (32 batch rows, 64 clauses, replica); R is the grid's z
-//   axis, so a whole stack is one launch.  Batch tiles are the fastest
-//   grid axis, so blocks that share a clause tile's planes run together
-//   and re-read them from L2.
-// * One thread per clause.  For each column the block stages the clause
-//   tile's [64, 32] cells of g and leak in shared memory from coalesced
-//   loads (a warp reads one clause row's 128 contiguous bytes), padded to
-//   33 floats a row so that a thread reading its own row hits 32 banks.
-//   Each thread then holds its column's 32 (v_read * g, leak) pairs in
-//   registers and reuses them for all 32 rows of its batch tile.
-// * The tile's 64 loads a thread are issued together, and the next
-//   column's are issued into registers before this column's sums, so
-//   their latency hides behind the arithmetic (at small B a block is two
-//   warps and load latency is what costs).
-// * Literal words of the tile are staged in shared memory per 32-word
-//   chunk and read as warp-wide broadcasts.  The byte kernel builds each
-//   word from two 16-byte loads of its 32 bytes (bit 0 of each byte is
-//   the literal), byte by byte only when L is not a multiple of 16.
-// * The per-row AND is a 32-bit mask in a register; four rows are summed
-//   at once for instruction-level parallelism.
-// * Votes: a warp reduction per (row, class), added to the int32 output
-//   with atomicAdd, exact in any order.
-// * FP32 on the CUDA cores, never tensor cores or TF32: the thresholded
-//   currents must be IEEE float32.  Build without --use_fast_math.
-// * Later work: more warps per SM at small B (columns of one clause split
-//   over threads, their partials ANDed), early exit for clauses already
-//   dead, and rebuilding g and leak in the kernel instead of reading two
-//   planes (which is what the planes kernel does).
+// Design:
+// * One block per (32 batch rows, 64 clauses, replica), one thread per
+//   clause; R is the grid's z axis, so a whole stack is one launch.
+// * For each column the block stages the clause tile's [64, 32] cells of
+//   g and leak in shared memory from coalesced loads, padded to 33 floats
+//   a row; each thread then holds its column's 32 (v_read * g, leak)
+//   pairs in registers for all 32 rows of its batch tile.  The next
+//   column's loads are issued into registers before this column's sums.
+// * Literal words are staged in shared memory per 32-word chunk and read
+//   as warp-wide broadcasts; four rows are summed at once; the AND is a
+//   32-bit mask in a register.
+// * Votes: a warp reduction per (row, class), added with atomicAdd.
+// * FP32 on the CUDA cores, never tensor cores or TF32.
 
 #pragma once
 
@@ -67,38 +45,6 @@ constexpr int KCH = 32;        // literal words staged in shared memory
 constexpr int ILP = 4;         // rows summed together in the inner loop
 constexpr int WARPS = CT / WORD;
 constexpr int GS = WORD + 1;   // padded shared-memory row (floats)
-
-// Four 0/1 bytes (bit 0 of each) -> four bits, byte q to bit q.
-__device__ __forceinline__ uint32_t nibble(uint32_t v) {
-  v &= 0x01010101u;
-  v |= v >> 7;
-  v |= v >> 14;
-  return v & 0xfu;
-}
-
-// The literal word of row `row`, column `col` of a [rows, L] byte matrix:
-// bit j = bit 0 of byte 32 * col + j, bytes past L read as 0.  VEC: L is
-// a multiple of 16 and the matrix 16-byte aligned, so two 16-byte loads.
-template <bool VEC>
-__device__ __forceinline__ uint32_t byte_word(const uint8_t* __restrict__ m,
-                                              int row, int col, int L) {
-  const uint8_t* p = m + static_cast<size_t>(row) * L + col * WORD;
-  const int n = min(WORD, L - col * WORD);
-  uint32_t w = 0u;
-  if (VEC) {
-    const uint4 a = *reinterpret_cast<const uint4*>(p);
-    w = nibble(a.x) | nibble(a.y) << 4 | nibble(a.z) << 8 |
-        nibble(a.w) << 12;
-    if (n > 16) {
-      const uint4 b = *reinterpret_cast<const uint4*>(p + 16);
-      w |= (nibble(b.x) | nibble(b.y) << 4 | nibble(b.z) << 8 |
-            nibble(b.w) << 12) << 16;
-    }
-  } else {
-    for (int j = 0; j < n; ++j) w |= static_cast<uint32_t>(p[j] & 1u) << j;
-  }
-  return w;
-}
 
 // This thread's share of column k's [64, 32] tile: row warp + WARPS * s,
 // cell lane, for s = 0..31 (a warp reads one clause row per step).
@@ -119,12 +65,9 @@ __device__ __forceinline__ void load_column(
   }
 }
 
-// PACKED: lits is [B, Lw] int32 words (bit j of word k = literal 32k + j).
-// Otherwise lits is [B, L] uint8, one 0/1 byte a literal; VEC as in
-// byte_word.
-template <bool PACKED, bool VEC>
+// litw is [B, Lw] int32 words (bit j of word k = literal 32k + j).
 __global__ void __launch_bounds__(CT) imbue_dense_kernel(
-    const void* __restrict__ lits_v,
+    const int32_t* __restrict__ litw,
     const float* __restrict__ g,        // [R, C, L] on-path conductance (S)
     const float* __restrict__ leak,     // [R, C, L] leak current (A)
     const int32_t* __restrict__ pol,    // [C, M] signed one-hot x nonempty
@@ -157,13 +100,8 @@ __global__ void __launch_bounds__(CT) imbue_dense_kernel(
       const int bi = i / KCH, ki = i % KCH;
       uint32_t w = 0u;
       if (bi < nb && ki < kn) {
-        if (PACKED) {
-          w = static_cast<uint32_t>(static_cast<const int32_t*>(
-              lits_v)[static_cast<size_t>(b0 + bi) * Lw + k0 + ki]);
-        } else {
-          w = byte_word<VEC>(static_cast<const uint8_t*>(lits_v), b0 + bi,
-                             k0 + ki, L);
-        }
+        w = static_cast<uint32_t>(
+            litw[static_cast<size_t>(b0 + bi) * Lw + k0 + ki]);
       }
       lit_s[bi][ki] = w;
     }
@@ -227,25 +165,14 @@ __global__ void __launch_bounds__(CT) imbue_dense_kernel(
 }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch.
-template <bool PACKED>
-int launch(const void* lits, const void* g, const void* leak,
-           const void* pol, void* out, int R, int B, int L, int C, int M,
-           float i_ref, float v_read, void* stream) {
+inline int launch(const void* litw, const void* g, const void* leak,
+                  const void* pol, void* out, int R, int B, int L, int C,
+                  int M, float i_ref, float v_read, void* stream) {
   const dim3 grid((B + BT - 1) / BT, (C + CT - 1) / CT, R);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* gp = static_cast<const float*>(g);
-  const auto* lp = static_cast<const float*>(leak);
-  const auto* pp = static_cast<const int32_t*>(pol);
-  auto* o = static_cast<int32_t*>(out);
-  const bool vec = !PACKED && L % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(lits) % 16 == 0;
-  if (vec) {
-    imbue_dense_kernel<PACKED, true><<<grid, CT, 0, st>>>(
-        lits, gp, lp, pp, o, B, L, C, M, i_ref, v_read);
-  } else {
-    imbue_dense_kernel<PACKED, false><<<grid, CT, 0, st>>>(
-        lits, gp, lp, pp, o, B, L, C, M, i_ref, v_read);
-  }
+  imbue_dense_kernel<<<grid, CT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(litw), static_cast<const float*>(g),
+      static_cast<const float*>(leak), static_cast<const int32_t*>(pol),
+      static_cast<int32_t*>(out), B, L, C, M, i_ref, v_read);
   return static_cast<int>(cudaGetLastError());
 }
 

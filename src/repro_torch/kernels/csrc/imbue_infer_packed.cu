@@ -10,7 +10,7 @@
 // drive voltages per K tile in VMEM before two narrow dots per column.
 // Here a block stages its rows' words in shared memory and tests one bit
 // per cell.  What it computes, its bound and its design are in
-// imbue_dense.cuh, shared with imbue_infer.cu.
+// imbue_dense.cuh.
 
 #include "imbue_dense.cuh"
 
@@ -22,6 +22,6 @@ extern "C" int imbue_infer_packed_launch(const void* litw, const void* g,
                                          void* out, int R, int B, int L,
                                          int C, int M, float i_ref,
                                          float v_read, void* stream) {
-  return imbk::launch<true>(litw, g, leak, pol, out, R, B, L, C, M, i_ref,
-                            v_read, stream);
+  return imbk::launch(litw, g, leak, pol, out, R, B, L, C, M, i_ref,
+                      v_read, stream);
 }

@@ -32,29 +32,80 @@ def cuda():
     return torch.device("cuda")
 
 
+# F_MNIST features select the imbue-tm-mnist width (10 classes x 200
+# clauses, L = 1568: 49 columns, 62.5 clause tiles of 32); any other
+# feature count a 5 x 14 = 70-clause model.
+F_MNIST = 784
+
+
+def _analog_config(f):
+    if f == F_MNIST:
+        return tm.TMConfig(n_classes=10, clauses_per_class=200,
+                           n_features=f)
+    return tm.TMConfig(n_classes=5, clauses_per_class=14, n_features=f)
+
+
+def _planes_args(cfg, inc, x, r, with_dev, seed, device, pol=None):
+    """``imbue_infer_planes`` operands: literal and include words, the
+    deviation plane of ``r`` D2D-programmed chips (or None), the
+    polarity (signed one-hot x nonempty unless given) and the scalars."""
+    dev = None
+    if with_dev:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        _, dev = _deviation_plane(
+            program_replica_stack(inc, gen, r, VariationConfig()), inc)
+    if pol is None:
+        pol = ops.polarity_matrix(cfg, inc, device=device)
+    return (ops.pack_literals(tm.literals(x.to(device))),
+            ops.pack_literals(inc), dev, pol.contiguous(),
+            ops.plane_scalars(IMBUEConfig(), cfg.n_literals))
+
+
+def _dense_args(name, cfg, inc, x, r, d2d, seed, device, pol=None):
+    """Operands of a dense-plane analog kernel: literal words or bytes,
+    the g / leak planes of ``r`` D2D-programmed (or nominal) chips, the
+    polarity, ``i_ref`` and ``v_read``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    icfg = IMBUEConfig()
+    vcfg = VariationConfig() if d2d else VariationConfig.nominal()
+    g, leak = conductances(program_replica_stack(inc, gen, r, vcfg), inc,
+                           icfg)
+    lits = tm.literals(x.to(device)).contiguous()
+    if pol is None:
+        pol = ops.polarity_matrix(cfg, inc, device=device)
+    a = ops.pack_literals(lits) if name == "imbue_infer_packed" else lits
+    return (a, g.contiguous(), leak.contiguous(), pol.contiguous(),
+            icfg.reference_voltage() / icfg.r_divider, icfg.v_read)
+
+
+def _analog_call(name, args):
+    """One call of analog kernel ``name``: its output, after checking that
+    it launched once and equals the plain version."""
+    wrapper = getattr(imbue_infer, name)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got, getattr(imbue_infer, f"{name}_ref")(*args))
+    return got
+
+
 @pytest.mark.parametrize("f,b,r,with_dev", [
     (37, 13, 3, True), (37, 1, 1, False), (64, 40, 2, True),
-    (300, 70, 4, True), (300, 33, 1, False)])
+    (300, 70, 4, True), (300, 33, 1, False),
+    # Full width: one row, a few, and one past a 128-row block.
+    (F_MNIST, 1, 4, True), (F_MNIST, 8, 4, True), (F_MNIST, 129, 4, True),
+    (F_MNIST, 1, 1, False), (F_MNIST, 8, 1, False), (F_MNIST, 129, 1, False),
+    # 9 columns: not a multiple of the 8-column split.
+    (144, 40, 2, True)])
 def test_imbue_infer_planes_matches_plain_version(cuda, f, b, r, with_dev):
-    cfg = tm.TMConfig(n_classes=5, clauses_per_class=14, n_features=f)
+    cfg = _analog_config(f)
     rng = np.random.default_rng(f + b)
     inc = torch.from_numpy(rng.random((cfg.n_clauses, cfg.n_literals))
                            < 4.0 / cfg.n_literals).to(cuda)
-    dev = None
-    if with_dev:
-        gen = torch.Generator(device=cuda).manual_seed(b)
-        _, dev = _deviation_plane(
-            program_replica_stack(inc, gen, r, VariationConfig()), inc)
     x = torch.from_numpy((rng.random((b, f)) < 0.5).astype(np.uint8))
-    litw = ops.pack_literals(tm.literals(x.to(cuda)))
-    args = (litw, ops.pack_literals(inc), dev,
-            ops.polarity_matrix(cfg, inc, device=cuda).contiguous(),
-            ops.plane_scalars(IMBUEConfig(), cfg.n_literals))
-    before = imbue_infer_planes.launches
-    got = imbue_infer_planes(*args)
-    torch.cuda.synchronize()
-    assert imbue_infer_planes.launches == before + 1
-    assert torch.equal(got, imbue_infer_planes_ref(*args))
+    _analog_call("imbue_infer_planes",
+                 _planes_args(cfg, inc, x, r, with_dev, b, cuda))
 
 
 @pytest.mark.parametrize("name", ("tm_infer_planes", "tm_infer_packed",
@@ -90,33 +141,80 @@ def test_tm_infer_kernels_match_plain_versions(cuda, name, b, c, f, m):
 
 
 @pytest.mark.parametrize("name", ("imbue_infer_packed", "imbue_infer"))
-@pytest.mark.parametrize("f,b,r", [(37, 13, 3), (16, 1, 1), (24, 9, 2),
-                                   (64, 40, 2), (300, 70, 4)])
+@pytest.mark.parametrize("f,b,r,d2d", [
+    (37, 13, 3, True), (16, 1, 1, True), (24, 9, 2, True),
+    (64, 40, 2, True), (300, 70, 4, True),
+    (F_MNIST, 1, 4, True), (F_MNIST, 8, 4, True), (F_MNIST, 129, 4, True),
+    (F_MNIST, 1, 1, False), (F_MNIST, 8, 1, False), (F_MNIST, 129, 1, False),
+    (144, 40, 2, True)])
 def test_dense_plane_analog_kernels_match_plain_versions(cuda, name, f, b,
-                                                         r):
-    cfg = tm.TMConfig(n_classes=5, clauses_per_class=14, n_features=f)
+                                                         r, d2d):
+    cfg = _analog_config(f)
     rng = np.random.default_rng(f + b + r)
     inc = torch.from_numpy(rng.random((cfg.n_clauses, cfg.n_literals))
                            < 4.0 / cfg.n_literals).to(cuda)
     inc[3] = False                                    # an empty clause
-    gen = torch.Generator(device=cuda).manual_seed(b)
-    icfg = IMBUEConfig()
-    g, leak = conductances(
-        program_replica_stack(inc, gen, r, VariationConfig()), inc, icfg)
     x = torch.from_numpy((rng.random((b, f)) < 0.5).astype(np.uint8))
-    lits = tm.literals(x.to(cuda)).contiguous()
-    pol = ops.polarity_matrix(cfg, inc, device=cuda).contiguous()
-    a = ops.pack_literals(lits) if name == "imbue_infer_packed" else lits
-    args = (a, g.contiguous(), leak.contiguous(), pol,
-            icfg.reference_voltage() / icfg.r_divider, icfg.v_read)
-    wrapper = getattr(imbue_infer, name)
-    before = wrapper.launches
-    got = wrapper(*args)
-    torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
-    want = getattr(imbue_infer, f"{name}_ref")(*args)
-    assert torch.equal(got, want)
+    args = _dense_args(name, cfg, inc, x, r, d2d, b, cuda)
+    want = _analog_call(name, args)
     assert int((want != 0).sum()) > 0
+
+
+def _edge_case(cfg, b, fate, seed):
+    """An include plane and ``b`` rows where every clause includes
+    literal x_0 (column 0): with x_0 = 0 on every row ("die") every clause
+    fails its first column; with x_0 = 1 ("fire") and nothing else
+    included, every clause fires for every row.  The polarity is a
+    positive one-hot, so the class sums are 0 or clauses_per_class."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random((b, cfg.n_features)) < 0.5).astype(np.uint8)
+    x[:, 0] = 1 if fate == "fire" else 0
+    inc = np.zeros((cfg.n_clauses, cfg.n_literals), bool)
+    if fate == "die":
+        inc = rng.random(inc.shape) < 4.0 / cfg.n_literals
+    inc[:, 0] = True
+    pol = torch.nn.functional.one_hot(
+        torch.arange(cfg.n_clauses) // cfg.clauses_per_class,
+        cfg.n_classes).to(torch.int32)
+    return torch.from_numpy(inc), torch.from_numpy(x), pol
+
+
+@pytest.mark.parametrize("name", ("imbue_infer_planes", "imbue_infer_packed",
+                                  "imbue_infer"))
+@pytest.mark.parametrize("fate", ("die", "fire"))
+@pytest.mark.parametrize("f,b,r,varied", [
+    (37, 13, 3, True), (F_MNIST, 129, 4, True), (F_MNIST, 64, 1, False)])
+def test_analog_kernels_every_clause_dies_or_fires(cuda, name, fate, f, b,
+                                                   r, varied):
+    """The early exit neither drops a live row nor keeps a dead one: every
+    clause dead in its first column gives all-zero sums, every clause
+    firing gives clauses_per_class in every sum."""
+    cfg = _analog_config(f)
+    inc, x, pol = _edge_case(cfg, b, fate, f + b)
+    inc, pol = inc.to(cuda), pol.to(cuda)
+    if name == "imbue_infer_planes":
+        args = _planes_args(cfg, inc, x, r, varied, b, cuda, pol)
+    else:
+        args = _dense_args(name, cfg, inc, x, r, varied, b, cuda, pol)
+    got = _analog_call(name, args)
+    want = 0 if fate == "die" else cfg.clauses_per_class
+    assert got.shape == (r, b, cfg.n_classes) and bool((got == want).all())
+
+
+@pytest.mark.parametrize("name", ("imbue_infer_planes", "imbue_infer"))
+def test_analog_kernels_are_deterministic(cuda, name):
+    """Two launches on the same inputs give equal outputs (the votes are
+    int32 atomics, exact in any order)."""
+    cfg = _analog_config(F_MNIST)
+    rng = np.random.default_rng(5)
+    inc = torch.from_numpy(rng.random((cfg.n_clauses, cfg.n_literals))
+                           < 4.0 / cfg.n_literals).to(cuda)
+    x = torch.from_numpy((rng.random((129, F_MNIST)) < 0.5).astype(np.uint8))
+    if name == "imbue_infer_planes":
+        args = _planes_args(cfg, inc, x, 4, True, 5, cuda)
+    else:
+        args = _dense_args(name, cfg, inc, x, 4, True, 5, cuda)
+    assert torch.equal(_analog_call(name, args), _analog_call(name, args))
 
 
 @pytest.mark.parametrize("name", ("imbue_infer_planes", "imbue_infer_packed",
