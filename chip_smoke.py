@@ -29,9 +29,13 @@ is non-zero and no result line is printed):
    together), with each flash bf16 instance's route (all on ``wgmma``),
    registers, spills, shared memory and ``HGMMA`` count in its SASS
    (``cuobjdump -sass``; an instance on ``wgmma`` without one fails),
-   and each analog kernel instance's registers, spills, static shared
+   each analog kernel instance's registers, spills, static shared
    memory and its ``LOP3`` bit tests, ``FSEL``, ``FADD`` and predicated
-   ``FADD`` counts (a tensor-core instruction in any of them fails);
+   ``FADD`` counts (all three kernels run ``csrc/imbue_core.cuh``'s inner
+   loop: an instance without predicated ``FADD``s, or with a tensor-core
+   instruction, fails), and each ``clause_eval_packed`` instance's
+   registers, spills and ``BMMA`` / ``LOP3`` / ``POPC`` counts (an
+   instance without a ``BMMA``, the b1 tensor-core product, fails);
 2. kernels — every kernel against its plain PyTorch version on the card,
    tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
    {1, 4}, B in ``CHECK_BATCHES`` = {1, 8, 64, 128, 129}, with and
@@ -45,7 +49,9 @@ is non-zero and no result line is printed):
    of 32, B odd, an empty clause); guards on the share of non-zero sums
    and of fired clauses.  The two clause-bit kernels
    (``clause_eval_packed``, ``clause_eval``) at the digital and the
-   coalesced width with one clause in 16 emptied, B in {1, 8, 64, 256},
+   coalesced width with one clause in 16 emptied, B in ``CLAUSE_BATCHES``
+   = {1, 8, 64, 208, 256} (256: the batch training step; 208: an extra
+   ragged batch, a multiple of 16 but of no 64-row tile),
    and the ragged shape: every empty clause reads 1, 5-95 % of bits fire
    (at least 1 % of the non-empty clauses' bits).  Then the cross-tier
    check: on one D2D + stuck-at plane-packed stack at full width, read
@@ -113,19 +119,19 @@ is non-zero and no result line is printed):
    (with the eager conductance pre-pass, with and without C2C, and
    ``torch.einsum`` of the two column-current products alone as a
    partial yardstick); each analog row with the inner loop's issue floor
-   and the digital TM's fired share, and for the two kernels on
-   ``csrc/imbue_core.cuh`` their grid, block, resident blocks an SM,
+   and the digital TM's fired share, and for all three (each on
+   ``csrc/imbue_core.cuh``) their grid, block, resident blocks an SM,
    launched warps an SM and the share of (warp, row, column) steps the
-   early exit skipped (``imbue_infer_packed``, on its old body, is the
-   control); the TM
+   early exit skipped; the TM
    kernels at B in {8, 64, 128} at the coalesced and the digital width
    (and, for ``tm_infer``, ``torch.matmul`` of its violation product
    alone as that product's yardstick); the host time of one backend call
-   per coalesced tier; the clause-bit kernels at the digital width, B in
-   {1, 8, 64, 256}, with the route each took (``clause_eval``: a warp
-   per clause up to ``B_SMALL`` rows of ``csrc/clause_eval.cu``, tiles
-   above) and the
-   ``torch.matmul`` bracket, and the batch
+   per coalesced tier; the clause-bit kernels at the digital and the
+   coalesced width, B in ``CLAUSE_BATCHES``, with the route each took
+   (``clause_eval``: a warp per clause up to ``B_SMALL`` rows of
+   ``csrc/clause_eval.cu``, tiles above; ``clause_eval_packed``: the b1
+   tensor-core product, with its geometry and launched warps an SM) and
+   the ``torch.matmul`` bracket, and the batch
    training step's split into kernel and eager TA update; the flash
    kernels on each bf16 row with their plain versions and bounds
    (bytes, matmul FLOPs at the tensor rate, exp / tanh at the SFU rate),
@@ -187,6 +193,9 @@ INT8_OP_PER_S = 1979e12        # dense, tensor cores, int32 accumulation
 # POPC rate on compute capability 9.0, per clock per SM (the arithmetic
 # instruction throughput table of NVIDIA's CUDA C++ documentation).
 POPC_PER_CLOCK_PER_SM = 16
+# 32-bit logic (LOP3) on compute capability 9.0, per clock per SM (same
+# table).
+LOP3_PER_CLOCK_PER_SM = 64
 KERNELS = {
     "imbue_infer_planes": {
         "route": "cuda",
@@ -250,9 +259,10 @@ DENSE_KERNELS = ("imbue_infer_packed", "imbue_infer")
 ANALOG_BACKENDS = ("analog-cuda-packed2", "analog-cuda-packed", "analog-cuda")
 CHAOS = dict(stuck_lrs_rate=0.01, stuck_hrs_rate=0.01)
 # The training-time clause-bit kernels and the batches they are checked at
-# (B = 256 is the batch training step, B = 1 the sequential step).
+# (B = 256 is the batch training step, B = 1 the sequential step; 208 is
+# an extra ragged shape: the training paths drop a ragged tail).
 CLAUSE_KERNELS = ("clause_eval_packed", "clause_eval")
-CLAUSE_BATCHES = (1, 8, 64, 256)
+CLAUSE_BATCHES = (1, 8, 64, 208, 256)
 # Training at imbue-tm-mnist on a numpy-drawn stand-in of the reference's
 # synthetic_image_dataset (10 classes of 28 x 28 prototypes at density
 # 0.25, 8 % of pixels flipped; 512 test rows, all served afterwards).
@@ -359,6 +369,12 @@ def popc_per_s() -> float:
     clock."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     return POPC_PER_CLOCK_PER_SM * n_sm * sm_clock_hz()
+
+
+def lop3_per_s() -> float:
+    """The card's 32-bit logic rate: 64 per clock per SM x its SMs x its
+    max SM clock."""
+    return popc_per_s() * LOP3_PER_CLOCK_PER_SM / POPC_PER_CLOCK_PER_SM
 
 
 def kernel_pair(name):
@@ -628,7 +644,8 @@ def phase_environment():
           "popc_per_s": popc_per_s(),
           "build_s": time.perf_counter() - t0, "build_s_per_kernel": secs,
           "ptxas": ptxas, "flash_bf16_instances": instances,
-          "analog_instances": analog_instances()})
+          "analog_instances": analog_instances(),
+          "clause_eval_packed_instances": clause_packed_instances()})
     return smi
 
 
@@ -683,9 +700,9 @@ def hgmma_counts(lib):
 
 # SASS opcodes recorded for the analog kernels: the inner loop's bit
 # test (LOP3 to a predicate), its predicated adds (two a (row, cell) on
-# csrc/imbue_core.cuh, one of which runs) or select and add (the packed
-# kernel), and any tensor-core instruction (there must be none: the
-# column currents are IEEE float32).
+# csrc/imbue_core.cuh, one of which runs), any select, and any
+# tensor-core instruction (there must be none: the column currents are
+# IEEE float32).
 ANALOG_SASS = {"LOP3_to_P": r"\bLOP3\.LUT P\d", "FSEL": r"\bFSEL\b",
                "FADD": r"\bFADD\b",
                "FADD_predicated": r"@!?P\d+\s+FADD\b",
@@ -695,8 +712,9 @@ ANALOG_SASS = {"LOP3_to_P": r"\bLOP3\.LUT P\d", "FSEL": r"\bFSEL\b",
 def analog_instances():
     """Each entry function of the three analog kernels: registers, spills
     and static shared memory (ptxas), and its ``ANALOG_SASS``
-    instruction counts (``cuobjdump -sass``).  A tensor-core instruction
-    fails."""
+    instruction counts (``cuobjdump -sass``).  A tensor-core instruction,
+    or an instance without the core's predicated adds (at least one a
+    cell of its four rows at once), fails."""
     from repro_torch.kernels import _build
     rows = []
     for name in ("imbue_infer_planes",) + DENSE_KERNELS:
@@ -704,10 +722,28 @@ def analog_instances():
         for entry, info in ptxas_entries(_build.build_log(name)).items():
             rows.append({"kernel": name, "entry": entry, **info,
                          **sass.get(entry, {})})
-    bad = [r for r in rows if r.get("tensor")]
+    bad = [r for r in rows if r.get("tensor")
+           or r.get("FADD_predicated", 0) < 4 * 32]
     if bad or not rows:
         raise AssertionError(f"analog kernels with tensor-core "
-                             f"instructions, or none built: {bad}")
+                             f"instructions or without predicated adds, "
+                             f"or none built: {bad}")
+    return rows
+
+
+def clause_packed_instances():
+    """Each entry function of ``clause_eval_packed``: registers and spills
+    (ptxas) and its ``BMMA`` (the b1 tensor-core product), ``LOP3`` and
+    ``POPC`` counts.  An instance without a ``BMMA`` fails."""
+    from repro_torch.kernels import _build
+    name = "clause_eval_packed"
+    sass = sass_counts(_build.library_path(name),
+                       {"BMMA": r"\bBMMA\b", "LOP3": r"\bLOP3\b",
+                        "POPC": r"(?<![.\w])POPC\b"})
+    rows = [{"entry": entry, **info, **sass.get(entry, {})}
+            for entry, info in ptxas_entries(_build.build_log(name)).items()]
+    if not rows or any(not r.get("BMMA") for r in rows):
+        raise AssertionError(f"{name}: an instance has no BMMA: {rows}")
     return rows
 
 
@@ -1487,8 +1523,12 @@ def phase_training(device):
 
 def clause_bytes_and_work(name, args):
     """Bytes each input is read once and the ``[B, C]`` bits written once,
-    and the operations: B*C*Lw word steps at the POPC rate (packed), or
-    2*B*C*L operations on 0/1 bytes at the card's int8 rate (dense)."""
+    and the operations: B*C*Lw word steps of one 32-bit logic operation
+    each (packed: only viol == 0 is kept, an OR of ~lit & inc), or 2*B*C*L
+    operations on 0/1 bytes at the card's int8 rate (dense).  The packed
+    figure is the floor on the CUDA cores; the kernel counts on the b1
+    tensor cores, whose Hopper rate is not published, so its own floor
+    may be lower, down to the bytes' time."""
     a, inc = args
     b, k = a.shape
     c = inc.shape[0]
@@ -1496,63 +1536,89 @@ def clause_bytes_and_work(name, args):
               + b * c)
     if name == "clause_eval":
         return nbytes, [(2 * b * c * k, INT8_OP_PER_S)]
-    return nbytes, [(b * c * k, popc_per_s())]
+    return nbytes, [(b * c * k, lop3_per_s())]
 
 
 def clause_route(name, b, l):
     """Which kernel of ``name``'s library a ``[b, l]`` launch takes:
     ``clause_eval`` has a warp-per-clause kernel for small batches and the
-    32 x 64 tile kernel, as ``clause_eval_small_route`` reports."""
+    32 x 64 tile kernel, as ``clause_eval_small_route`` reports;
+    ``clause_eval_packed`` has one, the b1 tensor-core product."""
     import ctypes
     from repro_torch.kernels import _build
-    if name != "clause_eval":
-        return "tile"
+    if name == "clause_eval_packed":
+        return "b1mma"
     lib = ctypes.CDLL(str(_build.library_path(name)))
     return "warp per clause" if lib.clause_eval_small_route(b, l) else "tile"
 
 
+def packed_geometry(b, c, lw):
+    """``clause_eval_packed``'s launch geometry at ``(b, c, lw)``
+    (``clause_eval_packed_geometry``): grid, threads, shared bytes,
+    resident blocks an SM, K-split, block tile, and the launched warps an
+    SM (the grid's warps / SMs, capped by what is resident)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = ctypes.CDLL(str(_build.library_path("clause_eval_packed")))
+    info = (ctypes.c_int * 9)()
+    if lib.clause_eval_packed_geometry(b, c, lw, info) != 0:
+        raise RuntimeError("clause_eval_packed_geometry failed")
+    gx, gy, threads, smem, per_sm, ksplit, bt, ct, _ = list(info)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"grid": [gx, gy], "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "k_split": ksplit, "tile": [bt, ct],
+            "warps_per_sm": min(gx * gy * threads / 32 / n_sm,
+                                per_sm * threads / 32)}
+
+
 def phase_clause_timing(device, train_epochs):
-    """Both clause kernels at the digital width, B in CLAUSE_BATCHES:
-    device time, the route taken, plain version, bound and the
-    ``torch.matmul`` bracket (``(1 - lits) @ include^T == 0`` on float32
-    operands, TF32 off); and the training step's split into kernel and
-    eager TA update."""
+    """Both clause kernels at the digital and the coalesced width, B in
+    CLAUSE_BATCHES: device time, the route taken, plain version, bound and
+    the ``torch.matmul`` bracket (``(1 - lits) @ include^T == 0`` on
+    float32 operands, TF32 off); for ``clause_eval_packed`` its geometry;
+    and the training step's split into kernel and eager TA update."""
     flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
                         device=device)
-    label, inc, _, x = tm_widths(device, n=max(CLAUSE_BATCHES))[0]
     rows = []
-    for b in CLAUSE_BATCHES:
-        args, _, _ = clause_case(inc, x[:b], device)
-        lit0 = 1.0 - args["clause_eval"][0].float()
-        inc_f = args["clause_eval"][1].float()
-        bracket = time_ms(lambda: torch.matmul(lit0, inc_f.T) == 0, 20,
-                          flush)
-        for name in CLAUSE_KERNELS:
-            fn, ref = kernel_pair(name)
-            a = args[name]
-            ms = time_ms(lambda: fn(*a), 20, flush)
-            plain = time_ms(lambda: ref(*a), 5, flush)
-            nbytes, work = clause_bytes_and_work(name, a)
-            bms, by = bound_ms(nbytes, work)
-            rows.append({"kernel": name, "width": label,
-                         "C": int(inc.shape[0]), "L": int(inc.shape[1]),
-                         "B": b, "route": clause_route(
-                             name, b, int(inc.shape[1])),
-                         "ms": ms, "plain_ms": plain,
-                         "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-                         "ops": [ops for ops, _ in work],
-                         "ops_per_s": [rate for _, rate in work],
-                         "bound_share": bms / ms, "matmul_bracket_ms":
-                         bracket})
+    for label, inc, _, x in tm_widths(device, n=max(CLAUSE_BATCHES)):
+        for b in CLAUSE_BATCHES:
+            args, _, _ = clause_case(inc, x[:b], device)
+            lit0 = 1.0 - args["clause_eval"][0].float()
+            inc_f = args["clause_eval"][1].float()
+            bracket = time_ms(lambda: torch.matmul(lit0, inc_f.T) == 0, 20,
+                              flush)
+            for name in CLAUSE_KERNELS:
+                fn, ref = kernel_pair(name)
+                a = args[name]
+                ms = time_ms(lambda: fn(*a), 20, flush)
+                plain = time_ms(lambda: ref(*a), 5, flush)
+                nbytes, work = clause_bytes_and_work(name, a)
+                bms, by = bound_ms(nbytes, work)
+                row = {"kernel": name, "width": label,
+                       "C": int(inc.shape[0]), "L": int(inc.shape[1]),
+                       "B": b, "route": clause_route(
+                           name, b, int(inc.shape[1])),
+                       "ms": ms, "plain_ms": plain,
+                       "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                       "ops": [ops for ops, _ in work],
+                       "ops_per_s": [rate for _, rate in work],
+                       "bound_share": bms / ms,
+                       "matmul_bracket_ms": bracket}
+                if name == "clause_eval_packed":
+                    row.update(packed_geometry(b, *a[1].shape))
+                rows.append(row)
     step_ms = train_epochs[-1]["ms_per_step"]
     kernel_ms = next(r["ms"] for r in rows if r["B"] == TRAIN_BATCH
+                     and r["width"] == "digital"
                      and r["kernel"] == "clause_eval_packed")
     emit({"phase": "timing", "kernels": list(CLAUSE_KERNELS),
           "clock": "cuda events, median, L2 flushed, host enqueue "
                    "hidden behind a spin kernel",
           "bound": "max(bytes / 3.35 TB/s, ops / rate); packed: B*C*Lw "
-                   "word steps at the POPC rate; dense: 2*B*C*L at 1979 "
-                   "TOP/s (int8)", "rows": rows,
+                   "word steps at the 32-bit logic rate (64 per clock per "
+                   "SM), the CUDA cores' floor (the kernel runs on the b1 "
+                   "tensor cores, whose rate is not published); dense: "
+                   "2*B*C*L at 1979 TOP/s (int8)", "rows": rows,
           "train_step_B256": {"host_ms_per_step": step_ms,
                               "clause_eval_packed_ms": kernel_ms,
                               "rest_ms": step_ms - kernel_ms}})
@@ -1581,12 +1647,12 @@ def time_ms(fn, reps, flush):
 
 def analog_launch_record(name, args):
     """Kernel ``name``'s launch on the wrapper's operands ``args`` (an
-    analog kernel on ``csrc/imbue_core.cuh``): its grid, block, shared
-    memory, resident blocks an SM (``<name>_geometry``), the launched
-    warps an SM (the grid's warps / SMs, capped by what is resident), and
-    from one counted launch (``<name>_launch_counted``, outside every
-    launch counter) the share of (warp, row, column) steps the early exit
-    skipped."""
+    analog kernel, all three on ``csrc/imbue_core.cuh``): its grid,
+    block, shared memory, resident blocks an SM (``<name>_geometry``),
+    the launched warps an SM (the grid's warps / SMs, capped by what is
+    resident), and from one counted launch (``<name>_launch_counted``,
+    outside every launch counter, held against ``<name>_ref``) the share
+    of (warp, row, column) steps the early exit skipped."""
     import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels import imbue_infer as ii
@@ -1595,12 +1661,12 @@ def analog_launch_record(name, args):
     steps_run = torch.zeros(1, dtype=torch.int64, device=args[0].device)
     stream = torch.cuda.current_stream().cuda_stream
     counted = getattr(lib, f"{name}_launch_counted")
+    geometry = getattr(lib, f"{name}_geometry")
     if name == "imbue_infer_planes":
         litw, incw, dev, pol, scal = args
         (b, lw), (c, m) = litw.shape, pol.shape
         r = 1 if dev is None else dev.shape[0]
-        err = lib.imbue_infer_planes_geometry(r, b, c, lw, int(dev is not None),
-                                              info)
+        err = geometry(r, b, c, lw, int(dev is not None), info)
         counted.argtypes = ii._ARGTYPES[:-1] + [ctypes.c_void_p] * 2
         out = torch.zeros((r, b, m), dtype=torch.int32, device=litw.device)
         err = err or counted(
@@ -1609,19 +1675,18 @@ def analog_launch_record(name, args):
             out.data_ptr(), r, b, lw, c, m, scal.l_valid, scal.i_ref,
             scal.v_read, scal.r_lrs, scal.r_hrs, scal.leak_inc,
             scal.leak_exc, scal.series_factor, steps_run.data_ptr(), stream)
-        want = ii.imbue_infer_planes_ref(*args)
-    else:
+    else:           # literal words (imbue_infer_packed) or bytes
         lits, g, leak, pol, i_ref, v_read = args
         (r, c, l), (b, m) = g.shape, (lits.shape[0], pol.shape[1])
         lw = -(-l // 32)
-        err = lib.imbue_infer_geometry(r, b, c, l, info)
+        err = geometry(r, b, c, l, info)
         counted.argtypes = ii._DENSE_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
         out = torch.zeros((r, b, m), dtype=torch.int32, device=lits.device)
         err = err or counted(
             lits.data_ptr(), g.data_ptr(), leak.data_ptr(), pol.data_ptr(),
             out.data_ptr(), r, b, l, c, m, ii._f32(i_ref), ii._f32(v_read),
             steps_run.data_ptr(), stream)
-        want = ii.imbue_infer_ref(*args)
+    want = getattr(ii, f"{name}_ref")(*args)
     torch.cuda.synchronize()
     if err != 0 or not torch.equal(out, want):
         raise AssertionError(f"{name}: the counted launch failed ({err}) or "
@@ -1730,9 +1795,8 @@ def phase_dense_timing(device):
                    "issue_floor_ms": issue_floor_ms(nops),
                    "bytes": nbytes, "fp32_ops": nops,
                    "bound_share": bms / ms, "fired_frac": fired,
-                   "column_current_einsum_ms": einsum_ms}
-            if name == "imbue_infer":     # imbue_infer_packed: the control
-                row.update(analog_launch_record(name, args))
+                   "column_current_einsum_ms": einsum_ms,
+                   **analog_launch_record(name, args)}
             rows.append(row)
     include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
     vcfg = VariationConfig(csa_offset=False)
@@ -2171,8 +2235,8 @@ def main() -> int:
     # The clause kernels' main-path rows: the batch training step (B = 256)
     # for the packed one, the sequential step (B = 1) for the dense one.
     for r in phase_clause_timing(device, train_epochs):
-        if (r["kernel"], r["B"]) in (("clause_eval_packed", TRAIN_BATCH),
-                                     ("clause_eval", 1)):
+        if r["width"] == "digital" and (r["kernel"], r["B"]) in (
+                ("clause_eval_packed", TRAIN_BATCH), ("clause_eval", 1)):
             main_rows[r["kernel"]] = r
     # No single PyTorch call computes thresholded class sums, so the
     # inference kernels have no library yardstick (the partial ones, a

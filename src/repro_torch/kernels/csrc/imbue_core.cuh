@@ -1,9 +1,11 @@
-// imbue_core.cuh: the column-current core of the analog kernels
-// imbue_infer_planes.cu (cells rebuilt from a plane-packed stack) and
-// imbue_infer.cu (cells read from dense g / leak planes, one byte a
+// imbue_core.cuh: the column-current core of the three analog kernels,
+// imbue_infer_planes.cu (cells rebuilt from a plane-packed stack),
+// imbue_infer_packed.cu (cells read from dense g / leak planes, packed
+// literal words) and imbue_infer.cu (the same planes, one byte a
 // literal).  Each supplies a source that stages a column and builds its
 // 32 (v_read * g, leak) pairs; the tiling, the inner loop, the AND, the
-// early exit and the votes are here.
+// early exit and the votes are here, and so is DenseCells, the g / leak
+// half that the two dense sources share.
 //
 // What it computes, per replica r, batch row b and clause c, over the
 // clause's 32-cell CSA columns k (cells 32k .. 32k + 31):
@@ -164,6 +166,37 @@ __device__ __forceinline__ void read_row(const float* row, float (&v)[WORD]) {
     v[4 * i + 3] = x.w;
   }
 }
+
+// The cell half of the two dense-plane sources: column k of the [R, C, L]
+// g and leak planes, as given (the caller builds them in the reference's
+// op order), staged as two planes, the g plane's rows first; the pairs
+// are on = v_read * g as __fmul_rn and leak as read.  VEC: L % 4 == 0
+// and both planes 16-byte aligned (stage_cells' 16-byte copies).
+template <bool VEC>
+struct DenseCells {
+  static constexpr int kPlanes = 2;
+
+  const float* g;        // [R, C, L] on-path conductance (S)
+  const float* leak;     // [R, C, L] leak current (A)
+  float v_read;
+  int C, L;
+
+  __device__ void stage(float* cells, int r, int c0, int k) const {
+    const size_t plane = static_cast<size_t>(r) * C * L;
+    stage_cells<VEC>(cells, g + plane, L, C, c0, k);
+    stage_cells<VEC>(cells + WORD * ROW, leak + plane, L, C, c0, k);
+  }
+
+  __device__ void column(const float* cells, float (&on)[WORD],
+                         float (&lk)[WORD]) const {
+    const int lane = threadIdx.x & (WORD - 1);
+    float gv[WORD];
+    read_row(cells + lane * ROW, gv);
+    read_row(cells + (WORD + lane) * ROW, lk);
+#pragma unroll
+    for (int j = 0; j < WORD; ++j) on[j] = __fmul_rn(v_read, gv[j]);
+  }
+};
 
 // ------------------------------------------------------------- kernel
 

@@ -31,51 +31,41 @@
 //
 // Design: imbue_core.cuh's, with this source: per warp and column the
 // g and leak cells of the block's 32 clauses are staged with cp.async
-// (coalesced, 16-byte chunks when L % 16 == 0), the literal words built
-// from the bytes into shared memory, and each lane forms its clause's 32
-// pairs (on = v_read * g as __fmul_rn, leak as read) in registers once
-// for all of the block's rows.
+// (coalesced, 16-byte chunks when L % 16 == 0) and each lane forms its
+// clause's 32 pairs (on = v_read * g as __fmul_rn, leak as read) in
+// registers once for all of the block's rows (imbue::DenseCells, shared
+// with imbue_infer_packed.cu); the literal words are built from the
+// bytes into shared memory.
 
 #include "imbue_core.cuh"
 
 namespace {
 
-using imbue::ROW;
 using imbue::WORD;
 
 // VEC: L % 16 == 0 and every operand 16-byte aligned: 16-byte copies of
 // the cells and two 16-byte loads a literal word.
 template <bool VEC>
 struct DenseSource {
-  static constexpr int kPlanes = 2;
+  static constexpr int kPlanes = imbue::DenseCells<VEC>::kPlanes;
   static constexpr bool kClauseWords = false;
 
+  imbue::DenseCells<VEC> planes;
   const uint8_t* lits;   // [B, L] 0/1 bytes
-  const float* g;        // [R, C, L] on-path conductance (S)
-  const float* leak;     // [R, C, L] leak current (A)
-  float v_read;
-  int B, C, L, Lw;
+  int B, L, Lw;
 
   __device__ void stage(float* cells, uint32_t*, uint32_t* words, int r,
                         int c0, int b0, int rows, int k) const {
-    const size_t plane = static_cast<size_t>(r) * C * L;
-    imbue::stage_cells<VEC>(cells, g + plane, L, C, c0, k);
-    imbue::stage_cells<VEC>(cells + WORD * ROW, leak + plane, L, C, c0, k);
+    planes.stage(cells, r, c0, k);
     for (int i = threadIdx.x & (WORD - 1); i < rows; i += WORD) {
       const int b = b0 + i;
       words[i] = b < B && k < Lw ? imbue::byte_word<VEC>(lits, b, k, L) : 0u;
     }
   }
 
-  // The g plane's staged rows come first, then the leak plane's.
   __device__ void column(const float* cells, const uint32_t*, int,
                          float (&on)[WORD], float (&lk)[WORD]) const {
-    const int lane = threadIdx.x & (WORD - 1);
-    float gv[WORD];
-    imbue::read_row(cells + lane * ROW, gv);
-    imbue::read_row(cells + (WORD + lane) * ROW, lk);
-#pragma unroll
-    for (int j = 0; j < WORD; ++j) on[j] = __fmul_rn(v_read, gv[j]);
+    planes.column(cells, on, lk);
   }
 };
 
@@ -84,10 +74,9 @@ int run(const void* lits, const void* g, const void* leak, const void* pol,
         void* out, void* rows_run, int R, int B, int L, int C, int M,
         float i_ref, float v_read, cudaStream_t st) {
   const int Lw = (L + WORD - 1) / WORD;
-  const DenseSource<VEC> src{static_cast<const uint8_t*>(lits),
-                             static_cast<const float*>(g),
-                             static_cast<const float*>(leak), v_read, B, C,
-                             L, Lw};
+  const DenseSource<VEC> src{{static_cast<const float*>(g),
+                              static_cast<const float*>(leak), v_read, C, L},
+                             static_cast<const uint8_t*>(lits), B, L, Lw};
   return imbue::launch(src, static_cast<const int32_t*>(pol),
                        static_cast<int32_t*>(out),
                        static_cast<unsigned long long*>(rows_run), B, C, M,

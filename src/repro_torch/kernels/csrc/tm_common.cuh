@@ -1,8 +1,9 @@
 // tm_common.cuh: the tiling and the device functions shared by the
 // digital / coalesced TM inference kernels (tm_infer_planes.cu,
 // tm_infer_packed.cu, tm_infer.cu) and the training-time clause-bit
-// kernels (clause_eval_packed.cu, clause_eval.cu), which stop after the
-// violation count and write fired[b, c] with store_fired.
+// kernel clause_eval.cu, which stops after the violation count and
+// writes fired[b, c] with store_fired; and the cp.async helpers of
+// tm_infer_planes.cu and clause_eval_packed.cu (which has its own tiling).
 //
 // Each kernel computes, for a block tile of BT batch rows x CT clauses,
 // the violation count viol[b, c] of every (row, clause) pair, then
@@ -143,6 +144,31 @@ __device__ __forceinline__ void store_fired(const T (&viol)[TB][TC],
       }
     }
   }
+}
+
+// ------------------------------------------------------------- cp.async
+
+// A 4-byte copy from device to shared memory; `valid` false zero-fills
+// the word (a source size of 0; gmem must still be a device address).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int src_bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 inline dim3 grid_for(int B, int C) {

@@ -45,23 +45,6 @@ namespace {
 constexpr int KW = 16;          // include words per ring stage
 constexpr int INC_STRIDE = KW + 1;
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Issues the copies of the include words [k0, k0 + KW) of the block's
 // clause tile into one ring slot, as one group.  Consecutive threads copy
 // consecutive words of a clause row.
@@ -73,10 +56,11 @@ __device__ __forceinline__ void stage(const int32_t* __restrict__ incw,
     const int cl = i / KW, kk = i % KW;
     const int c = t.c0 + cl, k = k0 + kk;
     const bool valid = c < C && k < Lw;
-    cp_async4(&slot[cl][kk],
-              valid ? incw + static_cast<size_t>(c) * Lw + k : incw, valid);
+    tmk::cp_async4(&slot[cl][kk],
+                   valid ? incw + static_cast<size_t>(c) * Lw + k : incw,
+                   valid);
   }
-  cp_async_commit();
+  tmk::cp_async_commit();
 }
 
 __global__ void __launch_bounds__(tmk::THREADS) tm_infer_planes_kernel(
@@ -105,9 +89,9 @@ __global__ void __launch_bounds__(tmk::THREADS) tm_infer_planes_kernel(
     if (kc + 1 < nk) {               // its slot was freed by the last barrier
       stage(incw, inc_s[(kc + 1) & 1], t, (kc + 1) * KW, Lw, C);
     } else {
-      cp_async_commit();             // empty group: keeps "wait 1" exact
+      tmk::cp_async_commit();        // empty group: keeps "wait 1" exact
     }
-    cp_async_wait_one();             // this thread's copies of chunk kc
+    tmk::cp_async_wait_one();        // this thread's copies of chunk kc
     __syncthreads();                 // ... and every other thread's
     const int k0 = kc * KW;
     tmk::count_words(lit_s + k0, Lw, &inc_s[kc & 1][0][0], INC_STRIDE,

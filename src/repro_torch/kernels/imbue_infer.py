@@ -13,12 +13,13 @@ the kernel (one launch per replica stack):
 * ``imbue_infer(lits, g, leak, pol, i_ref, v_read)`` — the same from one
   byte a literal (``imbue_infer_kernel``, ``csrc/imbue_infer.cu``).
 
-``imbue_infer_planes`` and ``imbue_infer`` share ``csrc/imbue_core.cuh``
-(the arithmetic, the bound and the design); ``imbue_infer_packed`` keeps
-``csrc/imbue_dense.cuh``.  The dense-plane kernels' operands, in the
-states' own layouts: ``litw [B, ceil(L/32)]`` int32 words or ``lits [B, L]``
-uint8, ``g`` and ``leak [R, C, L]`` float32, ``pol [C, M]`` int32, and
-``i_ref = v_ref / r_divider`` and ``v_read`` as float32 values.
+All three run ``csrc/imbue_core.cuh`` (the arithmetic, the bound and the
+design); ``imbue_infer_packed`` and ``imbue_infer`` also share its
+``DenseCells`` (the g / leak staging).  The dense-plane kernels'
+operands, in the states' own layouts: ``litw [B, ceil(L/32)]`` int32
+words or ``lits [B, L]`` uint8, ``g`` and ``leak [R, C, L]`` float32,
+``pol [C, M]`` int32, and ``i_ref = v_ref / r_divider`` and ``v_read``
+as float32 values.
 
 ``imbue_infer_planes`` takes:
 

@@ -201,7 +201,8 @@ def test_analog_kernels_every_clause_dies_or_fires(cuda, name, fate, f, b,
     assert got.shape == (r, b, cfg.n_classes) and bool((got == want).all())
 
 
-@pytest.mark.parametrize("name", ("imbue_infer_planes", "imbue_infer"))
+@pytest.mark.parametrize("name", ("imbue_infer_planes", "imbue_infer_packed",
+                                  "imbue_infer"))
 def test_analog_kernels_are_deterministic(cuda, name):
     """Two launches on the same inputs give equal outputs (the votes are
     int32 atomics, exact in any order)."""
@@ -291,7 +292,14 @@ def _rows(b):
     # ragged L, L past 64 words (a lane's second step of include words).
     (2, 37, 1568), (3, 2001, 200), ("small", 75, 1568),
     ("small+1", 75, 1568), (2, 13, 47), ("small", 2000, 1568),
-    (1, 9, 4000)])
+    (1, 9, 4000),
+    # clause_eval_packed's choose: a ragged batch of 208 rows (13 16-row
+    # tiles, no whole 64-row one) and one row past 256 at the digital
+    # width, 257 at the coalesced width; C a multiple of none of its clause
+    # tiles (32, 64, 128); Lw = 2 words, fewer than one 8-word step; rows
+    # too long for one staged chunk (375 words), and 125 words at C = 37.
+    (208, 2000, 1568), (257, 2000, 1568), (257, 1000, 1568),
+    (64, 1001, 1568), (1, 2000, 64), (64, 300, 12000), (5, 37, 4000)])
 def test_clause_eval_kernels_match_plain_versions(cuda, name, b, c, l):
     b = _rows(b)
     lits, inc = _clause_case(b, c, l, b + c + l, cuda)
@@ -309,6 +317,48 @@ def test_clause_eval_kernels_match_plain_versions(cuda, name, b, c, l):
     assert bool((got[:, c // 2] == 1).all())          # the empty clause
     share = float(want.float().mean())
     assert 0.0 < share < 1.0
+
+
+def _packed_lib():
+    """clause_eval_packed's library (built at first use), for its
+    geometry."""
+    import ctypes
+    from repro_torch.kernels import _build
+    _build.build(["clause_eval_packed"])
+    return ctypes.CDLL(str(_build.library_path("clause_eval_packed")))
+
+
+def test_clause_eval_packed_is_deterministic(cuda):
+    """Two launches on the same inputs give equal bits (the K-split's
+    partial flags meet in shared memory, every writer writing 1)."""
+    lits, inc = _clause_case(257, 2000, 1568, 11, cuda)
+    args = (ops.pack_literals(lits), ops.pack_include(inc))
+    first = clause_eval.clause_eval_packed(*args)
+    assert torch.equal(first, clause_eval.clause_eval_packed(*args))
+    assert torch.equal(first, clause_eval.clause_eval_packed_ref(*args))
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 208, 256])
+@pytest.mark.parametrize("c", [1000, 2000])
+def test_clause_eval_packed_geometry_fills_the_card(cuda, b, c):
+    """chip_smoke.py's clause-timing rows (the batch training step's 256
+    rows, the extra ragged batch of 208, 1, 8 and 64; the digital and
+    coalesced widths, L = 1568) launch at least 16 warps an SM, except
+    where the b1 product's grid cannot: its K-split is at its cap, one
+    warp an 8-word step (7 at Lw = 49), and a warp takes 16 rows x 32
+    clauses, so the grid holds at most 7 warps a 16 x 32 tile, fewer than
+    16 an SM at B = 1 and 8 (one row tile) and at B = 64 (four)."""
+    import ctypes
+    lw = 49
+    info = (ctypes.c_int * 9)()
+    assert _packed_lib().clause_eval_packed_geometry(b, c, lw, info) == 0
+    gx, gy, threads, smem, per_sm, ksplit, bt, ct, kc = list(info)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    warps = gx * gy * threads // 32
+    launched = min(warps / n_sm, per_sm * threads / 32)
+    assert gx * bt >= b and gy * ct >= c and smem <= 48 * 1024
+    assert kc == 56 and per_sm >= 1
+    assert launched >= 16 or ksplit == -(-lw // 8)
 
 
 @pytest.mark.parametrize("b", [1, 2, 3, "small", "small+1"])
