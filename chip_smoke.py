@@ -123,12 +123,15 @@ is non-zero and no result line is printed):
    ``csrc/imbue_core.cuh``) their grid, block, resident blocks an SM,
    launched warps an SM and the share of (warp, row, column) steps the
    early exit skipped; the TM
-   kernels at B in {8, 64, 128} at the coalesced and the digital width
-   (and, for ``tm_infer``, ``torch.matmul`` of its violation product
-   alone as that product's yardstick); the host time of one backend call
-   per coalesced tier; the clause-bit kernels at the digital and the
-   coalesced width, B in ``CLAUSE_BATCHES``, with the route each took
-   (``clause_eval``: a warp per clause up to ``B_SMALL`` rows of
+   kernels at B in {8, 64, 128} at the coalesced and the digital width,
+   beside ``torch.matmul`` of the violation product alone (a partial
+   bracket: no threshold, no combine) and the ``[B, M]`` zero fill that
+   the wrappers run before each, with the geometry and launched warps an
+   SM of the two on ``csrc/tm_b1.cuh``, and the clock's floor (events
+   around no device work); the host time of one
+   backend call per coalesced tier; the clause-bit kernels at the digital
+   and the coalesced width, B in ``CLAUSE_BATCHES``, with the route each
+   took (``clause_eval``: a warp per clause up to ``B_SMALL`` rows of
    ``csrc/clause_eval.cu``, tiles above; ``clause_eval_packed``: the b1
    tensor-core product, with its geometry and launched warps an SM) and
    the ``torch.matmul`` bracket, and the batch
@@ -254,6 +257,8 @@ KERNELS = {
     },
 }
 TM_KERNELS = ("tm_infer_planes", "tm_infer_packed", "tm_infer")
+# The TM kernels' checks: CHECK_BATCHES and 256 (one more 128-row tile).
+TM_CHECK_BATCHES = CHECK_BATCHES + (256,)
 # The dense-plane analog kernels and the backends of the three analog tiers.
 DENSE_KERNELS = ("imbue_infer_packed", "imbue_infer")
 ANALOG_BACKENDS = ("analog-cuda-packed2", "analog-cuda-packed", "analog-cuda")
@@ -604,19 +609,21 @@ def bound_ms(nbytes, work):
 
 def tm_bytes_and_work(name, args):
     """Bytes each input is read once and the output written once, and the
-    operations this input needs with the rate of their type: B*C*Lw word
-    steps (LOP3 + POPC + IADD, bound by POPC) for the packed kernels; for
-    ``tm_infer`` 2*B*C*L operations of the violation product, whose
-    operands are 0/1 bytes, at the card's int8 rate, and 2*B*C*M of the
-    int32 combine at the 32-bit rate outside the tensor cores."""
+    operations this input needs with the rate of their type: for the
+    packed kernels B*C*Lw word steps of one 32-bit logic operation each
+    (only viol == 0 is kept, an OR of ~lit & inc, as for
+    ``clause_eval_packed``); for ``tm_infer`` 2*B*C*L operations of the
+    violation product, whose operands are 0/1 bytes, at the card's int8
+    rate; for all three 2*B*C*M operations of the int32 combine at the
+    32-bit rate outside the tensor cores."""
     a, inc, comb = args
     (b, k), (c, m) = a.shape, comb.shape
     nbytes = (a.numel() * a.element_size() + inc.numel() * inc.element_size()
               + comb.numel() * 4 + b * m * 4)
+    combine = (2 * b * c * m, FP32_FLOP_PER_S)
     if name == "tm_infer":
-        return nbytes, [(2 * b * c * k, INT8_OP_PER_S),
-                        (2 * b * c * m, FP32_FLOP_PER_S)]
-    return nbytes, [(b * c * k, popc_per_s())]
+        return nbytes, [(2 * b * c * k, INT8_OP_PER_S), combine]
+    return nbytes, [(b * c * k, lop3_per_s()), combine]
 
 
 # ---------------------------------------------------------------- phases
@@ -645,7 +652,7 @@ def phase_environment():
           "build_s": time.perf_counter() - t0, "build_s_per_kernel": secs,
           "ptxas": ptxas, "flash_bf16_instances": instances,
           "analog_instances": analog_instances(),
-          "clause_eval_packed_instances": clause_packed_instances()})
+          "b1_instances": b1_instances()})
     return smi
 
 
@@ -731,19 +738,29 @@ def analog_instances():
     return rows
 
 
-def clause_packed_instances():
-    """Each entry function of ``clause_eval_packed``: registers and spills
-    (ptxas) and its ``BMMA`` (the b1 tensor-core product), ``LOP3`` and
-    ``POPC`` counts.  An instance without a ``BMMA`` fails."""
+# The kernels on the b1 tensor-core core (csrc/tm_b1.cuh).
+B1_KERNELS = ("clause_eval_packed", "tm_infer_planes", "tm_infer")
+
+
+def b1_instances():
+    """Each entry function of the three kernels on ``csrc/tm_b1.cuh``
+    (``B1_KERNELS``): registers and spills (ptxas) and its ``BMMA`` (the
+    b1 tensor-core product), ``LOP3`` and ``POPC`` counts.  An instance
+    without a ``BMMA`` fails."""
     from repro_torch.kernels import _build
-    name = "clause_eval_packed"
-    sass = sass_counts(_build.library_path(name),
-                       {"BMMA": r"\bBMMA\b", "LOP3": r"\bLOP3\b",
-                        "POPC": r"(?<![.\w])POPC\b"})
-    rows = [{"entry": entry, **info, **sass.get(entry, {})}
-            for entry, info in ptxas_entries(_build.build_log(name)).items()]
-    if not rows or any(not r.get("BMMA") for r in rows):
-        raise AssertionError(f"{name}: an instance has no BMMA: {rows}")
+    rows = []
+    for name in B1_KERNELS:
+        sass = sass_counts(_build.library_path(name),
+                           {"BMMA": r"\bBMMA\b", "LOP3": r"\bLOP3\b",
+                            "POPC": r"(?<![.\w])POPC\b"})
+        rows += [{"kernel": name, "entry": entry, **info,
+                  **sass.get(entry, {})}
+                 for entry, info in ptxas_entries(
+                     _build.build_log(name)).items()]
+    bare = [r for r in rows if not r.get("BMMA")]
+    if bare or {r["kernel"] for r in rows} != set(B1_KERNELS):
+        raise AssertionError(f"b1 kernels with an instance without a BMMA, "
+                             f"or not built: {rows}")
     return rows
 
 
@@ -811,33 +828,54 @@ def phase_kernels(device):
     return {"imbue_infer_planes": max_err}
 
 
+def unaligned_bytes(t):
+    """A contiguous copy of byte tensor ``t`` that starts one byte past a
+    16-byte boundary (a ``[1:]`` slice of a wider buffer)."""
+    buf = torch.empty(t.numel() + 1, dtype=torch.uint8, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t.view(torch.uint8))
+    if not view.is_contiguous() or view.data_ptr() % 16 != 1:
+        raise AssertionError("the unaligned view is not one byte past 16")
+    return view
+
+
 def phase_tm_kernels(device):
-    """The three TM kernels against their plain versions, tolerance 0."""
+    """The three TM kernels against their plain versions, tolerance 0, at
+    both widths, B in CHECK_BATCHES and 256, the ragged shape, and
+    ``tm_infer`` on byte operands one byte past a 16-byte boundary."""
     from repro_torch.core.coalesced import CoalescedConfig
     from repro_torch.kernels import ops
-    cases = [(label, inc, comb, x[:b]) for label, inc, comb, x
-             in tm_widths(device) for b in BATCHES]
+    cases = [(label, inc, comb, x[:b], False) for label, inc, comb, x
+             in tm_widths(device, n=TM_CHECK_BATCHES[-1])
+             for b in TM_CHECK_BATCHES]
     ragged = CoalescedConfig(n_classes=3, n_clauses=101, n_features=37,
                              n_states=100)                 # C=101, L=74
     rta, rw, rx, _ = coalesced_task(ragged, 13, SEED + 2)   # B=13
     rinc = torch.from_numpy(rta > ragged.n_states)
     rinc[50] = False                                        # empty clause
     cases.append(("ragged", rinc, ops.coalesced_combine(
-        torch.from_numpy(rw), rinc.any(dim=-1)), rx))
+        torch.from_numpy(rw), rinc.any(dim=-1)), rx, False))
+    label, inc, comb, x, _ = next(c for c in cases if c[0] == "coalesced"
+                                  and len(c[3]) == 128)
+    cases.append((label, inc, comb, x, True))               # unaligned
     rows, max_err = [], dict.fromkeys(TM_KERNELS, 0)
-    for label, inc, comb, x in cases:
+    for label, inc, comb, x, unaligned in cases:
         args, fired = tm_case(inc, x, comb, device)
-        for name in TM_KERNELS:
+        names = ("tm_infer",) if unaligned else TM_KERNELS
+        for name in names:
             fn, ref = kernel_pair(name)
             a = args["dense" if name == "tm_infer" else "packed"]
+            if unaligned:
+                a = (unaligned_bytes(a[0]), unaligned_bytes(a[1]), a[2])
             got, want = fn(*a), ref(*a)
             torch.cuda.synchronize()
             err = int((got.long() - want.long()).abs().max())
             nonzero = float((want != 0).float().mean())
             rows.append({"kernel": name, "width": label,
                          "C": int(inc.shape[0]), "L": int(inc.shape[1]),
-                         "B": int(x.shape[0]), "max_abs_err": err,
-                         "nonzero_frac": nonzero, "fired_frac": fired})
+                         "B": int(x.shape[0]), "unaligned": unaligned,
+                         "max_abs_err": err, "nonzero_frac": nonzero,
+                         "fired_frac": fired})
             if err != 0 or not torch.equal(got, want):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version: {rows[-1]}")
@@ -1552,17 +1590,20 @@ def clause_route(name, b, l):
     return "warp per clause" if lib.clause_eval_small_route(b, l) else "tile"
 
 
-def packed_geometry(b, c, lw):
-    """``clause_eval_packed``'s launch geometry at ``(b, c, lw)``
-    (``clause_eval_packed_geometry``): grid, threads, shared bytes,
-    resident blocks an SM, K-split, block tile, and the launched warps an
-    SM (the grid's warps / SMs, capped by what is resident)."""
+def b1_geometry(name, *shape):
+    """The launch geometry of ``name`` (a kernel on ``csrc/tm_b1.cuh``) at
+    ``shape``, as its ``<name>_geometry`` export reports it: grid,
+    threads, shared bytes, resident blocks an SM, K-split, block tile,
+    and the launched warps an SM (the grid's warps / SMs, capped by what
+    is resident).  ``shape``: ``(B, C, Lw)`` for ``clause_eval_packed``,
+    ``(B, C, Lw, M)`` for ``tm_infer_planes``, ``(B, C, L, M)`` for
+    ``tm_infer``."""
     import ctypes
     from repro_torch.kernels import _build
-    lib = ctypes.CDLL(str(_build.library_path("clause_eval_packed")))
+    lib = ctypes.CDLL(str(_build.library_path(name)))
     info = (ctypes.c_int * 9)()
-    if lib.clause_eval_packed_geometry(b, c, lw, info) != 0:
-        raise RuntimeError("clause_eval_packed_geometry failed")
+    if getattr(lib, f"{name}_geometry")(*shape, info) != 0:
+        raise RuntimeError(f"{name}_geometry failed")
     gx, gy, threads, smem, per_sm, ksplit, bt, ct, _ = list(info)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     return {"grid": [gx, gy], "threads": threads, "smem_bytes": smem,
@@ -1605,7 +1646,7 @@ def phase_clause_timing(device, train_epochs):
                        "bound_share": bms / ms,
                        "matmul_bracket_ms": bracket}
                 if name == "clause_eval_packed":
-                    row.update(packed_geometry(b, *a[1].shape))
+                    row.update(b1_geometry(name, b, *a[1].shape))
                 rows.append(row)
     step_ms = train_epochs[-1]["ms_per_step"]
     kernel_ms = next(r["ms"] for r in rows if r["B"] == TRAIN_BATCH
@@ -1818,6 +1859,12 @@ def phase_dense_timing(device):
 
 
 def phase_tm_timing(device):
+    """The three TM kernels at both widths, B in BATCHES: device time,
+    plain version, bound, the ``torch.matmul`` bracket of the violation
+    product, the wrapper's ``[B, M]`` zero fill alone, and for the two on
+    ``csrc/tm_b1.cuh`` their geometry and launched warps an SM; the
+    timing clock's floor; then the host time of one backend call per
+    coalesced tier."""
     from repro_torch import api
     from repro_torch.core import tm
     from repro_torch.kernels import ops
@@ -1827,6 +1874,17 @@ def phase_tm_timing(device):
     for label, inc, comb, x in tm_widths(device):
         for b in BATCHES:
             args, _ = tm_case(inc, x[:b], comb, device)
+            # The bracket: torch.matmul of the violation product alone
+            # (float32 on the unpacked operands, TF32 off), without the
+            # threshold and the combine.
+            lit0 = 1.0 - args["dense"][0].float()
+            inc_f = args["dense"][1].float()
+            bracket = time_ms(lambda: torch.matmul(lit0, inc_f.T), 20, flush)
+            # Inside every TM row: the [B, M] zero fill the wrapper runs
+            # before the kernel (its atomics add into it).
+            m = int(comb.shape[1])
+            fill = time_ms(lambda: torch.zeros((b, m), dtype=torch.int32,
+                                               device=device), 20, flush)
             for name in TM_KERNELS:
                 fn, ref = kernel_pair(name)
                 a = args["dense" if name == "tm_infer" else "packed"]
@@ -1840,24 +1898,22 @@ def phase_tm_timing(device):
                        "bound_by": by, "bytes": nbytes,
                        "ops": [ops for ops, _ in work],
                        "ops_per_s": [rate for _, rate in work],
-                       "bound_share": bms / ms}
-                if name == "tm_infer":
-                    lit0 = 1.0 - a[0].float()
-                    inc_f = a[1].float()
-                    row["violation_matmul_ms"] = time_ms(
-                        lambda: torch.matmul(lit0, inc_f.T), 20, flush)
-                    # Design note, not the bound: the same operations at
-                    # the fp32 rate the kernel's FFMA loop runs at.
-                    row["fp32_ffma_ms"] = (sum(ops for ops, _ in work)
-                                           / FP32_FLOP_PER_S * 1e3)
+                       "bound_share": bms / ms,
+                       "violation_matmul_ms": bracket, "zero_fill_ms": fill}
+                if name in B1_KERNELS:
+                    row.update(b1_geometry(name, b, int(a[1].shape[0]),
+                                           int(a[1].shape[1]), m))
                 rows.append(row)
     emit({"phase": "timing", "kernels": list(TM_KERNELS),
           "clock": "cuda events, median, L2 flushed, host enqueue "
                    "hidden behind a spin kernel",
+          # The clock's own floor: the events around no device work.
+          "timing_floor_ms": time_ms(lambda: None, 20, flush),
           "bound": "max(bytes / 3.35 TB/s, sum of ops / rate); packed: "
-                   "B*C*Lw word steps at the POPC rate; tm_infer: the "
-                   "violation product at 1979 TOP/s (int8), the combine "
-                   "at 67 T/s (32-bit)", "rows": rows})
+                   "B*C*Lw word steps at the 32-bit logic rate (64 per "
+                   "clock per SM); tm_infer: the violation product at "
+                   "1979 TOP/s (int8); all three: the combine, 2*B*C*M at "
+                   "67 T/s (32-bit)", "rows": rows})
     # Host time of one backend call per coalesced tier at B = 128 (what a
     # dispatch costs once launch and host overhead are counted).
     ccfg = coalesced_config()
@@ -2240,9 +2296,9 @@ def main() -> int:
             main_rows[r["kernel"]] = r
     # No single PyTorch call computes thresholded class sums, so the
     # inference kernels have no library yardstick (the partial ones, a
-    # product alone, are in the timing lines).  clause_eval's is
-    # torch.matmul of its own operands as float32 then == 0; the packed
-    # words have none.
+    # product alone, are in the timing lines: the column-current einsums,
+    # the TM kernels' violation matmul).  clause_eval's is torch.matmul of
+    # its own operands as float32 then == 0; the packed words have none.
     library = {"clause_eval": main_rows["clause_eval"]["matmul_bracket_ms"]}
     # The flash kernels at the main row (qwen2-0.5b); the library call is
     # SDPA's forward for flash_fwd and SDPA's one backward call (dQ, dK and

@@ -41,8 +41,8 @@ name                        states               capability notes
                                                  combine matrix
 ``coalesced-cuda-packed``   Coalesced (packed)   ``tm_infer_packed``
 ``coalesced-cuda-packed2``  Coalesced            ``tm_infer_planes``, the
-                            (plane-packed)       include plane streamed
-                                                 by the kernel's own ring
+                            (plane-packed)       resident include plane
+                                                 on the b1 tensor cores
 ==========================  ===================  ========================
 
 Within a family the packed backends outrank the dense ones and the
@@ -257,9 +257,9 @@ def coalesced_cuda_packed(state: CoalescedState, lits: torch.Tensor,
 def coalesced_cuda_packed2(state: CoalescedState, lits: torch.Tensor,
                            generator: Optional[torch.Generator] = None
                            ) -> torch.Tensor:
-    """Plane-packed coalesced kernel: the resident include plane streams
-    through the kernel's own two-stage ring (``tm_infer_planes``; the same
-    integers as ``coalesced-cuda-packed``)."""
+    """Plane-packed coalesced kernel: the resident include plane, staged
+    whole and counted on the b1 tensor cores (``tm_infer_planes``; the
+    same integers as ``coalesced-cuda-packed``)."""
     del generator
     return ops.coalesced_class_sums_planes(
         _as_packed_lits(lits), state.plane_index, state.weights,

@@ -3,17 +3,19 @@ counters (port of ``repro.kernels.clause_eval``).
 
 The fused inference kernels compute class sums ``[B, M]`` int32: clause
 ``c`` fires for batch row ``b`` iff its violation count is 0, and the
-fired clauses' rows of the combine matrix are summed (see
-``csrc/tm_common.cuh``):
+fired clauses' rows of the combine matrix are summed:
 
-* ``tm_infer_planes(litw, incw, comb)`` — packed words, AND + popcount,
-  the include plane streamed through a two-stage ``cp.async`` ring
-  (``tm_infer_planes_kernel``; the ``*-packed2`` backends);
-* ``tm_infer_packed(litw, incw, comb)`` — the same arithmetic with each
-  K chunk loaded synchronously (``tm_infer_packed_kernel``; the
-  ``*-packed`` backends);
-* ``tm_infer(lits, include, comb)`` — dense 0/1 bytes, float32 violation
-  product (``tm_infer_kernel``; the unpacked fused backends).
+* ``tm_infer_planes(litw, incw, comb)`` — packed words: a block stages
+  its words and its slice of the combine matrix in one ``cp.async``
+  round trip and counts ``popc(~lit & inc)`` with the single-bit
+  tensor-core product (``csrc/tm_b1.cuh``; ``tm_infer_planes_kernel``;
+  the ``*-packed2`` backends);
+* ``tm_infer_packed(litw, incw, comb)`` — the same arithmetic on the
+  CUDA cores, each K chunk loaded synchronously (``csrc/tm_common.cuh``;
+  ``tm_infer_packed_kernel``; the ``*-packed`` backends);
+* ``tm_infer(lits, include, comb)`` — dense 0/1 bytes, folded into bit
+  words while staged, then the b1 product as ``tm_infer_planes``
+  (``tm_infer_kernel``; the unpacked fused backends).
 
 The clause-evaluation kernels stop before the combine and return the
 clause bits ``[B, C]`` uint8 with training semantics — a clause fires
@@ -149,15 +151,16 @@ def tm_infer_packed_ref(litw: torch.Tensor, incw: torch.Tensor,
     return _combine(viol == 0, comb)
 
 
-# The planes kernel computes the same integer function as the packed one;
-# only the way the include words reach shared memory differs.
+# The planes kernel computes the same integer function as the packed one
+# (on the b1 tensor cores instead of the CUDA cores).
 tm_infer_planes_ref = tm_infer_packed_ref
 
 
 def tm_infer_ref(lits: torch.Tensor, include: torch.Tensor,
                  comb: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of ``tm_infer``: the float32 violation
-    product (exact for 0/1 operands), the threshold, the combine."""
+    """Plain PyTorch version of ``tm_infer``: the violation count as a
+    float32 product (exact for 0/1 operands), the threshold, the
+    combine."""
     viol = (1.0 - lits.to(torch.float32)) @ include.to(torch.float32).T
     return _combine(viol == 0, comb)
 
@@ -181,8 +184,8 @@ def clause_eval_ref(lits: torch.Tensor, include: torch.Tensor) -> torch.Tensor:
 
 def tm_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
                     comb: torch.Tensor) -> torch.Tensor:
-    """``[B, M]`` int32 class sums, include words streamed by the kernel's
-    own two-stage ring."""
+    """``[B, M]`` int32 class sums from packed words, counted on the b1
+    tensor cores."""
     _check("tm_infer_planes", litw, incw, comb, (torch.int32,))
     if litw.device.type == "cpu":
         return tm_infer_planes_ref(litw, incw, comb)

@@ -68,13 +68,6 @@ constexpr int INC_STRIDE = KW + 1;
 constexpr int LIT_W = tmk::BT * KW / tmk::THREADS;     // literal words/thread
 constexpr int INC_W = tmk::CT * KW / tmk::THREADS;     // include words/thread
 
-// Four 0/1 bytes of v (bit 0 of each) -> four neighbouring bits: the
-// multiply places byte i's bit 0 at bit 28 + i, and no partial product
-// carries into bits 28-31.
-__device__ __forceinline__ uint32_t fold4(uint32_t v) {
-  return ((v & 0x01010101u) * 0x10204080u) >> 28;
-}
-
 // Bit j of the result is bit 0 of byte k + j of row `row` of a [rows, L]
 // byte matrix; bytes past L and rows past `rows` read as 0.  VEC: L is a
 // multiple of 16 and the matrix 16-byte aligned, so a full word is two
@@ -88,9 +81,7 @@ __device__ __forceinline__ uint32_t load_bits(const uint8_t* __restrict__ m,
   if (VEC && k + tmk::WORD <= L) {
     const uint4 a = reinterpret_cast<const uint4*>(p)[0];
     const uint4 b = reinterpret_cast<const uint4*>(p)[1];
-    return fold4(a.x) | fold4(a.y) << 4 | fold4(a.z) << 8 |
-           fold4(a.w) << 12 | fold4(b.x) << 16 | fold4(b.y) << 20 |
-           fold4(b.z) << 24 | fold4(b.w) << 28;
+    return tmk::fold32(a, b);
   }
   const int n = min(tmk::WORD, L - k);
   uint32_t w = 0u;

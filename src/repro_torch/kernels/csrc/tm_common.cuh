@@ -1,11 +1,12 @@
-// tm_common.cuh: the tiling and the device functions shared by the
-// digital / coalesced TM inference kernels (tm_infer_planes.cu,
-// tm_infer_packed.cu, tm_infer.cu) and the training-time clause-bit
-// kernel clause_eval.cu, which stops after the violation count and
-// writes fired[b, c] with store_fired; and the cp.async helpers of
-// tm_infer_planes.cu and clause_eval_packed.cu (which has its own tiling).
+// tm_common.cuh: the CUDA-core tiling shared by tm_infer_packed.cu
+// (digital / coalesced class sums from packed words) and clause_eval.cu
+// (training-time clause bits from 0/1 bytes, whose tile kernel stops
+// after the violation count and writes fired[b, c] with store_fired), and
+// fold4 / fold32, the byte-to-bit fold of the two byte kernels,
+// clause_eval.cu and tm_infer.cu.  (clause_eval_packed.cu, tm_infer_planes.cu and tm_infer.cu
+// count on the b1 tensor cores instead: tm_b1.cuh.)
 //
-// Each kernel computes, for a block tile of BT batch rows x CT clauses,
+// A tile kernel computes, for a block tile of BT batch rows x CT clauses,
 // the violation count viol[b, c] of every (row, clause) pair, then
 //   fired[b, c] = (viol == 0)      rows >= B and clauses >= C never fire
 //   out[b, m]  += sum_c fired[b, c] * comb[c, m]
@@ -81,8 +82,7 @@ __device__ __forceinline__ void clear_fired(uint32_t (*fired)[FW]) {
 }
 
 // Marks (row, clause) pairs whose count is zero in the tile's bit mask.
-template <typename T>
-__device__ __forceinline__ void mark_fired(const T (&viol)[TB][TC],
+__device__ __forceinline__ void mark_fired(const int (&viol)[TB][TC],
                                            const Tile& t, int B, int C,
                                            uint32_t (*fired)[FW]) {
 #pragma unroll
@@ -91,7 +91,7 @@ __device__ __forceinline__ void mark_fired(const T (&viol)[TB][TC],
 #pragma unroll
     for (int j = 0; j < TC; ++j) {
       const int cl = t.tx + NTX * j;
-      if (viol[i][j] == T(0) && t.b0 + bl < B && t.c0 + cl < C) {
+      if (viol[i][j] == 0 && t.b0 + bl < B && t.c0 + cl < C) {
         atomicOr(&fired[bl][cl / WORD], 1u << (cl % WORD));
       }
     }
@@ -129,8 +129,7 @@ __device__ __forceinline__ void combine(uint32_t (*fired)[FW],
 // pairs inside [B, C] (an empty clause has no violation, so it fires).
 // A warp's stores for one j cover sixteen neighbouring clause bytes of
 // two rows.
-template <typename T>
-__device__ __forceinline__ void store_fired(const T (&viol)[TB][TC],
+__device__ __forceinline__ void store_fired(const int (&viol)[TB][TC],
                                             const Tile& t, int B, int C,
                                             uint8_t* __restrict__ out) {
 #pragma unroll
@@ -140,35 +139,24 @@ __device__ __forceinline__ void store_fired(const T (&viol)[TB][TC],
     for (int j = 0; j < TC; ++j) {
       const int c = t.c0 + t.tx + NTX * j;
       if (b < B && c < C) {
-        out[static_cast<size_t>(b) * C + c] = viol[i][j] == T(0) ? 1 : 0;
+        out[static_cast<size_t>(b) * C + c] = viol[i][j] == 0 ? 1 : 0;
       }
     }
   }
 }
 
-// ------------------------------------------------------------- cp.async
-
-// A 4-byte copy from device to shared memory; `valid` false zero-fills
-// the word (a source size of 0; gmem must still be a device address).
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(src_bytes) : "memory");
+// Four 0/1 bytes of v (bit 0 of each) -> four neighbouring bits: the
+// multiply places byte i's bit 0 at bit 28 + i, and no partial product
+// carries into bits 28-31.
+__device__ __forceinline__ uint32_t fold4(uint32_t v) {
+  return ((v & 0x01010101u) * 0x10204080u) >> 28;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// 32 0/1 bytes (a: bytes 0-15, b: bytes 16-31) -> one word, bit j = byte j.
+__device__ __forceinline__ uint32_t fold32(const uint4& a, const uint4& b) {
+  return fold4(a.x) | fold4(a.y) << 4 | fold4(a.z) << 8 | fold4(a.w) << 12 |
+         fold4(b.x) << 16 | fold4(b.y) << 20 | fold4(b.z) << 24 |
+         fold4(b.w) << 28;
 }
 
 inline dim3 grid_for(int B, int C) {

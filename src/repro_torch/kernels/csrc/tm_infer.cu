@@ -5,152 +5,158 @@
 //   src/repro/kernels/clause_eval.py :: tm_infer_kernel
 //   (launched by tm_infer_call).
 //
-// What it computes (see tm_common.cuh): for batch row b and clause c,
+// What it computes: for batch row b and clause c,
 //   viol[b, c] = sum over literals l of (1 - lits[b, l]) * include[c, l]
 //   out[b, m] += (viol[b, c] == 0) * comb[c, m]
 // with lits [B, L] and include [C, L] as uint8 0/1 in the layouts the
-// state holds (nothing is transposed per dispatch) and comb [C, M] int32.
-// The violation product is the TPU kernel's own MXU product, here a
-// shared-memory tiled product on the CUDA cores in float32 FFMA: each
-// term is 0 or 1 and a count is at most L < 2^24, so every partial sum
-// is an exact integer.  It never runs in TF32.
+// state holds (nothing is transposed per dispatch) and comb [C, M] int32
+// (rows of empty clauses zeroed by the caller).  The TPU kernel runs the
+// violation count as a float32 MXU product; here it is an integer count,
+// exact for the same reason the product is (each term is 0 or 1).
 //
 // Bound, at the coalesced serving width (C = 1000, L = 1568, M = 10) and
-// B = 128: the operands are 1.8 MB, 0.54 us at 3.35 TB/s.  The violation
+// B = 128: the operands are 1.8 MB, 0.54 us at 3.35 TB/s; the violation
 // product, 2*B*C*L = 0.40 G operations on 0/1 bytes, takes 0.20 us at the
-// H100's dense int8 tensor-core rate (1979 TOP/s), and the combine's
-// 2*B*C*M = 2.6 M int32 operations 0.04 us at 67 T/s.  So it is bound by
-// bytes, at 0.54 us.  (Design note: this kernel runs the product as fp32
-// FFMA on the CUDA cores, where the same 0.40 G operations alone take 6 us
-// at 67 TFLOP/s; an int8 MMA version is later work.)
+// H100's dense int8 tensor-core rate (1979 TOP/s).  Bound by bytes.
 //
-// Design, simple and right first:
-// * One block of 128 threads per (32 batch rows, 64 clauses) tile; each
-//   thread accumulates a 4 x 4 register tile, 16 FFMA per 8 shared-memory
-//   loads.
-// * K runs inside the block in steps of KL = 64 literals.  Each thread
-//   loads its share of a step's bytes as 4-byte words (byte by byte when
-//   L is not a multiple of 4) into registers, and the loads of step k + 1
-//   are issued before the FFMAs of step k, so their latency hides behind
-//   the arithmetic: with one 4-warp block per SM at these grid sizes,
-//   load latency, not the FFMA rate, is what costs.
-// * Each step converts its bytes to floats while storing them to shared
-//   memory as [literal][row] and [literal][clause], so the inner loop
-//   reads a broadcast row value and sixteen neighbouring clause columns.
-//   Bytes past L and clauses past C read as 0, so they add nothing.
-// * No sequential grid: each tile adds its sums to the output with
-//   atomicAdd (exact for integers).
-// * Later work: more warps per SM (smaller thread tiles or split K), a
-//   deeper pipeline; the packed kernels do the same work in 32x fewer
-//   bytes.
+// Design: the word kernels' block (tm_b1.cuh) with a byte source.
+// * Staging folds bytes into bit words: a word's 32 bytes are two 16-byte
+//   loads, and bit j of the word is bit 0 of byte j (fold4: a multiply
+//   moves four 0/1 bytes into four neighbouring bits).  A fold cannot go
+//   through cp.async, so each thread issues the loads of FOLD = 2 words
+//   (four 16-byte loads) before it folds them and stores the words to
+//   shared memory: 2048 words in flight a 1024-thread block, two rounds
+//   for a tile of 48 or 64 rows x 49 words, three for 96.  The block
+//   meets at the one barrier that the combine slice's cp.async copies
+//   also land at.  A word at a ragged edge (L not a multiple of 32), or
+//   every word when L is not a multiple of 16 or an operand is not
+//   16-byte aligned (a bool include plane is read as its bytes, without
+//   a copy), is read byte by byte.  Bytes past L and rows past B or C
+//   read as 0.
+// * The b1 product on the staged words (literals inverted at use; pad
+//   bits are 0 on both sides, so the pad never counts), the K-split
+//   meeting as flags, and tmb::combine_rows, as tm_infer_planes.cu.
+// * choose counts bytes, not words: a row is 1568 bytes, 32x its word
+//   row, and every row tile re-reads its clauses' bytes.  Each layout
+//   (wm x wn warp tiles of 16 x 32, 32 warps a block so that every
+//   thread's loads are few and all in flight) is scored by the bytes an
+//   SM reads, ceil(blocks / SMs) x (bt + ct) x L, then the bytes of the
+//   whole grid, then the fewest blocks.  At L = 1568, M = 10 on 132 SMs
+//   (blocks, tile rows x clauses):
+//     C = 1000: B = 8   32, 16 x 32;  B = 64  128, 16 x 32;
+//               B = 128 128, 32 x 32
+//     C = 2000: B = 8   63, 16 x 32;  B = 64  126, 32 x 32;
+//               B = 128 126, 64 x 32
+//   (two to four row tiles at B = 128, clause tiles of 32 to fill the
+//   card).
 
+#include "tm_b1.cuh"
 #include "tm_common.cuh"
 
 namespace {
 
-constexpr int KL = 64;                                // literals per K step
-constexpr int KQ = KL / 4;                            // 4-byte words per row
-constexpr int LIT_Q = tmk::BT * KQ / tmk::THREADS;    // literal words/thread
-constexpr int INC_Q = tmk::CT * KQ / tmk::THREADS;    // include words/thread
+using tmb::Geo;
+using tmb::WORD;
 
-// Bytes [k, k + 4) of row `row` of a [rows, L] byte matrix as one
-// little-endian word; bytes past L and rows past `rows` read as 0.  WORDS:
-// L is a multiple of 4 and the matrix 4-byte aligned, so one load.
-template <bool WORDS>
-__device__ __forceinline__ uint32_t load_quad(const uint8_t* __restrict__ m,
-                                              int row, int rows, int k,
-                                              int L) {
-  if (row >= rows || k >= L) return 0u;
-  const uint8_t* p = m + static_cast<size_t>(row) * L + k;
-  if (WORDS) return *reinterpret_cast<const uint32_t*>(p);
-  uint32_t v = 0u;
-  for (int j = 0; j < 4 && k + j < L; ++j) {
-    v |= static_cast<uint32_t>(p[j]) << (8 * j);
-  }
-  return v;
-}
+// Words a thread loads before it folds: 2 keeps a 1024-thread block
+// within its 64 registers a thread (4 spilled there, and 512-thread
+// blocks loading 4 measured slower).
+constexpr int FOLD = 2;
 
-// Issues this thread's loads of the K step at k0 (word q of the tile is
-// row q / KQ, bytes 4 * (q % KQ) .. + 3).
-template <bool WORDS>
-__device__ __forceinline__ void load_step(const uint8_t* __restrict__ lits,
-                                          const uint8_t* __restrict__ inc,
-                                          const tmk::Tile& t, int k0, int B,
-                                          int C, int L,
-                                          uint32_t (&lq)[LIT_Q],
-                                          uint32_t (&iq)[INC_Q]) {
+// 0/1 bytes, folded into words while staged.  VEC: L is a multiple of 16
+// and both byte matrices are 16-byte aligned, so a whole word is two
+// 16-byte loads.
+template <bool VEC>
+struct ByteSource {
+  const uint8_t* __restrict__ lits;     // [B, L] 0/1 literals
+  const uint8_t* __restrict__ inc;      // [C, L] 0/1 include actions
+  int B, C, L;
+
+  __device__ void stage(uint32_t* dst, int lwp, int b0, int c0, int bt,
+                        int ct, int k0, int kn, int kp) const {
+    const int n = (bt + ct) * kp;
+    const int nt = blockDim.x;
+    for (int q0 = threadIdx.x; q0 < n; q0 += FOLD * nt) {
+      uint4 lo[FOLD], hi[FOLD];
+      uint32_t w[FOLD];
+      bool vec[FOLD];
 #pragma unroll
-  for (int s = 0; s < LIT_Q; ++s) {
-    const int q = threadIdx.x + tmk::THREADS * s;
-    lq[s] = load_quad<WORDS>(lits, t.b0 + q / KQ, B, k0 + 4 * (q % KQ), L);
-  }
+      for (int f = 0; f < FOLD; ++f) {     // word q: tile row q / kp
+        const int q = q0 + f * nt, r = q / kp, k = q % kp;
+        const uint8_t* p = nullptr;
+        int nb = 0;                        // bytes of the word inside L
+        if (q < n && k < kn) {
+          const bool lit = r < bt;
+          const int row = lit ? b0 + r : c0 + r - bt;
+          if (row < (lit ? B : C)) {
+            const int at = WORD * (k0 + k);
+            p = (lit ? lits : inc) + static_cast<size_t>(row) * L + at;
+            nb = min(WORD, L - at);
+          }
+        }
+        vec[f] = VEC && nb == WORD;
+        w[f] = 0u;
+        if (vec[f]) {
+          lo[f] = reinterpret_cast<const uint4*>(p)[0];
+          hi[f] = reinterpret_cast<const uint4*>(p)[1];
+        } else {
+          for (int j = 0; j < nb; ++j) {
+            w[f] |= static_cast<uint32_t>(p[j] & 1u) << j;
+          }
+        }
+      }
 #pragma unroll
-  for (int s = 0; s < INC_Q; ++s) {
-    const int q = threadIdx.x + tmk::THREADS * s;
-    iq[s] = load_quad<WORDS>(inc, t.c0 + q / KQ, C, k0 + 4 * (q % KQ), L);
+      for (int f = 0; f < FOLD; ++f) {
+        const int q = q0 + f * nt;
+        if (q >= n) break;
+        if (vec[f]) w[f] = tmk::fold32(lo[f], hi[f]);
+        dst[(q / kp) * lwp + q % kp] = w[f];
+      }
+    }
   }
-}
+};
 
-template <bool WORDS>
-__global__ void __launch_bounds__(tmk::THREADS) tm_infer_kernel(
+template <bool VEC>
+__global__ void __launch_bounds__(tmb::WARPS_MAX * WORD) tm_infer_kernel(
     const uint8_t* __restrict__ lits,   // [B, L] 0/1 literals
     const uint8_t* __restrict__ inc,    // [C, L] 0/1 include actions
     const int32_t* __restrict__ comb,   // [C, M] combine matrix
     int32_t* __restrict__ out,          // [B, M], zeroed by the caller
-    int B, int L, int C, int M) {
-  __shared__ float lit0_s[KL][tmk::BT + 1];   // 1 - lit, [literal][row]
-  __shared__ float inc_s[KL][tmk::CT + 1];    // [literal][clause]
-  __shared__ uint32_t fired_s[tmk::BT][tmk::FW];
-  const tmk::Tile t;
-  tmk::clear_fired(fired_s);
+    int B, int L, int C, int M, Geo geo) {
+  tmb::infer_block(ByteSource<VEC>{lits, inc, B, C, L}, comb, out, B,
+                   tmb::cdiv_d(L, WORD), C, M, geo);
+}
 
-  uint32_t lq[LIT_Q], iq[INC_Q];
-  load_step<WORDS>(lits, inc, t, 0, B, C, L, lq, iq);
-  float viol[tmk::TB][tmk::TC] = {};
-  for (int k0 = 0; k0 < L; k0 += KL) {
-    __syncthreads();                 // the last step has been consumed
-#pragma unroll
-    for (int s = 0; s < LIT_Q; ++s) {
-      const int q = threadIdx.x + tmk::THREADS * s;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lit0_s[4 * (q % KQ) + j][q / KQ] =
-            1.0f - static_cast<float>((lq[s] >> (8 * j)) & 0xffu);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < INC_Q; ++s) {
-      const int q = threadIdx.x + tmk::THREADS * s;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        inc_s[4 * (q % KQ) + j][q / KQ] =
-            static_cast<float>((iq[s] >> (8 * j)) & 0xffu);
-      }
-    }
-    __syncthreads();
-    if (k0 + KL < L) {               // in flight during the FFMAs below
-      load_step<WORDS>(lits, inc, t, k0 + KL, B, C, L, lq, iq);
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < KL; ++kk) {
-      float a[tmk::TB], n[tmk::TC];
-#pragma unroll
-      for (int i = 0; i < tmk::TB; ++i) a[i] = lit0_s[kk][t.ty + tmk::NTY * i];
-#pragma unroll
-      for (int j = 0; j < tmk::TC; ++j) n[j] = inc_s[kk][t.tx + tmk::NTX * j];
-#pragma unroll
-      for (int i = 0; i < tmk::TB; ++i) {
-#pragma unroll
-        for (int j = 0; j < tmk::TC; ++j) {
-          viol[i][j] = __fmaf_rn(a[i], n[j], viol[i][j]);
-        }
+// Of the wm x wn layouts (ks = the K-splits that make WARPS_MAX warps),
+// the one whose SMs read the fewest bytes, then the fewest bytes in all,
+// then the fewest blocks.
+Geo choose(int B, int C, int L, int M) {
+  const long sms = tmb::sm_count();
+  Geo best{};
+  long best_sm = -1, best_all = 0, best_blocks = 0;
+  for (int wm = 1; wm <= std::min(4, std::max(1, tmb::cdiv(B, 16)));
+       wm *= 2) {
+    for (int wn = 1;
+         wn <= std::min(tmb::WN_MAX, std::max(1, tmb::cdiv(C, 32)));
+         wn *= 2) {
+      const long blocks =
+          std::max(1L, static_cast<long>(tmb::cdiv(B, 16 * wm)) *
+                           tmb::cdiv(C, 32 * wn));
+      const long bytes = static_cast<long>(16 * wm + 32 * wn) * L;
+      const long per_sm = tmb::cdiv(blocks, sms) * bytes;
+      const long all = blocks * bytes;
+      if (best_sm < 0 || per_sm < best_sm ||
+          (per_sm == best_sm &&
+           (all < best_all || (all == best_all && blocks < best_blocks)))) {
+        best = Geo{wm, wn, tmb::WARPS_MAX / (wm * wn)};
+        best.cm = tmb::comb_words(wn, M);
+        best_sm = per_sm;
+        best_all = all;
+        best_blocks = blocks;
       }
     }
   }
-
-  tmk::mark_fired(viol, t, B, C, fired_s);
-  __syncthreads();
-  tmk::combine(fired_s, comb, out, t, B, M);
+  return tmb::finish(best, B, C, tmb::cdiv(L, WORD));
 }
 
 }  // namespace
@@ -164,16 +170,25 @@ extern "C" int tm_infer_launch(const void* lits, const void* inc,
   const auto* i = static_cast<const uint8_t*>(inc);
   const auto* cb = static_cast<const int32_t*>(comb);
   auto* o = static_cast<int32_t*>(out);
-  const bool words = L % 4 == 0 && reinterpret_cast<uintptr_t>(l) % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(i) % 4 == 0;
-  const dim3 grid = tmk::grid_for(B, C);
+  const bool vec = L % 16 == 0 && reinterpret_cast<uintptr_t>(l) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(i) % 16 == 0;
+  const Geo g = choose(B, C, L, M);
+  const int threads = g.wm * g.wn * g.ks * WORD;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (words) {
-    tm_infer_kernel<true><<<grid, tmk::THREADS, 0, st>>>(l, i, cb, o, B, L,
-                                                         C, M);
+  if (vec) {
+    tm_infer_kernel<true><<<g.grid, threads, tmb::smem_bytes(g), st>>>(
+        l, i, cb, o, B, L, C, M, g);
   } else {
-    tm_infer_kernel<false><<<grid, tmk::THREADS, 0, st>>>(l, i, cb, o, B, L,
-                                                          C, M);
+    tm_infer_kernel<false><<<g.grid, threads, tmb::smem_bytes(g), st>>>(
+        l, i, cb, o, B, L, C, M, g);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch geometry at (B, C, L, M), the fields of tmb::geometry_info
+// (words staged a chunk: L / 32 rounded up to 8 words).  Returns the CUDA
+// error.
+extern "C" int tm_infer_geometry(int B, int C, int L, int M, int* info) {
+  return tmb::geometry_info(choose(B, C, L, M), tm_infer_kernel<true>,
+                            info);
 }

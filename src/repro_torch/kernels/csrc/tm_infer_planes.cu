@@ -1,129 +1,104 @@
-// tm_infer_planes: digital / coalesced TM class sums with the resident
-// include bitplane streamed through a two-stage cp.async ring, written by
-// hand for Hopper (sm_90a).
+// tm_infer_planes: digital / coalesced TM class sums from packed literal
+// words and the resident include bitplane, written by hand for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/clause_eval.py :: tm_infer_planes_kernel
 //   (launched by tm_infer_planes_call).
 //
-// What it computes: the same integer function as tm_infer_packed.cu (see
-// tm_common.cuh),
+// What it computes: for batch row b and clause c,
 //   viol[b, c] = sum over words w of popc(~litw[b, w] & incw[c, w])
 //   out[b, m] += (viol[b, c] == 0) * comb[c, m]
 // reading the state's plane_index in its own [C, Lw] int32 layout (the
 // TPU path transposes it to [Lw, C] on every dispatch; this one does
-// not).
+// not) and comb [C, M] int32, the polarity matrix or the coalesced
+// weights with the rows of empty clauses zeroed by the caller.
 //
 // Bound, at the coalesced serving width (C = 1000, Lw = 49, M = 10) and
-// B = 128: 6.3 M word steps of LOP3 + POPC + IADD, about 1.5 us at the
-// POPC rate (16 per clock per SM on compute capability 9.0, 132 SMs,
-// 1.98 GHz); 0.27 MB of operands, 0.08 us at 3.35 TB/s.  Bound by
-// operations; at these sizes a launch costs more than either.
+// B = 128: B*C*Lw = 6.3 M word steps.  Only viol == 0 is kept, so a word
+// step needs one LOP3 (an OR of ~lit & inc), 0.37 us at the CUDA cores'
+// 32-bit logic rate (64 per clock per SM, 132 SMs, 1.98 GHz); the
+// operands are 0.24 MB, 0.07 us at 3.35 TB/s.  This kernel counts on the
+// b1 tensor cores, whose Hopper rate NVIDIA does not publish.  At these
+// sizes the time is a chain of launch, one load round trip, a barrier,
+// the combine and its atomics.
 //
-// Design, simple and right first:
-// * One block of 128 threads per (32 batch rows, 64 clauses) tile, a
-//   4 x 4 register tile of counts per thread (tm_common.cuh).
-// * The block's literal words [32, Lw] are loaded once into dynamic
-//   shared memory and stay resident, as the TPU kernel keeps its
-//   [bt, Lw] literal block in VMEM.
-// * The clause tile's include words stream in chunks of KW words through
-//   a two-stage ring in shared memory filled by cp.async (4-byte copies:
-//   a [C, Lw] row is not 16-byte aligned for odd Lw; out-of-range words
-//   are zero-filled by a source size of 0).  Chunk k + 1's copy is in
-//   flight while chunk k is counted: the counterpart of the TPU kernel's
-//   2-slot make_async_copy.  The chunk is stored [clause][KW + 1] so that
-//   a warp's sixteen clause columns sit in sixteen banks.
-// * No sequential grid: each tile adds its sums to the output with
-//   atomicAdd (exact for integers).
-// * Integer arithmetic only.
-// * Later work: a tile shaped to small B, TMA bulk copies of the chunk.
+// Design: clause_eval_packed's block on the core of tm_b1.cuh, with the
+// class-sum epilogue instead of the clause-bit store.
+// * One load round trip: the block's literal and include words and its
+//   [ct, M] slice of comb, all with 4-byte cp.async (a 196-byte row is
+//   not 16-byte aligned), then one barrier.
+// * The b1 product (mma.sync m16n8k256 .and.popc), the K-split meeting
+//   as flags, then tmb::combine_rows: a ballot a row and 32 clauses, one
+//   lane a class, one int32 atomicAdd a non-zero (row, class) sum.
+// * tmb::choose, clause_eval_packed's layout rule (of the layouts whose
+//   grid holds 16 warps an SM, the one that stages the fewest words; if
+//   none does, the most warps), the blocks also staging their combine
+//   slices.  A rule of its own (blocks of 16 warps at most, the fewest
+//   staged words within 7/8 of the most warps) won two of the six timing
+//   rows of benchmarks/analog_kernel_ab.py and lost three, each by under
+//   4 % (PERF.md), so the kernels share one.  At Lw = 49, M = 10 on 132
+//   SMs (grid, tile rows x clauses, K-split, launched warps an SM):
+//     C = 1000: B = 8   1 x 32,  16 x 32, 7  (1.7)
+//               B = 64  4 x 32,  16 x 32, 7  (6.8)
+//               B = 128 8 x 32,  16 x 32, 7  (13.6)
+//     C = 2000: B = 8   1 x 32,  16 x 64, 7  (3.4)
+//               B = 64  4 x 32,  16 x 64, 7  (13.6)
+//               B = 128 2 x 63,  64 x 32, 5  (19.1)
+//   The combine adds at most grid.y x B x M atomics (41 k at C = 1000,
+//   B = 128).
+// * Integer arithmetic only: any split or order gives the same sums.
 
-#include "tm_common.cuh"
+#include "tm_b1.cuh"
 
 namespace {
 
-constexpr int KW = 16;          // include words per ring stage
-constexpr int INC_STRIDE = KW + 1;
+using tmb::Geo;
+using tmb::WORD;
 
-// Issues the copies of the include words [k0, k0 + KW) of the block's
-// clause tile into one ring slot, as one group.  Consecutive threads copy
-// consecutive words of a clause row.
-__device__ __forceinline__ void stage(const int32_t* __restrict__ incw,
-                                      uint32_t (*slot)[INC_STRIDE],
-                                      const tmk::Tile& t, int k0, int Lw,
-                                      int C) {
-  for (int i = threadIdx.x; i < tmk::CT * KW; i += tmk::THREADS) {
-    const int cl = i / KW, kk = i % KW;
-    const int c = t.c0 + cl, k = k0 + kk;
-    const bool valid = c < C && k < Lw;
-    tmk::cp_async4(&slot[cl][kk],
-                   valid ? incw + static_cast<size_t>(c) * Lw + k : incw,
-                   valid);
+// Packed words, staged with cp.async.
+struct WordSource {
+  const int32_t* __restrict__ litw;     // [B, Lw] literal words
+  const int32_t* __restrict__ incw;     // [C, Lw] include words
+  int B, C, Lw;
+
+  __device__ void stage(uint32_t* dst, int lwp, int b0, int c0, int bt,
+                        int ct, int k0, int kn, int kp) const {
+    tmb::stage(dst, lwp, litw, B, Lw, b0, bt, k0, kn, kp);
+    tmb::stage(dst + bt * lwp, lwp, incw, C, Lw, c0, ct, k0, kn, kp);
   }
-  tmk::cp_async_commit();
-}
+};
 
-__global__ void __launch_bounds__(tmk::THREADS) tm_infer_planes_kernel(
+__global__ void __launch_bounds__(tmb::WARPS_MAX * WORD) planes_kernel(
     const int32_t* __restrict__ litw,   // [B, Lw] literal words
     const int32_t* __restrict__ incw,   // [C, Lw] include words (plane_index)
     const int32_t* __restrict__ comb,   // [C, M] combine matrix
     int32_t* __restrict__ out,          // [B, M], zeroed by the caller
-    int B, int Lw, int C, int M) {
-  extern __shared__ uint32_t lit_s[];   // [BT, Lw], resident
-  __shared__ uint32_t inc_s[2][tmk::CT][INC_STRIDE];
-  __shared__ uint32_t fired_s[tmk::BT][tmk::FW];
-  const tmk::Tile t;
-  const int nk = (Lw + KW - 1) / KW;
-
-  stage(incw, inc_s[0], t, 0, Lw, C);
-  for (int i = threadIdx.x; i < tmk::BT * Lw; i += tmk::THREADS) {
-    const int b = t.b0 + i / Lw;
-    lit_s[i] = b < B ? static_cast<uint32_t>(
-                           litw[static_cast<size_t>(t.b0) * Lw + i])
-                     : 0u;
-  }
-  tmk::clear_fired(fired_s);
-
-  int viol[tmk::TB][tmk::TC] = {};
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {               // its slot was freed by the last barrier
-      stage(incw, inc_s[(kc + 1) & 1], t, (kc + 1) * KW, Lw, C);
-    } else {
-      tmk::cp_async_commit();        // empty group: keeps "wait 1" exact
-    }
-    tmk::cp_async_wait_one();        // this thread's copies of chunk kc
-    __syncthreads();                 // ... and every other thread's
-    const int k0 = kc * KW;
-    tmk::count_words(lit_s + k0, Lw, &inc_s[kc & 1][0][0], INC_STRIDE,
-                    min(KW, Lw - k0), t, viol);
-    __syncthreads();                 // slot kc & 1 may be refilled
-  }
-
-  tmk::mark_fired(viol, t, B, C, fired_s);
-  __syncthreads();
-  tmk::combine(fired_s, comb, out, t, B, M);
+    int B, int Lw, int C, int M, Geo geo) {
+  tmb::infer_block(WordSource{litw, incw, B, C, Lw}, comb, out, B, Lw, C, M,
+                   geo);
 }
 
 }  // namespace
 
-// Launch on `stream`.  The literal tile takes 32 * Lw * 4 bytes of dynamic
-// shared memory; above 48 KB the kernel is opted in to more (up to the
-// card's 227 KB per block, less the ring).  Returns the CUDA error of the
-// attribute call or of the launch (0 on success).
+// Launch on `stream`.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int tm_infer_planes_launch(const void* litw, const void* incw,
                                       const void* comb, void* out, int B,
                                       int Lw, int C, int M, void* stream) {
-  const size_t smem = static_cast<size_t>(tmk::BT) * Lw * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tm_infer_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  tm_infer_planes_kernel<<<tmk::grid_for(B, C), tmk::THREADS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const Geo g = tmb::choose(B, C, Lw, M);
+  planes_kernel<<<g.grid, g.wm * g.wn * g.ks * WORD, tmb::smem_bytes(g),
+                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(litw), static_cast<const int32_t*>(incw),
       static_cast<const int32_t*>(comb), static_cast<int32_t*>(out), B, Lw,
-      C, M);
+      C, M, g);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch geometry at (B, C, Lw, M), the fields of
+// tmb::geometry_info.  Returns the CUDA error.
+extern "C" int tm_infer_planes_geometry(int B, int C, int Lw, int M,
+                                        int* info) {
+  return tmb::geometry_info(tmb::choose(B, C, Lw, M), planes_kernel,
+                            info);
 }

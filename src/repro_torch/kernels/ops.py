@@ -18,8 +18,8 @@
 * ``tm_class_sums_packed(litw, incw, cfg)``     -> [B, M] AND + popcount
 * ``coalesced_class_sums(lits, include, w)``    -> [B, M] weighted tail
 * ``coalesced_class_sums_packed(litw, incw, w)``  -> [B, M]
-* ``coalesced_class_sums_planes(litw, incw, w)``  -> [B, M], include plane
-  streamed by the kernel's own two-stage ring
+* ``coalesced_class_sums_planes(litw, incw, w)``  -> [B, M], the resident
+  include plane staged whole and counted on the b1 tensor cores
 
 The two ``clause_eval`` wrappers return clause bits with training
 semantics (an empty clause fires): they are what the training steps
@@ -386,8 +386,8 @@ def coalesced_class_sums_packed(litw: torch.Tensor, include_w: torch.Tensor,
 def coalesced_class_sums_planes(litw: torch.Tensor, include_w: torch.Tensor,
                                 weights: torch.Tensor, *,
                                 device: DeviceLike = None) -> torch.Tensor:
-    """Fused coalesced inference with the resident include plane streamed
-    through the kernel's own two-stage ring -> ``[B, M]`` int32 (the
+    """Fused coalesced inference on the resident include plane, staged
+    whole and counted on the b1 tensor cores -> ``[B, M]`` int32 (the
     ``tm_infer_planes`` kernel; the same integers as
     :func:`coalesced_class_sums_packed`)."""
     litw, incw = _packed_operands(litw, include_w, device)

@@ -45,3 +45,4 @@ def test_every_kernel_source_is_in_csrc():
     assert {"imbue_infer_planes", "tm_infer_planes", "tm_infer_packed",
             "tm_infer"} <= names
     assert (_build.CSRC / "tm_common.cuh").exists()
+    assert (_build.CSRC / "tm_b1.cuh").exists()

@@ -102,6 +102,52 @@ def test_coalesced_ops_match_reference(which, shape):
             got.numpy()[1], (w * inc.any(-1)[:, None]).sum(0))
 
 
+def _coalesced_pair(which, lits, inc, w):
+    """``(port, reference)`` coalesced class sums of one op."""
+    if which == "dense":
+        return (ops.coalesced_class_sums(
+                    torch.from_numpy(lits), torch.from_numpy(inc),
+                    torch.from_numpy(w), device="cpu"),
+                ref_ops.coalesced_class_sums(
+                    jnp.asarray(lits), jnp.asarray(inc), jnp.asarray(w)))
+    fn = {"planes": (ops.coalesced_class_sums_planes,
+                     ref_ops.coalesced_class_sums_planes),
+          "packed": (ops.coalesced_class_sums_packed,
+                     ref_ops.coalesced_class_sums_packed)}[which]
+    return (fn[0](_t_words(lits), _t_words(inc), torch.from_numpy(w),
+                  device="cpu"),
+            fn[1](jnp.asarray(_words(lits)), jnp.asarray(_words(inc)),
+                  jnp.asarray(w)))
+
+
+@pytest.mark.parametrize("case", ("one_class", "all_empty", "all_fire"))
+@pytest.mark.parametrize("which", COALESCED_OPS)
+def test_coalesced_ops_match_reference_at_edges(which, case):
+    """One class (M = 1); every clause empty (none votes: the combine
+    rows of empty clauses are zeroed); every clause including x_0 alone
+    with x_0 = 1 on every row (every clause votes for every row)."""
+    b, c, l = 9, 37, 100
+    lits, inc = _lits_include(b, c, l, seed=b + c)
+    m = 1 if case == "one_class" else 5
+    w = _weights(c, m, seed=c + m)
+    if case == "all_empty":
+        inc[:] = False
+    elif case == "all_fire":
+        lits[:, 0] = 1
+        inc[:] = False
+        inc[:, 0] = True
+    got, want = _coalesced_pair(which, lits, inc, w)
+    assert got.dtype == torch.int32 and got.shape == (b, m)
+    np.testing.assert_array_equal(got.numpy(), _ref_sums(want))
+    if case == "all_empty":
+        assert not got.numpy().any()
+    elif case == "all_fire":
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.broadcast_to(w.sum(0), (b, m)))
+    else:
+        assert np.count_nonzero(got.numpy()) > 0
+
+
 @pytest.mark.parametrize("mjf", DIGITAL)
 @pytest.mark.parametrize("packed", (False, True))
 def test_digital_ops_match_reference(mjf, packed):

@@ -108,36 +108,96 @@ def test_imbue_infer_planes_matches_plain_version(cuda, f, b, r, with_dev):
                  _planes_args(cfg, inc, x, r, with_dev, b, cuda))
 
 
-@pytest.mark.parametrize("name", ("tm_infer_planes", "tm_infer_packed",
-                                  "tm_infer"))
-@pytest.mark.parametrize("b,c,f,m", [
-    (13, 37, 50, 5), (9, 70, 51, 3), (1, 64, 16, 2), (70, 130, 300, 10),
-    (33, 1000, 784, 10)])
-def test_tm_infer_kernels_match_plain_versions(cuda, name, b, c, f, m):
-    rng = np.random.default_rng(b + c + f)
-    x = torch.from_numpy((rng.random((b, f)) < 0.5).astype(np.uint8))
-    lits = tm.literals(x).to(cuda)
+TM_KERNELS = ("tm_infer_planes", "tm_infer_packed", "tm_infer")
+
+
+def _tm_case(name, b, c, f, m, case, device):
+    """Operands of TM kernel ``name``: ``b`` rows of ``f`` features, ``c``
+    clauses and an int32 ``[c, m]`` combine matrix.  "mixed": 1-6
+    literals a clause that are 1 on some row, clause c // 2 empty with its
+    combine row zeroed (the callers' contract); "empty": every clause
+    empty (each fires, so its combine row is added: the rows are left
+    non-zero here to show it); "fire": every clause includes x_0 alone
+    and x_0 = 1 on every row, so every clause fires for every row."""
+    rng = np.random.default_rng(b + c + f + m)
+    x = (rng.random((b, f)) < 0.5).astype(np.uint8)
+    if case == "fire":
+        x[:, 0] = 1
+    lits = tm.literals(torch.from_numpy(x)).to(device)
     inc = np.zeros((c, 2 * f), bool)
-    for ci in range(c):            # 1-6 literals that are 1 on some row
-        ones = np.flatnonzero(lits[rng.integers(0, b)].cpu().numpy())
-        inc[ci, rng.choice(ones, size=int(rng.integers(1, 7)))] = True
-    inc[c // 2] = False            # an empty clause
-    inc = torch.from_numpy(inc).to(cuda)
+    if case == "fire":
+        inc[:, 0] = True
+    elif case == "mixed":
+        for ci in range(c):        # 1-6 literals that are 1 on some row
+            ones = np.flatnonzero(lits[rng.integers(0, b)].cpu().numpy())
+            inc[ci, rng.choice(ones, size=int(rng.integers(1, 7)))] = True
+        inc[c // 2] = False        # an empty clause
+    inc = torch.from_numpy(inc).to(device)
     comb = torch.from_numpy(rng.integers(-127, 128, (c, m)).astype(
-        np.int32)).to(cuda)
-    comb[c // 2] = 0
+        np.int32)).to(device)
+    if case == "mixed":
+        comb[c // 2] = 0
     if name == "tm_infer":
-        args = (lits.contiguous(), inc.contiguous(), comb)
-    else:
-        args = (ops.pack_literals(lits), ops.pack_literals(inc), comb)
+        return lits.contiguous(), inc.contiguous(), comb
+    return ops.pack_literals(lits), ops.pack_literals(inc), comb
+
+
+def _tm_call(name, args):
+    """One call of TM kernel ``name``: its output, after checking that it
+    launched once and equals the plain version."""
     wrapper = getattr(clause_eval, name)
     before = wrapper.launches
     got = wrapper(*args)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     want = getattr(clause_eval, f"{name}_ref")(*args)
-    assert torch.equal(got, want)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("name", TM_KERNELS)
+@pytest.mark.parametrize("b,c,f,m,case", [
+    (13, 37, 50, 5, "mixed"), (9, 70, 51, 3, "mixed"), (1, 64, 16, 2, "mixed"),
+    (70, 130, 300, 10, "mixed"), (33, 1000, 784, 10, "mixed"),
+    # Rows that fill the b1 kernels' geometry at the coalesced and the
+    # digital width (tiles of 32 and 64 rows, one row past them, 256).
+    (128, 1000, 784, 10, "mixed"), (129, 2000, 784, 10, "mixed"),
+    (256, 2000, 784, 10, "mixed"),
+    # One class; every clause empty; every clause firing.
+    (64, 1000, 784, 1, "mixed"), (70, 300, 784, 10, "empty"),
+    (129, 2000, 784, 10, "fire"), (9, 70, 51, 3, "fire"),
+    # 200 classes: a 32-clause combine slice (25.6 KB) is too large to
+    # stage, so the b1 kernels read it from device memory.
+    (40, 130, 300, 200, "mixed")])
+def test_tm_infer_kernels_match_plain_versions(cuda, name, b, c, f, m, case):
+    want = _tm_call(name, _tm_case(name, b, c, f, m, case, cuda))
     assert int((want != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("b", [1, 8, 129])
+def test_tm_infer_unaligned_views_match_plain_version(cuda, b):
+    """Byte operands that start one byte past a 16-byte boundary take
+    tm_infer's byte-by-byte loads."""
+    lits, inc, comb = _tm_case("tm_infer", b, 1000, 784, 10, "mixed", cuda)
+    views = []
+    for t in (lits, inc.view(torch.uint8)):
+        buf = torch.empty(t.numel() + 1, dtype=torch.uint8, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 1
+        views.append(view)
+    want = _tm_call("tm_infer", (*views, comb))
+    assert torch.equal(want, clause_eval.tm_infer_ref(lits, inc, comb))
+    assert int((want != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("name", ("tm_infer_planes", "tm_infer"))
+def test_tm_infer_kernels_are_deterministic(cuda, name):
+    """Two launches on the same inputs give equal sums (the K-split's
+    flags meet in shared memory; the sums are int32 atomics, exact in any
+    order)."""
+    args = _tm_case(name, 129, 2000, 784, 10, "mixed", cuda)
+    assert torch.equal(_tm_call(name, args), _tm_call(name, args))
 
 
 @pytest.mark.parametrize("name", ("imbue_infer_packed", "imbue_infer"))
@@ -319,13 +379,22 @@ def test_clause_eval_kernels_match_plain_versions(cuda, name, b, c, l):
     assert 0.0 < share < 1.0
 
 
-def _packed_lib():
-    """clause_eval_packed's library (built at first use), for its
-    geometry."""
+def _geometry(name, *shape):
+    """``name``'s launch geometry at ``shape`` (``<name>_geometry``): grid,
+    threads, shared bytes, resident blocks an SM, K-split, tile, words
+    staged a chunk, and the launched warps an SM."""
     import ctypes
     from repro_torch.kernels import _build
-    _build.build(["clause_eval_packed"])
-    return ctypes.CDLL(str(_build.library_path("clause_eval_packed")))
+    _build.build([name])
+    lib = ctypes.CDLL(str(_build.library_path(name)))
+    info = (ctypes.c_int * 9)()
+    assert getattr(lib, f"{name}_geometry")(*shape, info) == 0
+    gx, gy, threads, smem, per_sm, ksplit, bt, ct, kc = list(info)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(gx=gx, gy=gy, threads=threads, smem=smem, per_sm=per_sm,
+                ksplit=ksplit, bt=bt, ct=ct, kc=kc, n_sm=n_sm,
+                launched=min(gx * gy * threads / 32 / n_sm,
+                             per_sm * threads / 32))
 
 
 def test_clause_eval_packed_is_deterministic(cuda):
@@ -348,17 +417,34 @@ def test_clause_eval_packed_geometry_fills_the_card(cuda, b, c):
     warp an 8-word step (7 at Lw = 49), and a warp takes 16 rows x 32
     clauses, so the grid holds at most 7 warps a 16 x 32 tile, fewer than
     16 an SM at B = 1 and 8 (one row tile) and at B = 64 (four)."""
-    import ctypes
     lw = 49
-    info = (ctypes.c_int * 9)()
-    assert _packed_lib().clause_eval_packed_geometry(b, c, lw, info) == 0
-    gx, gy, threads, smem, per_sm, ksplit, bt, ct, kc = list(info)
-    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
-    warps = gx * gy * threads // 32
-    launched = min(warps / n_sm, per_sm * threads / 32)
-    assert gx * bt >= b and gy * ct >= c and smem <= 48 * 1024
-    assert kc == 56 and per_sm >= 1
-    assert launched >= 16 or ksplit == -(-lw // 8)
+    g = _geometry("clause_eval_packed", b, c, lw)
+    assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
+    assert g["smem"] <= 48 * 1024 and g["kc"] == 56 and g["per_sm"] >= 1
+    assert g["launched"] >= 16 or g["ksplit"] == -(-lw // 8)
+
+
+@pytest.mark.parametrize("b", [8, 64, 128])
+@pytest.mark.parametrize("c", [1000, 2000])
+def test_tm_infer_geometry_fills_the_card(cuda, b, c):
+    """chip_smoke.py's TM timing rows (the coalesced and the digital width,
+    L = 1568, M = 10).  tm_infer_planes, on clause_eval_packed's layouts,
+    launches at least 16 warps an SM except where its K-split is at its
+    cap (7 steps of 8 words at Lw = 49), as for clause_eval_packed.
+    tm_infer reads 32x the bytes of a word row, so it keeps its row tiles
+    few (at most 4 at B <= 128) and fills the card with clause tiles: one
+    block an SM at most (each SM reads one tile's bytes), on at least half
+    of the SMs where the 16 x 32 tiles allow it."""
+    g = _geometry("tm_infer_planes", b, c, 49, 10)
+    assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
+    assert g["smem"] <= 48 * 1024 and g["kc"] == 56 and g["per_sm"] >= 1
+    assert g["launched"] >= 16 or g["ksplit"] == 7
+    g = _geometry("tm_infer", b, c, 1568, 10)
+    assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
+    assert g["smem"] <= 48 * 1024 and g["kc"] == 56 and g["per_sm"] >= 1
+    blocks, n_sm = g["gx"] * g["gy"], g["n_sm"]
+    assert g["gx"] <= 4 and blocks <= n_sm
+    assert blocks >= min(n_sm, -(-b // 16) * -(-c // 32)) // 2
 
 
 @pytest.mark.parametrize("b", [1, 2, 3, "small", "small+1"])
