@@ -33,9 +33,11 @@ is non-zero and no result line is printed):
    memory and its ``LOP3`` bit tests, ``FSEL``, ``FADD`` and predicated
    ``FADD`` counts (all three kernels run ``csrc/imbue_core.cuh``'s inner
    loop: an instance without predicated ``FADD``s, or with a tensor-core
-   instruction, fails), and each ``clause_eval_packed`` instance's
-   registers, spills and ``BMMA`` / ``LOP3`` / ``POPC`` counts (an
-   instance without a ``BMMA``, the b1 tensor-core product, fails);
+   instruction, fails), and the registers, spills and ``BMMA`` / ``LOP3``
+   / ``POPC`` counts of each instance of the four kernels on
+   ``csrc/tm_b1.cuh`` (``clause_eval_packed``, ``tm_infer_planes``,
+   ``tm_infer_packed``, ``tm_infer``; an instance without a ``BMMA``, the
+   b1 tensor-core product, fails);
 2. kernels — every kernel against its plain PyTorch version on the card,
    tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
    {1, 4}, B in ``CHECK_BATCHES`` = {1, 8, 64, 128, 129}, with and
@@ -126,8 +128,10 @@ is non-zero and no result line is printed):
    kernels at B in {8, 64, 128} at the coalesced and the digital width,
    beside ``torch.matmul`` of the violation product alone (a partial
    bracket: no threshold, no combine) and the ``[B, M]`` zero fill that
-   the wrappers run before each, with the geometry and launched warps an
-   SM of the two on ``csrc/tm_b1.cuh``, and the clock's floor (events
+   the wrappers run before each (inside every TM row's time: the three
+   kernels add their sums with int32 atomics), with the geometry and
+   launched warps an SM of the three (all on ``csrc/tm_b1.cuh``), and
+   the clock's floor (events
    around no device work); the host time of one
    backend call per coalesced tier; the clause-bit kernels at the digital
    and the coalesced width, B in ``CLAUSE_BATCHES``, with the route each
@@ -739,11 +743,12 @@ def analog_instances():
 
 
 # The kernels on the b1 tensor-core core (csrc/tm_b1.cuh).
-B1_KERNELS = ("clause_eval_packed", "tm_infer_planes", "tm_infer")
+B1_KERNELS = ("clause_eval_packed", "tm_infer_planes", "tm_infer_packed",
+              "tm_infer")
 
 
 def b1_instances():
-    """Each entry function of the three kernels on ``csrc/tm_b1.cuh``
+    """Each entry function of the four kernels on ``csrc/tm_b1.cuh``
     (``B1_KERNELS``): registers and spills (ptxas) and its ``BMMA`` (the
     b1 tensor-core product), ``LOP3`` and ``POPC`` counts.  An instance
     without a ``BMMA`` fails."""
@@ -1596,8 +1601,8 @@ def b1_geometry(name, *shape):
     threads, shared bytes, resident blocks an SM, K-split, block tile,
     and the launched warps an SM (the grid's warps / SMs, capped by what
     is resident).  ``shape``: ``(B, C, Lw)`` for ``clause_eval_packed``,
-    ``(B, C, Lw, M)`` for ``tm_infer_planes``, ``(B, C, L, M)`` for
-    ``tm_infer``."""
+    ``(B, C, Lw, M)`` for ``tm_infer_planes`` and ``tm_infer_packed``,
+    ``(B, C, L, M)`` for ``tm_infer``."""
     import ctypes
     from repro_torch.kernels import _build
     lib = ctypes.CDLL(str(_build.library_path(name)))
@@ -1861,10 +1866,10 @@ def phase_dense_timing(device):
 def phase_tm_timing(device):
     """The three TM kernels at both widths, B in BATCHES: device time,
     plain version, bound, the ``torch.matmul`` bracket of the violation
-    product, the wrapper's ``[B, M]`` zero fill alone, and for the two on
-    ``csrc/tm_b1.cuh`` their geometry and launched warps an SM; the
-    timing clock's floor; then the host time of one backend call per
-    coalesced tier."""
+    product, the wrapper's ``[B, M]`` zero fill alone (inside every TM
+    row's time), and the geometry and launched warps an SM of each (all
+    three on ``csrc/tm_b1.cuh``); the timing clock's floor; then the host
+    time of one backend call per coalesced tier."""
     from repro_torch import api
     from repro_torch.core import tm
     from repro_torch.kernels import ops
@@ -1913,7 +1918,10 @@ def phase_tm_timing(device):
                    "B*C*Lw word steps at the 32-bit logic rate (64 per "
                    "clock per SM); tm_infer: the violation product at "
                    "1979 TOP/s (int8); all three: the combine, 2*B*C*M at "
-                   "67 T/s (32-bit)", "rows": rows})
+                   "67 T/s (32-bit)",
+          "zero_fill": "the [B, M] fill runs before each of the three "
+                       "kernels and is inside every row's ms",
+          "rows": rows})
     # Host time of one backend call per coalesced tier at B = 128 (what a
     # dispatch costs once launch and host overhead are counted).
     ccfg = coalesced_config()

@@ -10,12 +10,15 @@ fired clauses' rows of the combine matrix are summed:
   round trip and counts ``popc(~lit & inc)`` with the single-bit
   tensor-core product (``csrc/tm_b1.cuh``; ``tm_infer_planes_kernel``;
   the ``*-packed2`` backends);
-* ``tm_infer_packed(litw, incw, comb)`` — the same arithmetic on the
-  CUDA cores, each K chunk loaded synchronously (``csrc/tm_common.cuh``;
-  ``tm_infer_packed_kernel``; the ``*-packed`` backends);
+* ``tm_infer_packed(litw, incw, comb)`` — the same function from the
+  same words, on the same block body (``tm_infer_packed_kernel``; the
+  ``*-packed`` backends);
 * ``tm_infer(lits, include, comb)`` — dense 0/1 bytes, folded into bit
   words while staged, then the b1 product as ``tm_infer_planes``
   (``tm_infer_kernel``; the unpacked fused backends).
+
+All three add their blocks' sums with int32 atomics into an output the
+wrapper zero-fills first (one launch more).
 
 The clause-evaluation kernels stop before the combine and return the
 clause bits ``[B, C]`` uint8 with training semantics — a clause fires
@@ -85,8 +88,10 @@ def _check(name: str, a: torch.Tensor, inc: torch.Tensor,
 
 
 def _launch(name: str, a: torch.Tensor, inc: torch.Tensor,
-            comb: torch.Tensor) -> torch.Tensor:
-    """Launch ``name`` on CUDA operands; returns ``[B, M]`` int32."""
+            comb: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """Launch ``name`` on CUDA operands; returns the ``[B, M]`` int32 sums
+    and the launches made: 1, or 0 (zeros) when there is no batch row,
+    clause or class."""
     if a.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{a.device}")
@@ -94,15 +99,21 @@ def _launch(name: str, a: torch.Tensor, inc: torch.Tensor,
     c, m = comb.shape
     out = torch.zeros((b, m), dtype=torch.int32, device=a.device)
     if b == 0 or c == 0 or m == 0:
-        return out
+        return out, 0
+    # Rows of no words or bytes (k == 0) still launch: every clause
+    # fires.  Such operands have no storage (data_ptr 0) and the kernel
+    # reads none of them, but its zero-filling cp.async copies still take
+    # a device address: comb's stands in.
+    pa, pi = ((a.data_ptr(), inc.data_ptr()) if k
+              else (comb.data_ptr(), comb.data_ptr()))
     launch = _build.load(name, _ARGTYPES)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(a.data_ptr(), inc.data_ptr(), comb.data_ptr(),
-                     out.data_ptr(), b, k, c, m, stream)
+        err = launch(pa, pi, comb.data_ptr(), out.data_ptr(), b, k, c, m,
+                     stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-    return out
+    return out, 1
 
 
 def _launch_eval(name: str, a: torch.Tensor,
@@ -152,7 +163,7 @@ def tm_infer_packed_ref(litw: torch.Tensor, incw: torch.Tensor,
 
 
 # The planes kernel computes the same integer function as the packed one
-# (on the b1 tensor cores instead of the CUDA cores).
+# (the TPU kernels differ in how they move K; the CUDA ones share a body).
 tm_infer_planes_ref = tm_infer_packed_ref
 
 
@@ -189,20 +200,20 @@ def tm_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
     _check("tm_infer_planes", litw, incw, comb, (torch.int32,))
     if litw.device.type == "cpu":
         return tm_infer_planes_ref(litw, incw, comb)
-    out = _launch("tm_infer_planes", litw, incw, comb)
-    tm_infer_planes.launches += 1
+    out, launched = _launch("tm_infer_planes", litw, incw, comb)
+    tm_infer_planes.launches += launched
     return out
 
 
 def tm_infer_packed(litw: torch.Tensor, incw: torch.Tensor,
                     comb: torch.Tensor) -> torch.Tensor:
-    """``[B, M]`` int32 class sums from packed words, K chunks loaded
-    synchronously."""
+    """``[B, M]`` int32 class sums from packed words, counted on the b1
+    tensor cores (the kernel of the ``*-packed`` backends)."""
     _check("tm_infer_packed", litw, incw, comb, (torch.int32,))
     if litw.device.type == "cpu":
         return tm_infer_packed_ref(litw, incw, comb)
-    out = _launch("tm_infer_packed", litw, incw, comb)
-    tm_infer_packed.launches += 1
+    out, launched = _launch("tm_infer_packed", litw, incw, comb)
+    tm_infer_packed.launches += launched
     return out
 
 
@@ -215,8 +226,8 @@ def tm_infer(lits: torch.Tensor, include: torch.Tensor,
     _check("tm_infer", lits, include, comb, (torch.uint8,))
     if lits.device.type == "cpu":
         return tm_infer_ref(lits, include, comb)
-    out = _launch("tm_infer", lits, include, comb)
-    tm_infer.launches += 1
+    out, launched = _launch("tm_infer", lits, include, comb)
+    tm_infer.launches += launched
     return out
 
 

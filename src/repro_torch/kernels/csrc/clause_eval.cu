@@ -36,15 +36,15 @@
 // whole of the traffic: the bytes bound is 0.94 us at B = 1, below a
 // launch's own latency.
 //
-// B > B_SMALL, clause_eval_kernel, the tiling of the packed kernels
-// (tm_common.cuh): one block of 128 threads per 32 rows x 64 clauses, a
+// B > B_SMALL, clause_eval_kernel, the CUDA-core tiling of
+// tm_common.cuh: one block of 128 threads per 32 rows x 64 clauses, a
 // 4 x 4 register tile a thread.  K runs inside the block in steps of KW
 // words (256 literals).  Each thread reads 32 bytes of a row with two
 // 16-byte loads and folds them into one 32-bit word in registers, then
-// stores the word in shared memory; the count is then the packed
-// kernels' AND + popcount (count_words): 32 literals a POPC instead of 32
-// products.  store_fired writes the tile's bits; rows >= B and clauses
-// >= C are not written.
+// stores the word in shared memory; the count is then an AND + popcount
+// of words (count_words): 32 literals a POPC instead of 32 products.
+// store_fired writes the tile's bits; rows >= B and clauses >= C are not
+// written.
 //
 // Both: a 32-bit word's bit j is byte j (a multiply moves four 0/1 bytes
 // into four neighbouring bits, fold4), read with 16-byte loads, or byte

@@ -1,18 +1,19 @@
-// tm_b1.cuh: the single-bit tensor-core core of the word-counting TM
-// kernels: clause_eval_packed.cu (clause bits, training semantics),
-// tm_infer_planes.cu (class sums from packed words) and tm_infer.cu
-// (class sums from 0/1 bytes, folded into words while staged).
+// tm_b1.cuh: the single-bit tensor-core core of the four word-counting
+// TM kernels: clause_eval_packed.cu (clause bits, training semantics),
+// tm_infer_planes.cu and tm_infer_packed.cu (class sums from packed
+// words, both staged through WordSource) and tm_infer.cu (class sums from
+// 0/1 bytes, folded into words while staged).
 //
 // Each counts, for a block tile of bt batch rows x ct clauses,
 //   viol[b, c] = sum over words w of popc(~litw[b, w] & incw[c, w])
 // and keeps only whether it is 0.  Here: the launch geometry (Geo,
-// choose of clause_eval_packed and tm_infer_planes, finish, smem_bytes;
-// tm_infer, which stages bytes, chooses its own), the staging of word rows and of the combine
-// slice with 4-byte cp.async (stage, stage_comb), the product (mma_b1,
-// MmaTile), and the inference kernels' block body (infer_block: staging
-// from the kernel's source, product, flags, then the class sums of
-// combine_rows); clause_eval_packed.cu keeps its own byte-store
-// epilogue.
+// choose of clause_eval_packed, tm_infer_planes and tm_infer_packed,
+// finish, smem_bytes; tm_infer, which stages bytes, chooses its own), the
+// staging of word rows and of the combine slice with 4-byte cp.async
+// (stage, WordSource, stage_comb), the product (mma_b1, MmaTile), and the
+// inference kernels' block body (infer_block: staging from the kernel's
+// source, product, flags, then the class sums of combine_rows);
+// clause_eval_packed.cu keeps its own byte-store epilogue.
 //
 // * Staging: one load round trip.  A block copies all of its rows'
 //   literal words and its clauses' include words into shared memory,
@@ -123,6 +124,20 @@ __device__ __forceinline__ void stage(uint32_t* dst, int lwp,
     }
   }
 }
+
+// Packed words, staged with cp.async: the source of the two packed-word
+// inference kernels (tm_infer_planes.cu, tm_infer_packed.cu).
+struct WordSource {
+  const int32_t* __restrict__ litw;     // [B, Lw] literal words
+  const int32_t* __restrict__ incw;     // [C, Lw] include words
+  int B, C, Lw;
+
+  __device__ void stage(uint32_t* dst, int lwp, int b0, int c0, int bt,
+                        int ct, int k0, int kn, int kp) const {
+    tmb::stage(dst, lwp, litw, B, Lw, b0, bt, k0, kn, kp);
+    tmb::stage(dst + bt * lwp, lwp, incw, C, Lw, c0, ct, k0, kn, kp);
+  }
+};
 
 // Copies the combine rows [c0, c0 + ct) of the [C, M] int32 matrix (one
 // contiguous run of ct * M words) to dst, zero past C.
@@ -243,7 +258,8 @@ __device__ __forceinline__ void combine_rows(const uint8_t* hit, int hs,
   }
 }
 
-// The body of an inference kernel (tm_infer_planes.cu, tm_infer.cu).
+// The body of an inference kernel (tm_infer_planes.cu, tm_infer_packed.cu,
+// tm_infer.cu).
 // src.stage(dst, lwp, b0, c0, bt, ct, k0, kn, kp) stages words
 // [k0, k0 + kn) of the block's literal rows at dst[r * lwp + k], r < bt,
 // and of its include rows below them (r = bt + clause), 0 up to kp; its

@@ -1,21 +1,16 @@
-// tm_common.cuh: the CUDA-core tiling shared by tm_infer_packed.cu
-// (digital / coalesced class sums from packed words) and clause_eval.cu
-// (training-time clause bits from 0/1 bytes, whose tile kernel stops
-// after the violation count and writes fired[b, c] with store_fired), and
-// fold4 / fold32, the byte-to-bit fold of the two byte kernels,
-// clause_eval.cu and tm_infer.cu.  (clause_eval_packed.cu, tm_infer_planes.cu and tm_infer.cu
-// count on the b1 tensor cores instead: tm_b1.cuh.)
+// tm_common.cuh: the CUDA-core tiling of clause_eval.cu's tile kernel
+// (training-time clause bits from 0/1 bytes, at batches above its
+// warp-per-clause route) and fold4 / fold32, the byte-to-bit fold of the
+// two byte kernels, clause_eval.cu and tm_infer.cu.  (The word kernels
+// clause_eval_packed.cu, tm_infer_planes.cu and tm_infer_packed.cu, and
+// tm_infer.cu once its bytes are folded, count on the b1 tensor cores
+// instead: tm_b1.cuh.)
 //
-// A tile kernel computes, for a block tile of BT batch rows x CT clauses,
-// the violation count viol[b, c] of every (row, clause) pair, then
-//   fired[b, c] = (viol == 0)      rows >= B and clauses >= C never fire
-//   out[b, m]  += sum_c fired[b, c] * comb[c, m]
-// where comb is the int32 [C, M] combine matrix: the signed one-hot
-// polarity matrix (digital) or the clause weights (coalesced), with the
-// rows of empty clauses zeroed by the caller.  Blocks run in parallel in
-// no order, so each adds its partial sums to the int32 output with
-// atomicAdd: integer addition is exact in any order, and the caller
-// zeroes the output.
+// The tile kernel computes, for a block tile of BT batch rows x CT
+// clauses, the violation count viol[b, c] of every (row, clause) pair
+// (count_words over the words staged in shared memory), then writes
+//   fired[b, c] = (viol == 0)      one byte, for rows < B and clauses < C
+// with store_fired (an empty clause has no violation, so it fires).
 
 #pragma once
 
@@ -32,7 +27,6 @@ constexpr int TC = 4;               // clauses per thread
 constexpr int NTX = CT / TC;        // 16 threads along the clauses
 constexpr int NTY = BT / TB;        // 8 threads along the rows
 constexpr int THREADS = NTX * NTY;  // 128
-constexpr int FW = CT / WORD;       // fired-mask words per row
 
 // Thread (ty, tx) owns rows ty + NTY * i and clauses tx + NTX * j.  A warp
 // is two values of ty by sixteen of tx, so its shared-memory reads touch
@@ -71,56 +65,6 @@ __device__ __forceinline__ void count_words(const uint32_t* lit,
     for (int i = 0; i < TB; ++i) {
 #pragma unroll
       for (int j = 0; j < TC; ++j) viol[i][j] += __popc(l[i] & n[j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void clear_fired(uint32_t (*fired)[FW]) {
-  for (int i = threadIdx.x; i < BT * FW; i += THREADS) {
-    fired[i / FW][i % FW] = 0u;
-  }
-}
-
-// Marks (row, clause) pairs whose count is zero in the tile's bit mask.
-__device__ __forceinline__ void mark_fired(const int (&viol)[TB][TC],
-                                           const Tile& t, int B, int C,
-                                           uint32_t (*fired)[FW]) {
-#pragma unroll
-  for (int i = 0; i < TB; ++i) {
-    const int bl = t.ty + NTY * i;
-#pragma unroll
-    for (int j = 0; j < TC; ++j) {
-      const int cl = t.tx + NTX * j;
-      if (viol[i][j] == 0 && t.b0 + bl < B && t.c0 + cl < C) {
-        atomicOr(&fired[bl][cl / WORD], 1u << (cl % WORD));
-      }
-    }
-  }
-}
-
-// After a __syncthreads: one thread per (row, class) pair sums comb over
-// the row's fired clauses (a few per row: walk the set bits) and adds the
-// sum to the output.
-__device__ __forceinline__ void combine(uint32_t (*fired)[FW],
-                                        const int32_t* __restrict__ comb,
-                                        int32_t* __restrict__ out,
-                                        const Tile& t, int B, int M) {
-  const int nb = min(BT, B - t.b0);
-  for (int p = threadIdx.x; p < nb * M; p += THREADS) {
-    const int bl = p / M;
-    const int m = p - bl * M;
-    int sum = 0;
-#pragma unroll
-    for (int w = 0; w < FW; ++w) {
-      uint32_t bits = fired[bl][w];
-      while (bits != 0u) {
-        const int cl = w * WORD + __ffs(bits) - 1;
-        bits &= bits - 1u;
-        sum += comb[static_cast<size_t>(t.c0 + cl) * M + m];
-      }
-    }
-    if (sum != 0) {
-      atomicAdd(&out[static_cast<size_t>(t.b0 + bl) * M + m], sum);
     }
   }
 }

@@ -56,27 +56,14 @@ namespace {
 using tmb::Geo;
 using tmb::WORD;
 
-// Packed words, staged with cp.async.
-struct WordSource {
-  const int32_t* __restrict__ litw;     // [B, Lw] literal words
-  const int32_t* __restrict__ incw;     // [C, Lw] include words
-  int B, C, Lw;
-
-  __device__ void stage(uint32_t* dst, int lwp, int b0, int c0, int bt,
-                        int ct, int k0, int kn, int kp) const {
-    tmb::stage(dst, lwp, litw, B, Lw, b0, bt, k0, kn, kp);
-    tmb::stage(dst + bt * lwp, lwp, incw, C, Lw, c0, ct, k0, kn, kp);
-  }
-};
-
 __global__ void __launch_bounds__(tmb::WARPS_MAX * WORD) planes_kernel(
     const int32_t* __restrict__ litw,   // [B, Lw] literal words
     const int32_t* __restrict__ incw,   // [C, Lw] include words (plane_index)
     const int32_t* __restrict__ comb,   // [C, M] combine matrix
     int32_t* __restrict__ out,          // [B, M], zeroed by the caller
     int B, int Lw, int C, int M, Geo geo) {
-  tmb::infer_block(WordSource{litw, incw, B, C, Lw}, comb, out, B, Lw, C, M,
-                   geo);
+  tmb::infer_block(tmb::WordSource{litw, incw, B, C, Lw}, comb, out, B, Lw,
+                   C, M, geo);
 }
 
 }  // namespace

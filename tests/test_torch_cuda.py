@@ -168,7 +168,13 @@ def _tm_call(name, args):
     (129, 2000, 784, 10, "fire"), (9, 70, 51, 3, "fire"),
     # 200 classes: a 32-clause combine slice (25.6 KB) is too large to
     # stage, so the b1 kernels read it from device memory.
-    (40, 130, 300, 200, "mixed")])
+    (40, 130, 300, 200, "mixed"),
+    # 5000 clauses (157 clause tiles of 32); the same with rows too long
+    # for one staging pass (10000 literals: the b1 kernels stage K in
+    # chunks); 4000 classes (the combine read from device memory by
+    # every block).
+    (33, 5000, 784, 10, "mixed"), (5, 5000, 5000, 3, "mixed"),
+    (64, 300, 784, 4000, "mixed")])
 def test_tm_infer_kernels_match_plain_versions(cuda, name, b, c, f, m, case):
     want = _tm_call(name, _tm_case(name, b, c, f, m, case, cuda))
     assert int((want != 0).sum()) > 0
@@ -191,13 +197,95 @@ def test_tm_infer_unaligned_views_match_plain_version(cuda, b):
     assert int((want != 0).sum()) > 0
 
 
-@pytest.mark.parametrize("name", ("tm_infer_planes", "tm_infer"))
+@pytest.mark.parametrize("name", TM_KERNELS)
 def test_tm_infer_kernels_are_deterministic(cuda, name):
     """Two launches on the same inputs give equal sums (the K-split's
     flags meet in shared memory; the sums are int32 atomics, exact in any
     order)."""
     args = _tm_case(name, 129, 2000, 784, 10, "mixed", cuda)
     assert torch.equal(_tm_call(name, args), _tm_call(name, args))
+
+
+@pytest.mark.parametrize("b", [1, 129])
+@pytest.mark.parametrize("case", ["mixed", "zero"])
+def test_tm_infer_packed_writes_every_sum(cuda, b, case):
+    """No earlier contents of the output's memory survive a call, zero
+    sums included.  A [B, M] int32 tensor of 0x7f7f7f7f words is
+    allocated and freed right before the call in a fresh memory pool,
+    which then hands that block back as the output.  "zero": comb is all
+    zeros, so every sum is 0."""
+    litw, incw, comb = _tm_case("tm_infer_packed", b, 1000, 784, 10,
+                                "mixed", cuda)
+    if case == "zero":
+        comb = torch.zeros_like(comb)
+    pool = torch.cuda.MemPool()
+    with torch.cuda.use_mem_pool(pool):
+        poison = torch.full((b, comb.shape[1]), 0x7F7F7F7F,
+                            dtype=torch.int32, device=cuda)
+        ptr = poison.data_ptr()
+        del poison
+        got = clause_eval.tm_infer_packed(litw, incw, comb)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr            # the poisoned block came back
+    want = clause_eval.tm_infer_packed_ref(litw, incw, comb)
+    assert torch.equal(got, want)
+    assert bool((want == 0).all()) == (case == "zero")
+    del got
+
+
+def test_tm_infer_packed_launches_one_kernel_per_call(cuda):
+    """torch.profiler on the card sees, a call, one tm_infer_packed
+    kernel and one device op besides it: the [B, M] zero fill that its
+    int32 atomics add into."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _tm_case("tm_infer_packed", 64, 1000, 784, 10, "mixed", cuda)
+    _tm_call("tm_infer_packed", args)       # built, checked and warm
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            clause_eval.tm_infer_packed(*args)
+        torch.cuda.synchronize()
+    device = [(e.key, e.count) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    kernel = sum(n for key, n in device if "packed_kernel" in key)
+    assert kernel == calls and sum(n for _, n in device) == 2 * calls, device
+
+
+@pytest.mark.parametrize("name", TM_KERNELS)
+@pytest.mark.parametrize("b,c,m", [(0, 70, 3), (9, 0, 3), (9, 70, 0)])
+def test_tm_infer_without_rows_clauses_or_classes_launches_nothing(
+        cuda, name, b, c, m):
+    """An empty batch, clause set or class set launches nothing and the
+    sums are zeros (a [B, M] output with B, M > 0 when C = 0)."""
+    dtype = torch.uint8 if name == "tm_infer" else torch.int32
+    a = torch.zeros((b, 3), dtype=dtype, device=cuda)
+    inc = torch.zeros((c, 3), dtype=dtype, device=cuda)
+    comb = torch.ones((c, m), dtype=torch.int32, device=cuda)
+    wrapper = getattr(clause_eval, name)
+    before = wrapper.launches
+    got = wrapper(a, inc, comb)
+    assert wrapper.launches == before
+    assert got.shape == (b, m) and got.dtype == torch.int32
+    assert not bool(got.any())
+
+
+@pytest.mark.parametrize("name", TM_KERNELS)
+@pytest.mark.parametrize("b", [1, 129])
+def test_tm_infer_without_literals_fires_every_clause(cuda, name, b):
+    """Rows of no words (Lw = 0; the operands have no storage) still
+    launch: every clause is empty and fires, so each row gets the column
+    sums of comb."""
+    rng = np.random.default_rng(b)
+    c, m = 1000, 10
+    comb = torch.from_numpy(rng.integers(-127, 128, (c, m)).astype(
+        np.int32)).to(cuda)
+    dtype = torch.uint8 if name == "tm_infer" else torch.int32
+    a = torch.zeros((b, 0), dtype=dtype, device=cuda)
+    inc = torch.zeros((c, 0), dtype=dtype, device=cuda)
+    got = _tm_call(name, (a, inc, comb))
+    assert torch.equal(got, comb.sum(0, dtype=torch.int32).expand(b, m))
 
 
 @pytest.mark.parametrize("name", ("imbue_infer_packed", "imbue_infer"))
@@ -428,17 +516,20 @@ def test_clause_eval_packed_geometry_fills_the_card(cuda, b, c):
 @pytest.mark.parametrize("c", [1000, 2000])
 def test_tm_infer_geometry_fills_the_card(cuda, b, c):
     """chip_smoke.py's TM timing rows (the coalesced and the digital width,
-    L = 1568, M = 10).  tm_infer_planes, on clause_eval_packed's layouts,
-    launches at least 16 warps an SM except where its K-split is at its
-    cap (7 steps of 8 words at Lw = 49), as for clause_eval_packed.
+    L = 1568, M = 10).  tm_infer_planes and tm_infer_packed, on
+    clause_eval_packed's layouts, launch at least 16 warps an SM except
+    where the K-split is at its cap (7 steps of 8 words at Lw = 49), as
+    for clause_eval_packed.
     tm_infer reads 32x the bytes of a word row, so it keeps its row tiles
     few (at most 4 at B <= 128) and fills the card with clause tiles: one
     block an SM at most (each SM reads one tile's bytes), on at least half
     of the SMs where the 16 x 32 tiles allow it."""
-    g = _geometry("tm_infer_planes", b, c, 49, 10)
-    assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
-    assert g["smem"] <= 48 * 1024 and g["kc"] == 56 and g["per_sm"] >= 1
-    assert g["launched"] >= 16 or g["ksplit"] == 7
+    for name in ("tm_infer_planes", "tm_infer_packed"):
+        g = _geometry(name, b, c, 49, 10)
+        assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
+        assert g["smem"] <= 48 * 1024 and g["kc"] == 56
+        assert g["per_sm"] >= 1
+        assert g["launched"] >= 16 or g["ksplit"] == 7
     g = _geometry("tm_infer", b, c, 1568, 10)
     assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
     assert g["smem"] <= 48 * 1024 and g["kc"] == 56 and g["per_sm"] >= 1
