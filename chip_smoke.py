@@ -91,9 +91,25 @@ is non-zero and no result line is printed):
    ``round_robin``, and on the default tier in ``ensemble``; every
    response must equal ``core.coalesced.forward``; (f)
    ``digital-cuda-packed`` and ``digital-cuda`` must equal
-   ``digital-torch`` at imbue-tm-mnist.  Each path's launch counters are
-   zeroed just before it and read just after: one launch per dispatch,
-   0 fallbacks;
+   ``digital-torch`` at imbue-tm-mnist; (g) the live path at
+   imbue-tm-mnist (R = 4): ``AsyncServeEngine`` against ``ServeEngine``
+   on one seed under D2D + C2C, in ``ensemble`` and ``round_robin``, 512
+   requests submitted 128 at a time with a ``pump()`` each, and all at
+   once then drained (bit-equal Responses, ``max_in_flight`` reached in
+   the burst, requests/s and ``overlap_fraction`` of both, and one more
+   issue that must not synchronize); a nominal ensemble pool with
+   ``enable_health``, ``CHAOS`` in
+   replica 1, ``probe()`` (exactly replica 1 quarantined, the others at
+   1.0), 512 requests equal to the digital TM with replica 1's load flat,
+   ``RepairPolicy.check()`` (readmitted at 1.0); ``HotSwapper`` on the
+   async engine (canary 0.25 over 512 requests, ``promote`` equal to a
+   fresh ``from_ta_state`` pool, a second rollout rolled back equal to
+   its snapshot); the coalesced engine at ``COALESCED``: ``hot_swap``
+   with new weights, a 25 % + 25 % injury held by the last-healthy floor,
+   ``RepairPolicy.repair``.  Each path's launch counters are zeroed just
+   before it and read just after: one launch per dispatch (plus one per
+   probe read and canary shadow read on the live path, and one
+   ``tm_infer`` per probe commit), 0 fallbacks;
 4. training — on a numpy-drawn image task (``IMAGE_TASK``): at
    imbue-tm-mnist, ``init_ta_state`` then ``TRAIN_EPOCHS`` epochs of
    ``fit(parallel=True, batch_size=256)`` (test accuracy and ms per step
@@ -1296,6 +1312,300 @@ def phase_digital_fused(device):
     return path_launches(drive, ("tm_infer_packed", "tm_infer"))
 
 
+# ------------------------------------------------------------ live path
+
+LIVE_CHUNK = 128               # requests submitted between two pump()s
+LIVE_PROBES = 64               # HealthConfig.n_probes of the live rounds
+LIVE_COALESCED_FAULT = dict(stuck_lrs_rate=0.25, stuck_hrs_rate=0.25)
+
+
+def serve_chunks(eng, x, chunk=LIVE_CHUNK, force=False):
+    """Submit ``x`` ``chunk`` rows at a time with a pump() after each (the
+    host packs the next chunk while an async engine's last issue runs),
+    then drain; returns ``(the Responses of x, wall seconds)``."""
+    t0 = time.perf_counter()
+    rids = []
+    for lo in range(0, len(x), chunk):
+        rids += eng.submit_many(list(x[lo:lo + chunk]))
+        eng.pump(force=force)
+    eng.drain()
+    wall = time.perf_counter() - t0
+    return [eng.take(r) for r in rids], wall
+
+
+def check_launches(what, launches, want):
+    if launches != want:
+        raise AssertionError(f"live {what}: {launches} launches, "
+                             f"{want} expected")
+
+
+def live_async_round(cfg, ta, x, routing, device):
+    """(a) ``AsyncServeEngine`` against ``ServeEngine`` on one seed under
+    D2D + C2C, in two arrival patterns: ``chunked`` (128 requests, then a
+    pump(): the host packs the next chunk while the last issue runs) and
+    ``burst`` (all queued, then drained: back-to-back issues, where the
+    async engine must reach ``max_in_flight``).  Bit-equal Responses, one
+    launch a dispatch, 0 fallbacks."""
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.serve import AsyncServeEngine, EngineConfig, ServeEngine
+    row = {"phase": "live", "round": "async", "routing": routing,
+           "R": REPLICAS, "requests": len(x)}
+    for pattern, chunk in (("chunked", LIVE_CHUNK), ("burst", len(x))):
+        outs = {}
+        for cls in (ServeEngine, AsyncServeEngine):
+            eng = cls.from_ta_state(
+                torch.from_numpy(ta), cfg, n_replicas=REPLICAS, seed=SEED,
+                vcfg=VariationConfig(csa_offset=False),
+                ecfg=EngineConfig(routing=routing), device=device)
+            if eng.backend.name != "analog-cuda-packed2":
+                raise AssertionError(f"live async: on {eng.backend.name}")
+            depth = []
+            if cls is AsyncServeEngine:
+                orig = eng._dispatch
+
+                def dispatch(batch, eng=eng, orig=orig):
+                    orig(batch)
+                    depth.append(eng.in_flight)
+                eng._dispatch = dispatch
+            launches0 = imbue_infer_planes.launches
+            out, wall = serve_chunks(eng, x, chunk=chunk)
+            s = eng.summary()
+            check_launches("async", imbue_infer_planes.launches - launches0,
+                           s["batches"])
+            if len(out) != len(x) or s["fallback_dispatches"] != 0:
+                raise AssertionError(f"live async: {len(out)} served, "
+                                     f"{s['fallback_dispatches']} fallbacks")
+            key = f"{pattern}_{'async' if depth else 'sync'}"
+            outs[key] = out
+            row[key] = {"requests_per_s": len(out) / wall, "wall_s": wall,
+                        "dispatches": s["batches"],
+                        "overlap_fraction": s["overlap_fraction"],
+                        "host_pack_s": s["host_pack_s"],
+                        "device_wait_s": s["device_wait_s"],
+                        "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"]}
+            if depth:
+                row[key]["max_in_flight_reached"] = max(depth)
+                if pattern == "burst" and \
+                        max(depth) != eng.ecfg.max_in_flight:
+                    raise AssertionError(f"live async: in_flight reached "
+                                         f"{max(depth)} in a burst")
+        for g, w in zip(outs[f"{pattern}_async"], outs[f"{pattern}_sync"]):
+            if (g.rid, g.pred, g.replica) != (w.rid, w.pred, w.replica) or \
+                    not np.array_equal(g.class_sums, w.class_sums):
+                raise AssertionError("live async: a Response differs from "
+                                     "the sync engine's")
+    row["bit_equal_to_sync"] = True
+    # Every host wait of a dispatch must be in its collect, where the
+    # overlap accounting counts it: one more issue on the warm async
+    # engine, under the sync debug mode that raises on a synchronizing
+    # CUDA operation.
+    eng.submit_many(list(x[:LIVE_CHUNK]))
+    batch = eng.batcher.cut(eng.clock(), force=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fl = eng._issue(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng._collect(fl)
+    row["issue_syncs"] = 0
+    emit(row)
+
+
+def live_health_round(cfg, ta, x, device):
+    """(b) probe -> quarantine -> degraded serving -> RepairPolicy.check on
+    a nominal R = 4 ensemble pool with CHAOS in replica 1."""
+    from repro_torch.core import tm
+    from repro_torch.core.variations import FaultConfig, VariationConfig
+    from repro_torch.kernels.clause_eval import tm_infer
+    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.serve import (EngineConfig, HealthConfig, RepairPolicy,
+                                   ServeEngine)
+    eng = ServeEngine.from_ta_state(
+        torch.from_numpy(ta), cfg, n_replicas=REPLICAS, seed=SEED,
+        vcfg=VariationConfig.nominal(),
+        ecfg=EngineConfig(routing="ensemble"), device=device)
+    planes0, tm0 = imbue_infer_planes.launches, tm_infer.launches
+    eng.enable_health(HealthConfig(n_probes=LIVE_PROBES))
+    if eng.probe() != {i: 1.0 for i in range(REPLICAS)}:
+        raise AssertionError("live health: a fresh chip failed its probe")
+    eng.inject_faults(torch.Generator(device=device).manual_seed(SEED + 7),
+                      FaultConfig(**CHAOS), replicas=[1])
+    hurt = eng.probe()
+    if not (hurt[1] < 0.75 and all(hurt[i] == 1.0 for i in (0, 2, 3))
+            and eng.quarantined == [1]):
+        raise AssertionError(f"live health: probe {hurt}, quarantined "
+                             f"{eng.quarantined}")
+    load1 = eng.router.rows_dispatched[1]
+    out, wall = serve_chunks(eng, x)
+    digital = tm.forward(torch.from_numpy(ta).to(device),
+                         torch.from_numpy(x).to(device), cfg).cpu().numpy()
+    sums = np.stack([r.class_sums for r in out])
+    if not (np.array_equal([r.pred for r in out], digital.argmax(-1))
+            and np.array_equal(sums, (REPLICAS - 1) * digital)
+            and eng.router.rows_dispatched[1] == load1):
+        raise AssertionError("live health: the quarantined pool left the "
+                             "digital TM or replica 1 took load")
+    tick = RepairPolicy(eng).check()
+    rep = tick["repairs"].get(1, {})
+    if not (rep.get("readmitted") and rep.get("health") == 1.0
+            and eng.quarantined == [] and eng.pool.fault_mask is None):
+        raise AssertionError(f"live health: repair {tick}")
+    final = eng.probe()
+    if final != {i: 1.0 for i in range(REPLICAS)}:
+        raise AssertionError(f"live health: after repair {final}")
+    s = eng.summary()
+    reads = s["probe_rounds"] * -(-LIVE_PROBES // eng.batcher.cfg.max_batch)
+    reads *= REPLICAS
+    check_launches("health imbue_infer_planes",
+                   imbue_infer_planes.launches - planes0,
+                   s["batches"] + reads)
+    check_launches("health tm_infer", tm_infer.launches - tm0, 2)
+    emit({"phase": "live", "round": "health", "R": REPLICAS,
+          "fault": CHAOS, "replicas": [1], "probes": LIVE_PROBES,
+          "health_fresh": 1.0, "health_injured": hurt,
+          "quarantined": [1], "requests": len(out),
+          "dispatches": s["batches"], "probe_reads": reads,
+          "preds_equal_digital": True, "replica1_load_flat": True,
+          "repair": rep, "health_repaired": final,
+          "quarantine_events": s["quarantine_events"],
+          "fallback_dispatches": s["fallback_dispatches"],
+          "requests_per_s": len(out) / wall})
+
+
+def live_swap_round(cfg, device):
+    """(c) HotSwapper on the async engine: canary at 0.25, promote ==
+    a fresh from_ta_state pool; a second rollout rolled back == its
+    snapshot."""
+    import tempfile
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.serve import (CANARY, AsyncServeEngine, EngineConfig,
+                                   HotSwapper, ServeEngine, SwapConfig,
+                                   restore_pool)
+    vcfg = VariationConfig(csa_offset=False)
+    ta, x, _ = prototype_task(cfg, N_REQUESTS, SEED + 700)
+    ta2, x2, _ = prototype_task(cfg, N_REQUESTS, SEED + 701)
+    eng = AsyncServeEngine.from_ta_state(
+        torch.from_numpy(ta), cfg, n_replicas=REPLICAS, seed=SEED,
+        vcfg=vcfg, ecfg=EngineConfig(routing="ensemble"), device=device)
+    launches0 = imbue_infer_planes.launches
+    row = {"phase": "live", "round": "swap", "R": REPLICAS}
+    with tempfile.TemporaryDirectory() as ckpt:
+        sw = HotSwapper(eng, ckpt, SwapConfig(canary_fraction=0.25,
+                                              min_canary_rows=64))
+        cand = sw.begin(torch.from_numpy(ta2), seed=SEED + 1)
+        out, _ = serve_chunks(eng, x2, chunk=64, force=True)
+        canary = [r for r in out if r.replica == CANARY]
+        if not canary or {r.version for r in canary} != {cand} or \
+                {r.version for r in out if r.replica != CANARY} != {0}:
+            raise AssertionError("live swap: canary traffic wrong")
+        row.update(canary_rows=sw.rows(), canary_agreement=sw.agreement(),
+                   decision=sw.decision(), requests=len(out))
+        if sw.promote() != cand:
+            raise AssertionError("live swap: promote")
+        fresh = ServeEngine.from_ta_state(
+            torch.from_numpy(ta2), cfg, n_replicas=REPLICAS, seed=SEED + 1,
+            vcfg=vcfg, device=device)
+        if not torch.equal(eng.pool.r_stack, fresh.pool.r_stack):
+            raise AssertionError("live swap: promoted pool != fresh pool")
+        del fresh
+        snap = eng.pool.r_stack.clone()
+        sw.begin(torch.from_numpy(ta), seed=SEED + 2)
+        out2, _ = serve_chunks(eng, x, chunk=64, force=True)
+        if sw.rollback() != cand:
+            raise AssertionError("live swap: rollback version")
+        if not (torch.equal(eng.pool.r_stack, snap) and torch.equal(
+                restore_pool(eng.pool, ckpt, cand).r_stack, snap)):
+            raise AssertionError("live swap: rolled-back pool != snapshot")
+    s = eng.summary()
+    check_launches("swap", imbue_infer_planes.launches - launches0,
+                   s["batches"] + s["canary"]["batches"])
+    if s["fallback_dispatches"] != 0 or eng.in_flight != 0:
+        raise AssertionError("live swap: fallbacks or work in flight")
+    row.update(second_rollout_requests=len(out2), promoted_equals_fresh=True,
+               rollback_equals_snapshot=True, swaps=s["swaps"],
+               canary_batches=s["canary"]["batches"],
+               dispatches=s["batches"],
+               overlap_fraction=s["overlap_fraction"])
+    emit(row)
+
+
+def live_coalesced_round(device):
+    """(d) The coalesced engine: hot_swap(weights=...), a 25 % + 25 %
+    injury held by the last-healthy floor, then RepairPolicy.repair."""
+    from repro_torch.core import coalesced as co
+    from repro_torch.core.variations import FaultConfig
+    from repro_torch.kernels.clause_eval import tm_infer, tm_infer_planes
+    from repro_torch.serve import (EngineConfig, HealthConfig, RepairPolicy,
+                                   ServeEngine, hot_swap)
+    ccfg = coalesced_config()
+    ta, w, _, _ = coalesced_task(ccfg, N_REQUESTS, SEED + 800)
+    ta2, w2, x2, _ = coalesced_task(ccfg, N_REQUESTS, SEED + 801)
+    planes0, tm0 = tm_infer_planes.launches, tm_infer.launches
+    eng = ServeEngine.from_coalesced(
+        torch.from_numpy(ta), torch.from_numpy(w), ccfg,
+        ecfg=EngineConfig(health=HealthConfig(n_probes=LIVE_PROBES)),
+        device=device)
+    if eng.backend.name != "coalesced-cuda-packed2" or \
+            eng.probe() != {0: 1.0}:
+        raise AssertionError("live coalesced: backend or fresh probe")
+    if hot_swap(eng, torch.from_numpy(ta2), weights=torch.from_numpy(w2)) \
+            != 1:
+        raise AssertionError("live coalesced: hot_swap version")
+    out, wall = serve_chunks(eng, x2)
+    want = co.forward(torch.from_numpy(ta2).to(device),
+                      torch.from_numpy(w2).to(device),
+                      torch.from_numpy(x2).to(device), ccfg).cpu().numpy()
+    if not np.array_equal(np.stack([r.class_sums for r in out]), want) or \
+            {r.version for r in out} != {1}:
+        raise AssertionError("live coalesced: swapped model differs from "
+                             "core.coalesced.forward")
+    eng.inject_faults(torch.Generator(device=device).manual_seed(SEED + 8),
+                      FaultConfig(**LIVE_COALESCED_FAULT))
+    hurt = eng.probe()
+    events = eng.summary().get("quarantine_events", [])
+    if not (hurt[0] < 0.75 and eng.quarantined == [] and events
+            and events[-1]["kind"] == "held_last_healthy"):
+        raise AssertionError(f"live coalesced: probe {hurt}, {events}")
+    rep = RepairPolicy(eng).repair(hurt)
+    final = eng.probe()
+    if not (rep.get(0, {}).get("health") == 1.0 and final == {0: 1.0}
+            and eng.pool.fault_mask is None):
+        raise AssertionError(f"live coalesced: repair {rep} {final}")
+    s = eng.summary()
+    reads = s["probe_rounds"] * -(-LIVE_PROBES // eng.batcher.cfg.max_batch)
+    check_launches("coalesced tm_infer_planes",
+                   tm_infer_planes.launches - planes0, s["batches"] + reads)
+    check_launches("coalesced tm_infer", tm_infer.launches - tm0, 3)
+    emit({"phase": "live", "round": "coalesced", "width": COALESCED,
+          "swapped_version": 1, "requests": len(out),
+          "equals_forward": True, "fault": LIVE_COALESCED_FAULT,
+          "health_injured": hurt, "quarantined": [],
+          "held_last_healthy": True, "repair": rep,
+          "health_repaired": final, "dispatches": s["batches"],
+          "probe_reads": reads,
+          "fallback_dispatches": s["fallback_dispatches"],
+          "requests_per_s": len(out) / wall})
+
+
+def phase_live(device):
+    """Live operations at full width; returns the launches per kernel."""
+    from repro_torch.configs.imbue_tm import tm_config
+    cfg = tm_config(MODEL)
+    ta, x, _ = prototype_task(cfg, N_REQUESTS, SEED + 900)
+
+    def drive():
+        for routing in ("ensemble", "round_robin"):
+            live_async_round(cfg, ta, x, routing, device)
+        live_health_round(cfg, ta, x, device)
+        live_swap_round(cfg, device)
+        live_coalesced_round(device)
+    return path_launches(drive, ("imbue_infer_planes", "tm_infer_planes",
+                                 "tm_infer"))
+
+
 def clause_case(inc, x, device):
     """Operands of the two clause-bit kernels for one shape, keyed by
     kernel, and the share of (row, clause) pairs that fire, over all
@@ -2275,7 +2585,8 @@ def main() -> int:
                "chaos": phase_chaos(device),
                "crossbar": phase_crossbar(device),
                "coalesced": phase_coalesced_serving(device),
-               "digital": phase_digital_fused(device)}
+               "digital": phase_digital_fused(device),
+               "live": phase_live(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

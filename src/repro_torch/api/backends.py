@@ -100,7 +100,7 @@ def digital_cuda(state: DigitalState, lits: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Fused clause evaluation + polarity combine (``tm_infer``)."""
     del generator
-    return ops.tm_class_sums(lits, state.include, state.tm_cfg,
+    return ops.tm_class_sums(lits, state.include, state.combine,
                              device=state.device)
 
 
@@ -115,7 +115,7 @@ def digital_cuda_packed(state: DigitalState, lits: torch.Tensor,
     (``tm_infer_packed``)."""
     del generator
     return ops.tm_class_sums_packed(_as_packed_lits(lits),
-                                    state.include_packed, state.tm_cfg,
+                                    state.include_packed, state.combine,
                                     device=state.device)
 
 
@@ -230,8 +230,8 @@ def coalesced_cuda(state: CoalescedState, lits: torch.Tensor,
     """Fused clause evaluation + weighted combine (``tm_infer`` with W in
     place of the polarity matrix)."""
     del generator
-    return ops.coalesced_class_sums(lits, state.include, state.weights,
-                                    device=state.device)
+    return ops.tm_class_sums(lits, state.include, state.combine,
+                             device=state.device)
 
 
 @register_backend("coalesced-cuda-packed", state_types=(CoalescedState,),
@@ -244,9 +244,9 @@ def coalesced_cuda_packed(state: CoalescedState, lits: torch.Tensor,
     """Packed-wire coalesced kernel: AND + popcount, weighted combine
     (``tm_infer_packed``)."""
     del generator
-    return ops.coalesced_class_sums_packed(
-        _as_packed_lits(lits), state.include_packed, state.weights,
-        device=state.device)
+    return ops.tm_class_sums_packed(_as_packed_lits(lits),
+                                    state.include_packed, state.combine,
+                                    device=state.device)
 
 
 @register_backend("coalesced-cuda-packed2", state_types=(CoalescedState,),
@@ -261,9 +261,9 @@ def coalesced_cuda_packed2(state: CoalescedState, lits: torch.Tensor,
     whole and counted on the b1 tensor cores (``tm_infer_planes``; the
     same integers as ``coalesced-cuda-packed``)."""
     del generator
-    return ops.coalesced_class_sums_planes(
-        _as_packed_lits(lits), state.plane_index, state.weights,
-        device=state.device)
+    return ops.tm_class_sums_planes(_as_packed_lits(lits),
+                                    state.plane_index, state.combine,
+                                    device=state.device)
 
 
 def class_sums(state, lits: torch.Tensor,

@@ -25,6 +25,12 @@ that ``r == r_nom + plane_dev`` holds bitwise, exactly as the reference
 does.  A coalesced pool is digital: its ``plane_index`` is the packed
 include plane itself, with no deviation plane.
 
+``DigitalState`` and ``CoalescedState`` carry their int32 ``[C, M]``
+combine matrix (``combine``: the signed class one-hot, or the weights,
+with the rows of empty clauses zeroed), built once when the state is
+made; ``pack()`` and ``pack_planes()`` keep it, and the fused backends
+hand it to the kernel wrappers instead of rebuilding it on every call.
+
 ``inject_faults`` bakes a stuck-at / drift overlay into the programmed
 resistances (or, for the digital coalesced pool, the TA plane) and keeps
 the int8 ``fault_mask``; on a plane-packed state the index bitplane
@@ -46,7 +52,7 @@ from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
                                     program_replica_stack)
 from repro_torch.core.mapping import CrossbarMapping
 from repro_torch.core.tm import TMConfig, include_mask
-from repro_torch.kernels import bitpack
+from repro_torch.kernels import bitpack, ops
 
 
 class _PackedMixin:
@@ -105,12 +111,26 @@ class DigitalState(_PackedMixin):
     ta_state: Optional[torch.Tensor]         # [C, L] int, or None
     tm_cfg: TMConfig
     include_packed: Optional[torch.Tensor] = None   # [C, L/32] int32 words
+    combine: Optional[torch.Tensor] = None          # [C, M] int32
+
+    def __post_init__(self):
+        if self.combine is None:
+            object.__setattr__(self, "combine", ops.polarity_matrix(
+                self.tm_cfg, self.include, device=self.include.device))
 
     @classmethod
     def from_ta(cls, ta_state: torch.Tensor, tm_cfg: TMConfig
                 ) -> "DigitalState":
         return cls(include=include_mask(ta_state, tm_cfg),
                    ta_state=ta_state, tm_cfg=tm_cfg)
+
+    @classmethod
+    def from_include(cls, include: torch.Tensor, tm_cfg: TMConfig
+                     ) -> "DigitalState":
+        """The TM of the ``[C, L]`` include actions alone (no TA states):
+        the clean model a health probe answers from."""
+        return cls(include=torch.as_tensor(include).to(torch.bool),
+                   ta_state=None, tm_cfg=tm_cfg)
 
     @property
     def device(self) -> torch.device:
@@ -331,6 +351,13 @@ class CoalescedState(_PackedMixin):
     include_packed: Optional[torch.Tensor] = None   # [C, L/32] int32 words
     fault_mask: Optional[torch.Tensor] = None       # [C, L] int8 codes
     plane_index: Optional[torch.Tensor] = None      # [C, L/32] int32 words
+    combine: Optional[torch.Tensor] = None          # [C, M] int32
+
+    def __post_init__(self):
+        if self.combine is None:
+            object.__setattr__(self, "combine", ops.coalesced_combine(
+                self.weights.to(self.ta_state.device),
+                self.include.any(dim=-1)))
 
     def reprogram(self, ta_state: torch.Tensor,
                   weights: torch.Tensor) -> "CoalescedState":
@@ -345,7 +372,7 @@ class CoalescedState(_PackedMixin):
                 f"{tuple(self.ta_state.shape)}/{tuple(self.weights.shape)}")
         return dataclasses.replace(self, ta_state=ta_state, weights=weights,
                                    include_packed=None, fault_mask=None,
-                                   plane_index=None)
+                                   plane_index=None, combine=None)
 
     def inject_faults(self, generator: torch.Generator,
                       fcfg: Optional[var.FaultConfig] = None
@@ -361,7 +388,7 @@ class CoalescedState(_PackedMixin):
         return dataclasses.replace(
             self, ta_state=stuck_ta(self.ta_state, mask, self.cfg.n_states),
             fault_mask=var.merge_fault_masks(mask, self.fault_mask),
-            include_packed=None, plane_index=None)
+            include_packed=None, plane_index=None, combine=None)
 
     def pack_planes(self) -> "CoalescedState":
         """The model in the plane-packed format: the pool is digital, so

@@ -14,11 +14,10 @@
 * ``imbue_class_sums(lits, xbar, cfg)``         -> [B, M], one crossbar
 * ``imbue_class_sums_stack(lits, r_stack, ...)``  -> [R, B, M], one launch
 * ``imbue_class_sums_stack_packed(litw, ...)``  -> [R, B, M], one launch
-* ``tm_class_sums(lits, include, cfg)``         -> [B, M] digital, fused
-* ``tm_class_sums_packed(litw, incw, cfg)``     -> [B, M] AND + popcount
-* ``coalesced_class_sums(lits, include, w)``    -> [B, M] weighted tail
-* ``coalesced_class_sums_packed(litw, incw, w)``  -> [B, M]
-* ``coalesced_class_sums_planes(litw, incw, w)``  -> [B, M], the resident
+* ``tm_class_sums(lits, include, comb)``        -> [B, M] digital or
+  coalesced (``comb`` the polarity matrix or the weights), fused
+* ``tm_class_sums_packed(litw, incw, comb)``    -> [B, M] AND + popcount
+* ``tm_class_sums_planes(litw, incw, comb)``    -> [B, M], the resident
   include plane staged whole and counted on the b1 tensor cores
 
 The two ``clause_eval`` wrappers return clause bits with training
@@ -27,7 +26,9 @@ evaluate clauses with, one launch per call.
 
 The combine matrices are int32 ``[C, M]`` with the rows of empty clauses
 zeroed (the inference-time empty-clause mask, folded into the sum), and
-no padding of the class axis.
+no padding of the class axis.  The digital and coalesced states build
+theirs once (``state.combine``) and the backends pass it to the fused
+wrappers.
 
 The plane-packed resident operand is the include-index bitplane plus an
 optional per-cell additive deviation plane (``dev = r - r_nom``).  C2C
@@ -340,60 +341,39 @@ def _dense_operands(lits: torch.Tensor, include: torch.Tensor,
     return lits, include.to(device=lits.device, dtype=torch.bool).contiguous()
 
 
-def tm_class_sums(lits: torch.Tensor, include: torch.Tensor, cfg: TMConfig,
-                  *, device: DeviceLike = None) -> torch.Tensor:
-    """Fused digital inference: ``[B, L]`` literals and the ``[C, L]``
-    include plane -> ``[B, M]`` int32 (the ``tm_infer`` kernel)."""
+def _comb(comb: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return comb.to(device=device, dtype=torch.int32).contiguous()
+
+
+def tm_class_sums(lits: torch.Tensor, include: torch.Tensor,
+                  comb: torch.Tensor, *,
+                  device: DeviceLike = None) -> torch.Tensor:
+    """Fused inference: ``[B, L]`` literals, the ``[C, L]`` include plane
+    and the ``[C, M]`` combine matrix (:func:`polarity_matrix` for a
+    digital TM, :func:`coalesced_combine` for a coalesced pool) ->
+    ``[B, M]`` int32 (the ``tm_infer`` kernel)."""
     lits, include = _dense_operands(lits, include, device)
-    comb = polarity_matrix(cfg, include, device=include.device)
-    return tm_infer(lits, include, comb.contiguous())
+    return tm_infer(lits, include, _comb(comb, lits.device))
 
 
 def tm_class_sums_packed(litw: torch.Tensor, include_w: torch.Tensor,
-                         cfg: TMConfig, *,
+                         comb: torch.Tensor, *,
                          device: DeviceLike = None) -> torch.Tensor:
-    """Fused digital inference from packed words -> ``[B, M]`` int32 (the
-    ``tm_infer_packed`` kernel); the empty-clause mask comes from the
-    packed include plane."""
+    """:func:`tm_class_sums` from packed words -> ``[B, M]`` int32 (the
+    ``tm_infer_packed`` kernel)."""
     litw, incw = _packed_operands(litw, include_w, device)
-    comb = polarity_matrix(cfg, device=incw.device)
-    comb = comb * _nonempty_from_packed(incw)[:, None].to(torch.int32)
-    return tm_infer_packed(litw, incw, comb.contiguous())
+    return tm_infer_packed(litw, incw, _comb(comb, litw.device))
 
 
-def coalesced_class_sums(lits: torch.Tensor, include: torch.Tensor,
-                         weights: torch.Tensor, *,
+def tm_class_sums_planes(litw: torch.Tensor, include_w: torch.Tensor,
+                         comb: torch.Tensor, *,
                          device: DeviceLike = None) -> torch.Tensor:
-    """Fused coalesced inference: shared clause pool ``[C, L]`` and
-    weights ``[C, M]`` -> ``[B, M]`` int32 (the ``tm_infer`` kernel with W
-    as the combine matrix)."""
-    lits, include = _dense_operands(lits, include, device)
-    comb = coalesced_combine(weights.to(include.device), include.any(dim=-1))
-    return tm_infer(lits, include, comb)
-
-
-def coalesced_class_sums_packed(litw: torch.Tensor, include_w: torch.Tensor,
-                                weights: torch.Tensor, *,
-                                device: DeviceLike = None) -> torch.Tensor:
-    """Fused coalesced inference from packed words -> ``[B, M]`` int32
-    (the ``tm_infer_packed`` kernel)."""
-    litw, incw = _packed_operands(litw, include_w, device)
-    comb = coalesced_combine(weights.to(incw.device),
-                             _nonempty_from_packed(incw))
-    return tm_infer_packed(litw, incw, comb)
-
-
-def coalesced_class_sums_planes(litw: torch.Tensor, include_w: torch.Tensor,
-                                weights: torch.Tensor, *,
-                                device: DeviceLike = None) -> torch.Tensor:
-    """Fused coalesced inference on the resident include plane, staged
-    whole and counted on the b1 tensor cores -> ``[B, M]`` int32 (the
+    """:func:`tm_class_sums` on the resident include plane, staged whole
+    and counted on the b1 tensor cores -> ``[B, M]`` int32 (the
     ``tm_infer_planes`` kernel; the same integers as
-    :func:`coalesced_class_sums_packed`)."""
+    :func:`tm_class_sums_packed`)."""
     litw, incw = _packed_operands(litw, include_w, device)
-    comb = coalesced_combine(weights.to(incw.device),
-                             _nonempty_from_packed(incw))
-    return tm_infer_planes(litw, incw, comb)
+    return tm_infer_planes(litw, incw, _comb(comb, litw.device))
 
 
 # ------------------------------------------- clause bits, training semantics

@@ -102,8 +102,9 @@ class ServeMetrics:
         # Overlap accounting (async serving): per dispatch, how long the
         # host spent packing/bucketing the batch, how long it *blocked*
         # on the device at collection, and how much of the in-flight
-        # window was hidden behind other host work.  A synchronous
-        # engine collects immediately, so its overlapped_s stays ~0.
+        # window it spent on other host work.  A synchronous engine
+        # collects immediately, so its overlapped_s is only the
+        # bookkeeping between issue and collect.
         self.host_pack_s = 0.0
         self.device_wait_s = 0.0
         self.overlapped_s = 0.0
@@ -262,9 +263,14 @@ class ServeMetrics:
         return out
 
     def overlap_fraction(self) -> float:
-        """Fraction of total in-flight device time hidden behind host
-        work: ``overlapped / (overlapped + blocked wait)``.  ~0 for the
-        synchronous engine, -> 1 when batching fully hides compute."""
+        """Of the dispatches' in-flight windows (end of issue to end of
+        collect), the share the host spent on other work rather than
+        blocked on the device: ``overlapped / (overlapped + blocked
+        wait)``; -> 1 when the host never waits.  Device time that
+        elapses while an issue is still launching is in neither term, so
+        when the device keeps pace with the launches both terms are a
+        few microseconds a dispatch and the synchronous engine's ratio
+        says little: read ``device_wait_s`` beside it."""
         busy = self.overlapped_s + self.device_wait_s
         return self.overlapped_s / busy if busy > 0 else 0.0
 

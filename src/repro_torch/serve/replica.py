@@ -11,6 +11,15 @@ of ``repro.serve.replica``).
 * ``CoalescedPool`` — ONE shared coalesced clause pool (``n_replicas ==
   1``) behind the same engine surface.
 
+Each pool kind supplies what the engine and the live-operations modules
+must not branch on: its backend ladder (``BACKENDS``, best tier first,
+and ``default_backend(state)``), its routed single-chip states
+(``routes(state)``), its hot-swap compatibility check
+(``check_compatible``), the clean model a health probe answers from
+(``clean_reference``), its snapshot tensors (``KIND``, ``leaves`` /
+``from_leaves``) and its re-programming from trained TA states
+(``reprogrammed``).
+
 ``reprogram`` writes a new model (``version`` + 1); ``inject_faults``
 hurts the hardware and ``repair_replica`` re-programs one chip, neither
 changing ``version``.  A replica pool bakes faults into its resistances;
@@ -21,18 +30,19 @@ in ``state()``.  Sharding comes with a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional, Set
+from typing import Iterable, List, Optional, Set, Tuple
 
 import torch
 
-from repro_torch.api.states import (CoalescedState, ReplicaStackState,
-                                    check_geometry, stuck_ta)
+from repro_torch.api.states import (CoalescedState, DigitalState,
+                                    ReplicaStackState, check_geometry,
+                                    stuck_ta)
 from repro_torch.core import variations as var
 from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
                                     program_replica_stack)
 from repro_torch.core.mapping import CrossbarMapping
-from repro_torch.core.tm import TMConfig
+from repro_torch.core.tm import TMConfig, include_mask
 
 
 @dataclasses.dataclass
@@ -85,9 +95,22 @@ class RouterState:
         self.batches_dispatched[i] += 1
 
 
+def _ladder_pick(ladder: Tuple[str, str, str], state) -> str:
+    """The tier of ``ladder`` (plane-packed, packed, dense) that matches
+    ``state``'s wire format."""
+    if state.plane_packed:
+        return ladder[0]
+    return ladder[1] if state.packed else ladder[2]
+
+
 @dataclasses.dataclass(frozen=True)
 class ReplicaPool:
     """R programmed crossbars sharing one set of TA actions."""
+
+    # The engine's default backends, the reference's analog ladder:
+    # plane-packed, packed literals, dense.
+    BACKENDS = ("analog-cuda-packed2", "analog-cuda-packed", "analog-cuda")
+    KIND = "replica"                # the snapshot manifest's pool kind
 
     r_stack: torch.Tensor           # [R, C, L] programmed resistances (Ω)
     include: torch.Tensor           # [C, L] bool TA actions
@@ -128,6 +151,56 @@ class ReplicaPool:
     def router(self) -> RouterState:
         """A fresh routing-counter block sized for this pool."""
         return RouterState.create(self.n_replicas)
+
+    def default_backend(self, state: ReplicaStackState) -> str:
+        return _ladder_pick(self.BACKENDS, state)
+
+    def routes(self, state: ReplicaStackState) -> List[ReplicaStackState]:
+        """The ``[1, C, L]`` single-chip views routed dispatch reads, one
+        per replica."""
+        return [state.replica_slice(i) for i in range(self.n_replicas)]
+
+    def check_compatible(self, other: "ReplicaPool") -> None:
+        """Raise unless ``other`` can replace this pool under a running
+        engine: the same model shape and crossbar / noise configs."""
+        if other.include.shape != self.include.shape:
+            raise ValueError(
+                f"install_pool: model shape changed "
+                f"({tuple(self.include.shape)} -> "
+                f"{tuple(other.include.shape)})")
+        if (other.icfg, other.vcfg) != (self.icfg, self.vcfg):
+            raise ValueError(
+                "install_pool: crossbar/noise config changed; backend "
+                "selection is static per engine — build a new engine "
+                "instead")
+
+    def clean_reference(self, tm_cfg: TMConfig) -> DigitalState:
+        """The digital TM of the programmed model: faults live in
+        ``r_stack``, never in ``include``, so this is the clean answer."""
+        return DigitalState.from_include(self.include, tm_cfg)
+
+    def leaves(self) -> dict:
+        """The tensors a snapshot saves."""
+        return {"r_stack": self.r_stack, "include": self.include}
+
+    def from_leaves(self, tree: dict, version: int) -> "ReplicaPool":
+        """This pool's configs around saved :meth:`leaves`; snapshots hold
+        only the programmed model, so the result carries no fault mask."""
+        return dataclasses.replace(
+            self, r_stack=tree["r_stack"],
+            include=tree["include"].to(torch.bool), version=int(version),
+            fault_mask=None)
+
+    def reprogrammed(self, ta_state: torch.Tensor,
+                     generator: Optional[torch.Generator], tm_cfg: TMConfig,
+                     *, weights: Optional[torch.Tensor] = None
+                     ) -> "ReplicaPool":
+        """:meth:`reprogram` from trained TA states (``weights`` is for a
+        coalesced pool and unused here)."""
+        del weights
+        include = include_mask(torch.as_tensor(ta_state).to(self.device),
+                               tm_cfg)
+        return self.reprogram(include, generator)
 
     def crossbar(self, i: int) -> ProgrammedCrossbar:
         """Replica ``i`` as a standalone ``ProgrammedCrossbar``."""
@@ -197,6 +270,11 @@ class CoalescedPool:
     is pinned nominal.
     """
 
+    # The coalesced family's ladder, in the same tier order.
+    BACKENDS = ("coalesced-cuda-packed2", "coalesced-cuda-packed",
+                "coalesced-cuda")
+    KIND = "coalesced"
+
     ta_state: torch.Tensor          # [C, L] trained TA states
     weights: torch.Tensor           # [C, M] per-(clause, class) weights
     cfg: CoalescedConfig
@@ -244,6 +322,51 @@ class CoalescedPool:
 
     def router(self) -> RouterState:
         return RouterState.create(self.n_replicas)
+
+    def default_backend(self, state: CoalescedState) -> str:
+        return _ladder_pick(self.BACKENDS, state)
+
+    def routes(self, state: CoalescedState) -> List[CoalescedState]:
+        """One shared chip: every route reads the full state."""
+        return [state]
+
+    def check_compatible(self, other: "CoalescedPool") -> None:
+        """Raise unless ``other`` has this pool's config and shapes."""
+        if other.cfg != self.cfg:
+            raise ValueError("install_pool: coalesced config changed; "
+                             "build a new engine instead")
+        if (other.ta_state.shape != self.ta_state.shape
+                or other.weights.shape != self.weights.shape):
+            raise ValueError("install_pool: model shape changed")
+
+    def clean_reference(self, tm_cfg: Optional[CoalescedConfig] = None
+                        ) -> CoalescedState:
+        """The state without the fault mask: the TA plane is clean by
+        design (:meth:`state` applies the mask on the fly)."""
+        del tm_cfg
+        return CoalescedState(ta_state=self.ta_state, weights=self.weights,
+                              cfg=self.cfg)
+
+    def leaves(self) -> dict:
+        return {"ta_state": self.ta_state, "weights": self.weights}
+
+    def from_leaves(self, tree: dict, version: int) -> "CoalescedPool":
+        return dataclasses.replace(
+            self, ta_state=tree["ta_state"], weights=tree["weights"],
+            version=int(version), fault_mask=None)
+
+    def reprogrammed(self, ta_state: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     tm_cfg: Optional[CoalescedConfig] = None, *,
+                     weights: Optional[torch.Tensor] = None
+                     ) -> "CoalescedPool":
+        """:meth:`reprogram`; the digital tail draws nothing, so
+        ``generator`` is unused, and ``weights`` is required."""
+        del generator, tm_cfg
+        if weights is None:
+            raise ValueError("a coalesced pool re-programs from "
+                             "(ta_state, weights); pass weights=")
+        return self.reprogram(ta_state, weights)
 
     def reprogram(self, ta_state: torch.Tensor,
                   weights: torch.Tensor) -> "CoalescedPool":

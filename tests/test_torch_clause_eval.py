@@ -78,21 +78,7 @@ def test_coalesced_ops_match_reference(which, shape):
     m = 5
     lits, inc = _lits_include(b, c, l, seed=b + c + l)
     w = _weights(c, m, seed=c)
-    if which == "dense":
-        got = ops.coalesced_class_sums(
-            torch.from_numpy(lits), torch.from_numpy(inc),
-            torch.from_numpy(w), device="cpu")
-        want = ref_ops.coalesced_class_sums(
-            jnp.asarray(lits), jnp.asarray(inc), jnp.asarray(w))
-    else:
-        fn = {"planes": (ops.coalesced_class_sums_planes,
-                         ref_ops.coalesced_class_sums_planes),
-              "packed": (ops.coalesced_class_sums_packed,
-                         ref_ops.coalesced_class_sums_packed)}[which]
-        got = fn[0](_t_words(lits), _t_words(inc), torch.from_numpy(w),
-                    device="cpu")
-        want = fn[1](jnp.asarray(_words(lits)), jnp.asarray(_words(inc)),
-                     jnp.asarray(w))
+    got, want = _coalesced_pair(which, lits, inc, w)
     assert got.dtype == torch.int32 and got.shape == (b, m)
     np.testing.assert_array_equal(got.numpy(), _ref_sums(want))
     assert np.count_nonzero(got.numpy()) > 0              # not all zeros
@@ -103,19 +89,21 @@ def test_coalesced_ops_match_reference(which, shape):
 
 
 def _coalesced_pair(which, lits, inc, w):
-    """``(port, reference)`` coalesced class sums of one op."""
+    """``(port, reference)`` coalesced class sums of one op: the port's
+    wrapper with the combine matrix built from ``w`` (as a
+    ``CoalescedState`` builds it), the reference's from ``w`` itself."""
+    comb = ops.coalesced_combine(torch.from_numpy(w),
+                                 torch.from_numpy(inc).any(-1))
     if which == "dense":
-        return (ops.coalesced_class_sums(
-                    torch.from_numpy(lits), torch.from_numpy(inc),
-                    torch.from_numpy(w), device="cpu"),
+        return (ops.tm_class_sums(torch.from_numpy(lits),
+                                  torch.from_numpy(inc), comb, device="cpu"),
                 ref_ops.coalesced_class_sums(
                     jnp.asarray(lits), jnp.asarray(inc), jnp.asarray(w)))
-    fn = {"planes": (ops.coalesced_class_sums_planes,
+    fn = {"planes": (ops.tm_class_sums_planes,
                      ref_ops.coalesced_class_sums_planes),
-          "packed": (ops.coalesced_class_sums_packed,
+          "packed": (ops.tm_class_sums_packed,
                      ref_ops.coalesced_class_sums_packed)}[which]
-    return (fn[0](_t_words(lits), _t_words(inc), torch.from_numpy(w),
-                  device="cpu"),
+    return (fn[0](_t_words(lits), _t_words(inc), comb, device="cpu"),
             fn[1](jnp.asarray(_words(lits)), jnp.asarray(_words(inc)),
                   jnp.asarray(w)))
 
@@ -157,14 +145,15 @@ def test_digital_ops_match_reference(mjf, packed):
                               n_features=f)
     b = 11
     lits, inc = _lits_include(b, cfg.n_clauses, cfg.n_literals, seed=m * j)
+    pol = ops.polarity_matrix(cfg, torch.from_numpy(inc))
     if packed:
-        got = ops.tm_class_sums_packed(_t_words(lits), _t_words(inc), cfg,
+        got = ops.tm_class_sums_packed(_t_words(lits), _t_words(inc), pol,
                                        device="cpu")
         want = ref_ops.tm_class_sums_packed(
             jnp.asarray(_words(lits)), jnp.asarray(_words(inc)), ref_cfg)
     else:
         got = ops.tm_class_sums(torch.from_numpy(lits),
-                                torch.from_numpy(inc), cfg, device="cpu")
+                                torch.from_numpy(inc), pol, device="cpu")
         want = ref_ops.tm_class_sums(jnp.asarray(lits), jnp.asarray(inc),
                                      ref_cfg)
     np.testing.assert_array_equal(got.numpy(), _ref_sums(want))

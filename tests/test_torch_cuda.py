@@ -822,3 +822,154 @@ def test_flash_plain_backward_gradcheck_on_the_card(cuda):
           .requires_grad_(True) for _ in range(3)]
     assert torch.autograd.gradcheck(Plain.apply, ts, eps=1e-6, atol=1e-6,
                                     rtol=1e-5)
+
+
+def _live_engines(cuda, cls, routing, n_replicas=4, **ecfg_kw):
+    """An engine at imbue-tm-mnist width under D2D + C2C on the card, on
+    a seed-drawn sparse TA state."""
+    from repro_torch.serve import BatcherConfig, EngineConfig
+    cfg = _analog_config(F_MNIST)
+    rng = np.random.default_rng(5)
+    inc = rng.random((cfg.n_clauses, cfg.n_literals)) < 0.006
+    ta = torch.from_numpy(np.where(inc, cfg.n_states + 1,
+                                   cfg.n_states).astype(np.int16))
+    eng = cls.from_ta_state(
+        ta, cfg, n_replicas=n_replicas, seed=13,
+        vcfg=VariationConfig(csa_offset=False),
+        ecfg=EngineConfig(routing=routing,
+                          batcher=BatcherConfig(max_batch=64,
+                                                bucket_sizes=(8, 64)),
+                          **ecfg_kw), device=cuda)
+    return eng, cfg, rng
+
+
+@pytest.mark.parametrize("routing", ["round_robin", "ensemble"])
+def test_async_engine_on_cuda_events_equals_sync(cuda, routing):
+    """The async engine keeps ``max_in_flight`` issues outstanding (each
+    with a CUDA event behind pinned host copies) and answers bit for bit
+    as the sync engine on the same seed."""
+    from repro_torch.serve import AsyncServeEngine, ServeEngine
+    out, reached = {}, []
+    for cls in (ServeEngine, AsyncServeEngine):
+        eng, cfg, rng = _live_engines(cuda, cls, routing)
+        xs = (rng.random((320, cfg.n_features)) < 0.5).astype(np.uint8)
+        if cls is AsyncServeEngine:
+            orig = eng._dispatch
+
+            def dispatch(b, eng=eng, orig=orig):
+                orig(b)
+                reached.append(eng.in_flight)
+                fl = eng._pending[-1]
+                assert isinstance(fl.event, torch.cuda.Event)
+                assert fl.sums.is_pinned() and fl.preds.is_pinned()
+                assert fl.device_tensors[0].is_cuda
+
+            eng._dispatch = dispatch
+        eng.submit_many(list(xs))
+        eng.pump(force=True)
+        out[cls.__name__] = (eng.drain(), eng.summary())
+    (got, s), (want, _) = out["AsyncServeEngine"], out["ServeEngine"]
+    assert max(reached) == 2 and s["fallback_dispatches"] == 0
+    assert len(got) == len(want) == 320
+    for g, w in zip(got, want):
+        assert (g.rid, g.pred, g.replica) == (w.rid, w.pred, w.replica)
+        np.testing.assert_array_equal(g.class_sums, w.class_sums)
+
+
+def test_canary_of_the_serving_state_replays_the_noise(cuda):
+    """At R = 1 under C2C, a canary armed with the serving state itself
+    scores agreement 1.0, with canary sums equal to the shadow's: the
+    serving generator's state is replayed for the shadow read."""
+    from repro_torch.serve import CANARY, ServeEngine
+    eng, cfg, rng = _live_engines(cuda, ServeEngine, "round_robin",
+                                  n_replicas=1)
+    reads = []
+    orig = eng._forward
+
+    def spy(state, lits, generator, mask):
+        sums, preds = orig(state, lits, generator, mask)
+        reads.append(sums.clone())
+        return sums, preds
+
+    eng._forward = spy
+    eng.arm_canary(eng._slices[0], 1, 1.0)
+    xs = (rng.random((128, cfg.n_features)) < 0.5).astype(np.uint8)
+    eng.submit_many(list(xs))
+    out = eng.drain()
+    assert all(r.replica == CANARY for r in out)
+    assert eng.metrics.canary_rows == 128
+    assert eng.metrics.canary_agreement() == 1.0
+    assert len(reads) == 4
+    for canary, shadow in zip(reads[::2], reads[1::2]):
+        assert torch.equal(canary, shadow)
+    assert any(bool((r != 0).any()) for r in reads)
+
+
+@pytest.mark.parametrize("routing", ["round_robin", "ensemble"])
+def test_an_issue_never_waits_for_the_card(cuda, routing):
+    """``_issue``, with and without a canary, performs no synchronizing
+    CUDA operation: the rows reach the card from a page-locked slot
+    without blocking, so every host wait of a dispatch is in its collect,
+    where the overlap accounting counts it."""
+    from repro_torch.serve import ServeEngine
+    eng, cfg, rng = _live_engines(cuda, ServeEngine, routing)
+    xs = (rng.random((64, cfg.n_features)) < 0.5).astype(np.uint8)
+    eng.arm_canary(eng._slices[0], 1, 1.0)      # warm: kernels built and
+    eng.submit_many(list(xs))                   # every slot buffer made
+    eng.drain()
+    eng.disarm_canary()
+    for canary in (False, True):
+        if canary:
+            eng.arm_canary(eng._slices[0], 1, 1.0)
+        eng.submit_many(list(xs))
+        batch = eng.batcher.cut(eng.clock(), force=True)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fl = eng._issue(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        eng._collect(fl)
+    assert eng._n_slots == 1 and eng.metrics.canary_rows == 128
+
+
+def test_responses_keep_their_sums_when_slots_are_reused(cuda):
+    """A Response's class sums are its own copy: serving more batches
+    through the same page-locked slots leaves earlier Responses as they
+    were, and the engine holds no more slots than ``max_in_flight``."""
+    from repro_torch.serve import AsyncServeEngine
+    eng, cfg, rng = _live_engines(cuda, AsyncServeEngine, "round_robin")
+    xs = (rng.random((448, cfg.n_features)) < 0.5).astype(np.uint8)
+    eng.submit_many(list(xs[:64]))
+    first = eng.drain()
+    kept = [(r.pred, r.class_sums.copy()) for r in first]
+    for lo in range(64, len(xs), 128):
+        eng.submit_many(list(xs[lo:lo + 128]))
+        eng.pump(force=True)
+    eng.drain()
+    assert eng._n_slots == eng.ecfg.max_in_flight == 2
+    for r, (pred, sums) in zip(first, kept):
+        assert r.pred == pred
+        np.testing.assert_array_equal(r.class_sums, sums)
+        assert r.class_sums.base.flags.owndata      # numpy's, not a slot's
+
+
+def test_a_failed_issue_gives_up_its_slot(cuda):
+    """An issue that raises drops its host slot (a copy may still read
+    it), so the engine goes on serving with a fresh one."""
+    from repro_torch.serve import ServeEngine
+    eng, cfg, rng = _live_engines(cuda, ServeEngine, "round_robin")
+    xs = (rng.random((64, cfg.n_features)) < 0.5).astype(np.uint8)
+    orig = eng._forward
+
+    def fail(*args):
+        raise RuntimeError("injected")
+
+    eng._forward = fail
+    eng.submit_many(list(xs))
+    with pytest.raises(RuntimeError, match="injected"):
+        eng.pump(force=True)
+    assert eng._n_slots == 0 and not eng._free_slots
+    eng._forward = orig
+    eng.submit_many(list(xs))
+    assert len(eng.drain()) == 64 and eng._n_slots == 1

@@ -145,18 +145,19 @@ def test_coalesced_entry_points_raise_without_device_and_cuda(no_cuda):
     lits = torch.ones(3, 10, dtype=torch.uint8)
     inc = torch.from_numpy(ta > ccfg.n_states)
     litw, incw = bitpack.pack_bits(lits), bitpack.pack_bits(inc)
-    wt = torch.from_numpy(w)
+    combs = (ops.coalesced_combine(torch.from_numpy(w), inc.any(-1)),
+             ops.polarity_matrix(dcfg, inc))
     calls = {
-        "coalesced_class_sums_planes": (litw, incw, wt),
-        "coalesced_class_sums_packed": (litw, incw, wt),
-        "coalesced_class_sums": (lits, inc, wt),
-        "tm_class_sums_packed": (litw, incw, dcfg),
-        "tm_class_sums": (lits, inc, dcfg),
+        "tm_class_sums_planes": (litw, incw),
+        "tm_class_sums_packed": (litw, incw),
+        "tm_class_sums": (lits, inc),
     }
-    for name, args in calls.items():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            getattr(ops, name)(*args)
-        assert getattr(ops, name)(*args, device="cpu").shape == (3, 2)
+    for comb in combs:
+        for name, args in calls.items():
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                getattr(ops, name)(*args, comb)
+            assert getattr(ops, name)(*args, comb, device="cpu").shape == (
+                3, 2)
     eng = engine.ServeEngine.from_coalesced(
         torch.from_numpy(ta), torch.from_numpy(w), ccfg, device="cpu")
     assert eng.device.type == "cpu"
