@@ -15,7 +15,11 @@ It drives the plane-packed analog path (``ServeEngine.from_ta_state`` ->
 training path: ``tm_train.fit`` (batch steps on ``clause_eval_packed``,
 sequential steps on ``clause_eval``), ``OnlineTrainer``, a checkpoint
 round trip and ``coalesced.fit``, whose trained states the engine then
-serves; and flash attention (``flash_attention_trainable`` forward and
+serves; the streaming path (``StreamServer`` sessions over the analog
+engine -> ``imbue_infer_planes``, over the coalesced engine ->
+``tm_infer_planes``; KWS-6 and anomaly training -> ``clause_eval_packed``;
+the ``repro_torch.launch.stream`` CLI) and the Monte-Carlo variation
+studies; and flash attention (``flash_attention_trainable`` forward and
 backward -> ``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``;
 ``flash_attention`` -> ``flash_fwd``) at the attention widths of
 qwen2-0.5b, gemma2-2b and the whisper-large-v3 encoder.
@@ -41,19 +45,23 @@ is non-zero and no result line is printed):
 2. kernels — every kernel against its plain PyTorch version on the card,
    tolerance 0: ``imbue_infer_planes`` at the imbue-tm-mnist width (R in
    {1, 4}, B in ``CHECK_BATCHES`` = {1, 8, 64, 128, 129}, with and
-   without the deviation plane) and one ragged small shape;
+   without the deviation plane), one ragged small shape, and R = 4,
+   B = 128 at the streaming widths (KWS: C = 1800, L = 768, M = 6;
+   anomaly: C = 600, L = 512, M = 2);
    ``imbue_infer_packed`` and ``imbue_infer`` at the same width on the
    g / leak planes of D2D-programmed and of nominal chips (R in {1, 4},
    B in ``CHECK_BATCHES``) and one ragged shape;
    the three TM kernels at the digital width (imbue-tm-mnist, C = 2000)
-   and the coalesced width (C = 1000), B in {8, 64, 128}, and one ragged
+   and the coalesced width (C = 1000), B in {8, 64, 128}, one ragged
    shape (ragged: C not a multiple of the clause tile, L not a multiple
-   of 32, B odd, an empty clause); guards on the share of non-zero sums
-   and of fired clauses.  The two clause-bit kernels
+   of 32, B odd, an empty clause), and B = 128 at the streaming widths
+   (KWS, its coalesced pool ``STREAM_COALESCED`` of C = 900, anomaly);
+   guards on the share of non-zero sums and of fired clauses.  The two clause-bit kernels
    (``clause_eval_packed``, ``clause_eval``) at the digital and the
    coalesced width with one clause in 16 emptied, B in ``CLAUSE_BATCHES``
    = {1, 8, 64, 208, 256} (256: the batch training step; 208: an extra
-   ragged batch, a multiple of 16 but of no 64-row tile),
+   ragged batch, a multiple of 16 but of no 64-row tile), the streaming
+   widths at their training step (B = ``STREAM_TRAIN_BATCH`` = 200),
    and the ragged shape: every empty clause reads 1, 5-95 % of bits fire
    (at least 1 % of the non-empty clauses' bits).  Then the cross-tier
    check: on one D2D + stuck-at plane-packed stack at full width, read
@@ -106,10 +114,33 @@ is non-zero and no result line is printed):
    fresh ``from_ta_state`` pool, a second rollout rolled back equal to
    its snapshot); the coalesced engine at ``COALESCED``: ``hot_swap``
    with new weights, a 25 % + 25 % injury held by the last-healthy floor,
-   ``RepairPolicy.repair``.  Each path's launch counters are zeroed just
-   before it and read just after: one launch per dispatch (plus one per
-   probe read and canary shadow read on the live path, and one
-   ``tm_infer`` per probe commit), 0 fallbacks;
+   ``RepairPolicy.repair``; (h) the streaming path: KWS-6 (``KWS_TASK``:
+   imbue-tm-kws6's 6 x 300 clauses and hyperparameters at the windower's
+   8 frames x 12 mels x 4 bits = 384 features) and the sensor anomaly
+   model (``ANOMALY_TASK``: 2 x 300 clauses, 8 x 8 x 4 = 256 features),
+   their streams drawn on a CPU generator (the train frames' sha256
+   printed), windowed with numpy and trained ``STREAM_EPOCHS`` epochs of
+   ``fit(parallel=True, batch_size=200)`` (KWS at least
+   ``KWS_ACCURACY_FLOOR``); ``STREAM_SESSIONS`` = 64 KWS sessions of 256
+   frames fed one hop a session a round with a ``pump()`` each round, on
+   R = 4 chips under ``BatcherConfig.for_max_batch(128)``: at nominal in
+   ``ensemble`` and ``round_robin`` on both engines (every window equal
+   to offline ``api.predict`` and the digital TM, every keyword the
+   vote; decisions/s, per-session p50 / p99 window latency,
+   ``mean_batch``, ``padding_overhead``, ``overlap_fraction``; one more
+   round of each engine under ``torch.profiler`` for the device's idle
+   share), under D2D + C2C on both engines (bit-equal decisions, keyword
+   accuracy); 32 anomaly sessions in ``margin`` mode on the async engine,
+   half of them latency-class (margins equal ``margin_of`` on offline
+   ``api.class_sums``); the 64 sessions through a coalesced pool at the
+   KWS width (``STREAM_COALESCED``, ``coalesced-cuda-packed2``; every
+   window equal to ``core.coalesced.forward``); and the streaming CLI,
+   ``launch.stream.main`` with ``STREAM_CLI_ARGS``, KWS and anomaly.
+   Each path's launch counters are zeroed just before it and read just
+   after: one launch per dispatch (plus one per probe read and canary
+   shadow read on the live path, one ``tm_infer`` per probe commit, and
+   on the stream path the offline ``api.predict`` / ``api.class_sums``
+   checks and the training steps), 0 fallbacks;
 4. training — on a numpy-drawn image task (``IMAGE_TASK``): at
    imbue-tm-mnist, ``init_ta_state`` then ``TRAIN_EPOCHS`` epochs of
    ``fit(parallel=True, batch_size=256)`` (test accuracy and ms per step
@@ -124,7 +155,13 @@ is non-zero and no result line is printed):
    checkpoint round trip, and the trained states served: 512 test
    requests through ``ServeEngine.from_ta_state`` (R = 4, nominal), each
    equal to the digital TM, and through ``ServeEngine.from_coalesced``,
-   each equal to ``core.coalesced.forward``; then the flash path: at the
+   each equal to ``core.coalesced.forward``; the Monte-Carlo row:
+   ``monte_carlo_accuracy`` and ``clause_error_rate``, ``MC_DRAWS`` = 16
+   draws on ``MC_ROWS`` = 512 requests of the serving phases'
+   imbue-tm-mnist model (at nominal every draw equal to the digital
+   accuracy and no clause error; under ``VariationConfig()`` the mean
+   accuracy at least the digital one - 0.02, the worst clause error rate
+   at most 0.01; ms a draw); then the flash path: at the
    main row, ``FLASH_PATH_STEPS`` forward + backward steps of
    ``flash_attention_trainable`` (exactly one launch of each flash kernel
    a step) and one ``flash_attention`` (the forward kernel alone);
@@ -168,7 +205,8 @@ kernel's launches on its main path: the plane-packed analog path for
 ``imbue_infer_planes``, the lower analog tiers for ``imbue_infer_packed``
 and ``imbue_infer``, the coalesced path for the TM kernels, the training
 path for the clause-bit kernels, the trainable attention steps for the
-flash kernels), the ``nvidia-smi`` line, and last ``{"ok": true,
+flash kernels; the stream path's counts are in the ``launches`` line),
+the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``.  The
 serving phases' models are built with numpy from a seed, without
 training: each clause includes 8-16 literals that are 1 on a class
@@ -178,7 +216,10 @@ training phase trains its own from ``init_ta_state``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import hashlib
+import io
 import json
 import re
 import statistics
@@ -302,6 +343,52 @@ COALESCED_EPOCHS = 3
 # on the CPU: benchmarks/reference_train_accuracy.py) is in PERF.md; the
 # floor leaves room for the port's other random draws.
 TRAIN_ACCURACY_FLOOR = 0.95
+# The streaming path (phase 3 (h)).  KWS: the imbue-tm-kws6 zoo entry's
+# clauses and hyperparameters (src/repro/configs/imbue_tm.py:23-25: 6 x 300
+# clauses, N = 127, T = 50, s = 10; copied) at the windower's width, 8
+# frames x 12 mels x 4 bits = 384 Boolean features (L = 768).  The zoo's
+# 377 features are Table IV's, which no window x mels x bits product gives.
+# Anomaly: 2 x 300 clauses over 8 frames x 8 sensors x 4 bits = 256
+# features.  Streams of 32 frames windowed every 4 frames (7 windows a
+# stream), drawn on a CPU generator from ``seed``, train set first.
+KWS_TASK = dict(kind="kws", n_classes=6, clauses_per_class=300, channels=12,
+                bits=4, window=8, hop=4, n_train=480, n_test=160,
+                n_frames=32, seed=SEED)
+ANOMALY_TASK = dict(kind="anomaly", n_classes=2, clauses_per_class=300,
+                    channels=8, bits=4, window=8, hop=4, n_train=240,
+                    n_test=80, n_frames=32, seed=SEED + 1)
+STREAM_HPARAMS = dict(n_states=127, threshold=50, specificity=10.0)
+STREAM_EPOCHS = 6
+STREAM_TRAIN_BATCH = 200
+# The streaming rounds: STREAM_SESSIONS KWS sessions of 8 utterances (256
+# frames, 63 windows each), fed one hop a session a round with a pump()
+# each round; ANOMALY_SESSIONS sensor sessions of 64 frames.
+STREAM_SESSIONS = 64
+STREAM_UTTERANCES = 8
+ANOMALY_SESSIONS = 32
+ANOMALY_FRAMES = 64
+STREAM_BATCH = 128
+STREAM_VOTE = 5
+# The streaming CLI's runs (round 6), each also with --workload anomaly.
+STREAM_CLI_ARGS = ("--clauses", "300", "--sessions", "64", "--replicas",
+                   "4", "--routing", "ensemble", "--async-serve", "--json")
+STREAM_KERNELS = ("imbue_infer_planes", "tm_infer_planes",
+                  "clause_eval_packed")
+# The coalesced streaming round: one shared pool of half the KWS model's
+# clause rows (COALESCED's rule), at the KWS width.
+STREAM_COALESCED = dict(n_classes=6, n_clauses=900, n_features=384,
+                        n_states=127)
+# Test window accuracy floor of the trained KWS model after STREAM_EPOCHS
+# epochs: the reference's accuracy on the same arrays (train frames' sha256
+# ed1b7fef...), config, epochs and batch, 0.9982 (JAX on the CPU,
+# benchmarks/reference_train_accuracy.py; PERF.md), minus 0.05 for the
+# port's other random draws.
+KWS_ACCURACY_FLOOR = 0.948
+# The Monte-Carlo row (phase 4): draws of monte_carlo_accuracy and
+# clause_error_rate on MC_ROWS requests of the serving phases' numpy-built
+# imbue-tm-mnist model.
+MC_DRAWS = 16
+MC_ROWS = 512
 # Flash attention at the attention widths of three architectures the repo
 # registers (src/repro/configs/archs.py; the numbers are copied, the port
 # imports nothing of the reference), in the models' compute dtype (bf16),
@@ -440,14 +527,16 @@ def prototype_task(cfg, n, seed, flip=FLIP):
     return ta, x.astype(np.uint8), y
 
 
-def coalesced_task(ccfg, n, seed, flip=FLIP):
+def coalesced_task(ccfg, n, seed, flip=FLIP, protos=None):
     """A coalesced model and ``n`` labelled requests.  Clause ``c`` has
     class ``c % M`` and includes 8-16 literals that are 1 on that class's
-    prototype; its weights are integers in [-127, 127], 64-127 for its
-    own class and -127..31 for the others, so predictions are not noise."""
+    prototype (drawn uniformly unless ``protos`` ``[M, F]`` is given); its
+    weights are integers in [-127, 127], 64-127 for its own class and
+    -127..31 for the others, so predictions are not noise."""
     rng = np.random.default_rng(seed)
     m_cls, f, c_n = ccfg.n_classes, ccfg.n_features, ccfg.n_clauses
-    protos = (rng.random((m_cls, f)) < 0.5).astype(np.uint8)
+    if protos is None:
+        protos = (rng.random((m_cls, f)) < 0.5).astype(np.uint8)
     proto_lits = np.concatenate([protos, 1 - protos], axis=1)
     own = np.arange(c_n) % m_cls
     include = np.zeros((c_n, ccfg.n_literals), bool)
@@ -481,6 +570,47 @@ def image_task(n_classes, side, density, noise, n_train, n_test, seed):
         flips = (rng.random((n, f)) < noise).astype(np.uint8)
         return protos[y] ^ flips, y
     return (*make(n_train), *make(n_test))
+
+
+def sha256(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def draw_streams(kind, gen, n, n_frames, channels):
+    """``n`` raw streams from the port's generator on the CPU ``gen``
+    (numpy): KWS ``(frames [n, T, mels], utterance labels [n])``, anomaly
+    ``(frames [n, T, sensors], per-frame labels [n, T])``."""
+    from repro_torch.data import tm_datasets
+    if kind == "kws":
+        x, y = tm_datasets.synthetic_kws6(gen, n, n_frames, channels,
+                                          device="cpu")
+    else:
+        x, y = tm_datasets.synthetic_sensor_anomaly(gen, n, n_frames,
+                                                    channels, device="cpu")
+    return x.numpy(), y.numpy()
+
+
+def stream_arrays(task):
+    """A streaming task's ``(x_train, labels_train, x_test, labels_test)``,
+    drawn on one CPU generator seeded ``task["seed"]``, train first."""
+    gen = torch.Generator().manual_seed(task["seed"])
+    return (*draw_streams(task["kind"], gen, task["n_train"],
+                          task["n_frames"], task["channels"]),
+            *draw_streams(task["kind"], gen, task["n_test"],
+                          task["n_frames"], task["channels"]))
+
+
+def stream_fields(task):
+    """``TMConfig`` fields of a streaming task."""
+    return dict(n_classes=task["n_classes"],
+                clauses_per_class=task["clauses_per_class"],
+                n_features=task["window"] * task["channels"] * task["bits"],
+                **STREAM_HPARAMS)
+
+
+def stream_config(task):
+    from repro_torch.core.tm import TMConfig
+    return TMConfig(**stream_fields(task))
 
 
 def coalesced_config():
@@ -521,6 +651,30 @@ def tm_widths(device, n=128, seed=SEED):
     out.append(("coalesced", cinc,
                 ops.coalesced_combine(torch.from_numpy(w).to(device),
                                       cinc.any(dim=-1)), cx))
+    return out
+
+
+def stream_widths(device, n=128, seed=SEED + 5):
+    """The TM and clause kernels' operands at the streaming path's widths:
+    ``(label, include, comb, x)`` at the KWS width (C = 1800, L = 768,
+    M = 6; polarity), its coalesced pool (C = 900; weights) and the anomaly
+    width (C = 600, L = 512, M = 2; polarity), ``n`` prototype requests
+    each."""
+    from repro_torch.core import tm
+    from repro_torch.core.coalesced import CoalescedConfig
+    from repro_torch.kernels import ops
+    out = []
+    for label, task in (("kws", KWS_TASK), ("anomaly", ANOMALY_TASK)):
+        cfg = stream_config(task)
+        ta, x, _ = prototype_task(cfg, n, seed)
+        inc = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
+        out.append((label, inc, ops.polarity_matrix(cfg, inc, device=device),
+                    x))
+    ccfg = CoalescedConfig(**STREAM_COALESCED)
+    cta, w, cx, _ = coalesced_task(ccfg, n, seed + 1)
+    cinc = torch.from_numpy(cta > ccfg.n_states).to(device)
+    out.insert(1, ("kws-coalesced", cinc, ops.coalesced_combine(
+        torch.from_numpy(w).to(device), cinc.any(dim=-1)), cx))
     return out
 
 
@@ -827,6 +981,10 @@ def phase_kernels(device):
                      n_states=100)
     sta, sx, _ = prototype_task(small, 13, SEED + 1)
     shapes.append((small, sta, sx, 3, True))
+    for task in (KWS_TASK, ANOMALY_TASK):              # the stream path
+        cfg_t = stream_config(task)
+        tta, tx, _ = prototype_task(cfg_t, 128, SEED + 5)
+        shapes.append((cfg_t, tta, tx, REPLICAS, True))
     rows, max_err = [], 0
     for i, (cfg_i, ta_i, x_i, r, with_dev) in enumerate(shapes):
         ops_in = planes_case(cfg_i, ta_i, x_i, r, with_dev, SEED + i, device)
@@ -862,8 +1020,9 @@ def unaligned_bytes(t):
 
 def phase_tm_kernels(device):
     """The three TM kernels against their plain versions, tolerance 0, at
-    both widths, B in CHECK_BATCHES and 256, the ragged shape, and
-    ``tm_infer`` on byte operands one byte past a 16-byte boundary."""
+    both widths, B in CHECK_BATCHES and 256, the ragged shape, the
+    streaming widths at B = 128, and ``tm_infer`` on byte operands one
+    byte past a 16-byte boundary."""
     from repro_torch.core.coalesced import CoalescedConfig
     from repro_torch.kernels import ops
     cases = [(label, inc, comb, x[:b], False) for label, inc, comb, x
@@ -876,6 +1035,8 @@ def phase_tm_kernels(device):
     rinc[50] = False                                        # empty clause
     cases.append(("ragged", rinc, ops.coalesced_combine(
         torch.from_numpy(rw), rinc.any(dim=-1)), rx, False))
+    cases += [(label, inc, comb, x, False)
+              for label, inc, comb, x in stream_widths(device)]
     label, inc, comb, x, _ = next(c for c in cases if c[0] == "coalesced"
                                   and len(c[3]) == 128)
     cases.append((label, inc, comb, x, True))               # unaligned
@@ -1606,6 +1767,383 @@ def phase_live(device):
                                  "tm_infer"))
 
 
+# ---------------------------------------------------------- stream path
+
+def stream_model(task, device):
+    """(h) round 1: a streaming task trained on the card.  Its streams are
+    drawn on the CPU, windowed with numpy by a quantile booleanizer fit on
+    the train frames (on the card), and trained with ``fit(parallel=True,
+    batch_size=STREAM_TRAIN_BATCH)`` from ``init_ta_state``, one epoch a
+    call: test window accuracy and ms per step each epoch, one
+    ``clause_eval_packed`` launch a step, states int16 in [1, 2N]."""
+    from repro_torch.core import tm, tm_train
+    from repro_torch.core.booleanize import StreamingBooleanizer, fit_quantile
+    from repro_torch.data import tm_datasets
+    from repro_torch.kernels.clause_eval import clause_eval_packed
+    cfg = stream_config(task)
+    xtr, ltr, xte, lte = stream_arrays(task)
+    b = fit_quantile(xtr.reshape(-1, task["channels"]), task["bits"],
+                     device=device)
+    sb = StreamingBooleanizer(b, task["window"], task["hop"])
+    windows = (tm_datasets.kws6_windows if task["kind"] == "kws"
+               else tm_datasets.sensor_anomaly_windows)
+    rtr, ytr = windows(xtr, ltr, sb)
+    rte, yte = windows(xte, lte, sb)
+    dtr, dytr, dte, dyte = (torch.from_numpy(a).to(device)
+                            for a in (rtr, ytr, rte, yte))
+    gen = torch.Generator(device=device).manual_seed(task["seed"] + 700)
+    ta = tm.init_ta_state(gen, cfg, device)
+    steps = len(rtr) // STREAM_TRAIN_BATCH
+    rows = []
+    for epoch in range(1, STREAM_EPOCHS + 1):
+        launches0 = clause_eval_packed.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ta = tm_train.fit(ta, gen, dtr, dytr, cfg, epochs=1,
+                          batch_size=STREAM_TRAIN_BATCH, parallel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = clause_eval_packed.launches - launches0
+        if launches != steps:
+            raise AssertionError(f"{task['kind']}: {launches} "
+                                 f"clause_eval_packed launches for {steps} "
+                                 "batch steps")
+        check_states(ta, cfg.n_states, f"{task['kind']} fit")
+        rows.append({"epoch": epoch, "steps": steps, "launches": launches,
+                     "test_accuracy": float(tm.accuracy(ta, dte, dyte, cfg)),
+                     "ms_per_step": wall * 1e3 / steps})
+    acc = rows[-1]["test_accuracy"]
+    floor = KWS_ACCURACY_FLOOR if task is KWS_TASK else None
+    emit({"phase": "stream", "round": "training", "task": task["kind"],
+          "config": stream_fields(task), "C": cfg.n_clauses,
+          "L": cfg.n_literals, "train_windows": len(rtr),
+          "test_windows": len(rte), "train_frames_sha256": sha256(xtr),
+          "batch": STREAM_TRAIN_BATCH, "epochs": rows,
+          "accuracy_floor": floor})
+    if floor is not None and acc < floor:
+        raise AssertionError(f"KWS accuracy {acc} below the floor {floor}")
+    return {"task": task, "cfg": cfg, "ta": ta, "booleanizer": b,
+            "accuracy": acc, "train_windows": (rtr, ytr)}
+
+
+def kws_sessions():
+    """STREAM_SESSIONS sessions of STREAM_UTTERANCES KWS utterances, drawn
+    on a CPU generator from SEED + 2: frames ``[S, 256, mels]`` and each
+    frame's utterance label ``[S, 256]``."""
+    t = KWS_TASK["n_frames"]
+    x, y = draw_streams("kws", torch.Generator().manual_seed(SEED + 2),
+                        STREAM_SESSIONS * STREAM_UTTERANCES, t,
+                        KWS_TASK["channels"])
+    return (x.reshape(STREAM_SESSIONS, STREAM_UTTERANCES * t, -1),
+            np.repeat(y, t).reshape(STREAM_SESSIONS, -1))
+
+
+def stream_round(eng, model, frames, scfg_kw=None, latency=0):
+    """Feed every session of ``frames`` ``[S, T, F]`` one hop a round, with
+    a ``pump()`` each round, then drain; the first ``latency`` sessions
+    under the latency QoS class.  Returns ``(server, wall s)``."""
+    from repro_torch.serve import QOS_LATENCY, StreamConfig, StreamServer
+    task = model["task"]
+    hop = task["hop"]
+    server = StreamServer(eng, model["booleanizer"], StreamConfig(
+        window=task["window"], hop=hop, vote=STREAM_VOTE, **(scfg_kw or {})))
+    sids = [f"s{i}" for i in range(len(frames))]
+    for i, sid in enumerate(sids):
+        server.session(sid, qos=QOS_LATENCY if i < latency else None)
+    t0 = time.perf_counter()
+    for lo in range(0, frames.shape[1], hop):
+        for sid, f in zip(sids, frames):
+            server.feed(sid, f[lo:lo + hop])
+        server.pump()
+    server.drain()
+    return server, time.perf_counter() - t0
+
+
+def stream_stats(server, wall):
+    """Decisions/s, per-session window latency (each session's p50 and
+    p99, the median over sessions and the worst), batching and overlap of
+    one streaming round."""
+    s = server.summary()
+    pct = np.array([np.percentile([d.latency_s for d in sess.decisions],
+                                  (50, 99)) * 1e3
+                    for sess in server.sessions.values()])
+    n = sum(len(sess.decisions) for sess in server.sessions.values())
+    return {"sessions": len(server.sessions), "decisions": n,
+            "decisions_per_s": n / wall, "wall_s": wall,
+            "dispatches": s["batches"],
+            "session_p50_ms_median": float(np.median(pct[:, 0])),
+            "session_p99_ms_median": float(np.median(pct[:, 1])),
+            "session_p99_ms_max": float(pct[:, 1].max()),
+            "mean_batch": s["mean_batch"],
+            "padding_overhead": s["padding_overhead"],
+            "overlap_fraction": s["overlap_fraction"],
+            "fallback_dispatches": s["fallback_dispatches"]}
+
+
+def stream_engine(cls, model, vcfg, routing, device):
+    """An analog engine of R = REPLICAS chips on the stream model, under
+    ``BatcherConfig.for_max_batch(STREAM_BATCH)``, on the planes tier."""
+    from repro_torch.serve import BatcherConfig, EngineConfig
+    eng = cls.from_ta_state(
+        model["ta"], model["cfg"], n_replicas=REPLICAS, seed=SEED, vcfg=vcfg,
+        ecfg=EngineConfig(routing=routing, batcher=BatcherConfig
+                          .for_max_batch(STREAM_BATCH)), device=device)
+    if eng.backend.name != "analog-cuda-packed2" or eng.selection.fell_back:
+        raise AssertionError(f"stream engine on {eng.backend.name}")
+    return eng
+
+
+def stream_launches(what, fn, launches0, s):
+    """One launch of ``fn`` a dispatch and no fallback."""
+    launches = fn.launches - launches0
+    if launches != s["batches"] or s["fallback_dispatches"] != 0:
+        raise AssertionError(f"stream {what}: {launches} launches for "
+                             f"{s['batches']} dispatches, "
+                             f"{s['fallback_dispatches']} fallbacks")
+    return launches
+
+
+def offline_rows(model, frames, device):
+    """Each session's windows, all at once (``transform_offline``)."""
+    from repro_torch.core.booleanize import StreamingBooleanizer
+    task = model["task"]
+    sb = StreamingBooleanizer(model["booleanizer"], task["window"],
+                              task["hop"])
+    return [torch.from_numpy(sb.transform_offline(f)).to(device)
+            for f in frames]
+
+
+def stream_nominal_round(model, frames, routing, cls, device):
+    """(h) round 2: 64 sessions at nominal.  Every session's per-window
+    predictions equal offline ``api.predict`` and the digital TM on its
+    windows, every keyword the vote over the last STREAM_VOTE windows; one
+    ``imbue_infer_planes`` launch a dispatch, no fallback."""
+    from repro_torch import api
+    from repro_torch.core import tm
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.serve import majority_vote
+    eng = stream_engine(cls, model, VariationConfig.nominal(), routing,
+                        device)
+    launches0 = imbue_infer_planes.launches
+    server, wall = stream_round(eng, model, frames)
+    launches = stream_launches("nominal", imbue_infer_planes, launches0,
+                               eng.summary())
+    classes = set()
+    for sess, rows in zip(server.sessions.values(),
+                          offline_rows(model, frames, device)):
+        preds = [d.pred for d in sess.decisions]
+        if preds != api.predict(eng.state, rows).tolist() or \
+                preds != tm.predict(model["ta"], rows, model["cfg"]).tolist():
+            raise AssertionError(f"stream {sess.sid}: streamed windows "
+                                 "differ from offline api.predict / digital")
+        for i, d in enumerate(sess.decisions):
+            if d.keyword != majority_vote(preds[max(0, i - STREAM_VOTE + 1):
+                                                i + 1]):
+                raise AssertionError(f"stream {sess.sid}: keyword {i} is "
+                                     "not the vote")
+        classes.update(preds)
+    row = {"phase": "stream", "round": "nominal", "engine": cls.__name__,
+           "routing": routing, "R": REPLICAS, "launches": launches,
+           "equals_offline_and_digital": True, "classes_seen": len(classes),
+           **stream_stats(server, wall)}
+    if row["decisions"] != STREAM_SESSIONS * (
+            (frames.shape[1] - KWS_TASK["window"]) // KWS_TASK["hop"] + 1):
+        raise AssertionError(f"stream: {row['decisions']} decisions")
+    emit(row)
+
+
+def stream_idle_share(model, frames, cls, device):
+    """One more nominal ``ensemble`` round under ``torch.profiler``: device
+    ms summed over the device-side events against the traced round's wall
+    time (the profiler's own host cost is in that wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.variations import VariationConfig
+    eng = stream_engine(cls, model, VariationConfig.nominal(), "ensemble",
+                        device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = stream_round(eng, model, frames)
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return {"traced_wall_ms": wall * 1e3, "device_ms": device_ms,
+            "dispatches": eng.summary()["batches"],
+            "device_idle_share": 1.0 - device_ms / (wall * 1e3)}
+
+
+def stream_c2c_round(model, frames, labels, device):
+    """(h) round 3: the 64 sessions under D2D + C2C, ``ensemble``, on the
+    sync and the async engine from one seed: bit-equal decisions; keyword
+    accuracy against the utterance of each window's last frame."""
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.serve import AsyncServeEngine, ServeEngine
+    task = model["task"]
+    row = {"phase": "stream", "round": "d2d_c2c", "routing": "ensemble",
+           "R": REPLICAS}
+    decided = {}
+    for cls in (ServeEngine, AsyncServeEngine):
+        eng = stream_engine(cls, model, VariationConfig(csa_offset=False),
+                            "ensemble", device)
+        launches0 = imbue_infer_planes.launches
+        server, wall = stream_round(eng, model, frames)
+        stream_launches("d2d_c2c", imbue_infer_planes, launches0,
+                        eng.summary())
+        decided[cls.__name__] = [[(d.index, d.pred, d.keyword, d.version)
+                                  for d in sess.decisions]
+                                 for sess in server.sessions.values()]
+        row[cls.__name__] = stream_stats(server, wall)
+    if decided["AsyncServeEngine"] != decided["ServeEngine"]:
+        raise AssertionError("stream d2d_c2c: async decisions differ from "
+                             "the sync engine's")
+    last = task["window"] - 1
+    hits = np.array([(labels[i][idx * task["hop"] + last] == kw,
+                      labels[i][idx * task["hop"] + last] == pred)
+                     for i, sess in enumerate(decided["ServeEngine"])
+                     for idx, pred, kw, _ in sess])
+    row.update(bit_equal_sync_async=True,
+               keyword_accuracy=float(hits[:, 0].mean()),
+               window_accuracy=float(hits[:, 1].mean()),
+               digital_window_accuracy=model["accuracy"])
+    emit(row)
+
+
+def stream_anomaly_round(model, device):
+    """(h) round 4: ANOMALY_SESSIONS sensor sessions in ``margin`` decision
+    mode (class 1, threshold 0) on the async engine at nominal, half of
+    them under the latency QoS class: every margin equals ``margin_of`` on
+    offline ``api.class_sums`` of the same windows."""
+    from repro_torch import api
+    from repro_torch.core import tm
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.kernels.imbue_infer import imbue_infer_planes
+    from repro_torch.serve import AsyncServeEngine, margin_of
+    task = model["task"]
+    frames, flabels = draw_streams(
+        "anomaly", torch.Generator().manual_seed(SEED + 3), ANOMALY_SESSIONS,
+        ANOMALY_FRAMES, task["channels"])
+    eng = stream_engine(AsyncServeEngine, model, VariationConfig.nominal(),
+                        "round_robin", device)
+    launches0 = imbue_infer_planes.launches
+    server, wall = stream_round(
+        eng, model, frames, dict(decision="margin", margin_class=1,
+                                 margin_threshold=0.0),
+        latency=ANOMALY_SESSIONS // 2)
+    s = eng.summary()
+    launches = stream_launches("anomaly", imbue_infer_planes, launches0, s)
+    hits = []
+    for i, (sess, rows) in enumerate(zip(server.sessions.values(),
+                                         offline_rows(model, frames,
+                                                      device))):
+        sums = api.class_sums(eng.state, tm.literals(rows))    # [R, B, M]
+        if not bool((sums == sums[0]).all()):
+            raise AssertionError("stream anomaly: nominal chips disagree")
+        want = [margin_of(r, 1) for r in sums[0].cpu().numpy()]
+        if [d.margin for d in sess.decisions] != want or \
+                [d.pred for d in sess.decisions] != [int(m >= 0)
+                                                     for m in want]:
+            raise AssertionError(f"stream anomaly {sess.sid}: margins "
+                                 "differ from the offline class sums")
+        hits += [d.pred == flabels[i][d.index * task["hop"]:
+                                      d.index * task["hop"]
+                                      + task["window"]].max()
+                 for d in sess.decisions]
+    emit({"phase": "stream", "round": "anomaly", "engine": "AsyncServeEngine",
+          "decision": "margin", "launches": launches,
+          "margins_equal_offline": True, "alert_accuracy": float(np.mean(
+              hits)), "digital_window_accuracy": model["accuracy"],
+          "qos": s.get("qos"), **stream_stats(server, wall)})
+
+
+def stream_coalesced_round(model, frames, device):
+    """(h) round 5: the 64 sessions through ``coalesced-cuda-packed2`` on a
+    numpy-built coalesced pool at the KWS width (STREAM_COALESCED; its
+    class prototypes the majority bits of each class's training windows):
+    every window's prediction equals ``core.coalesced.forward``'s argmax;
+    one ``tm_infer_planes`` launch a dispatch."""
+    from repro_torch.core import coalesced as co
+    from repro_torch.kernels.clause_eval import tm_infer_planes
+    from repro_torch.serve import BatcherConfig, EngineConfig, ServeEngine
+    ccfg = co.CoalescedConfig(**STREAM_COALESCED)
+    rtr, ytr = model["train_windows"]
+    protos = np.stack([rtr[ytr == c].mean(axis=0) > 0.5
+                       for c in range(ccfg.n_classes)]).astype(np.uint8)
+    ta, w, _, _ = coalesced_task(ccfg, 0, SEED + 6, protos=protos)
+    eng = ServeEngine.from_coalesced(
+        torch.from_numpy(ta), torch.from_numpy(w), ccfg, ecfg=EngineConfig(
+            batcher=BatcherConfig.for_max_batch(STREAM_BATCH)), device=device)
+    if eng.backend.name != "coalesced-cuda-packed2" or \
+            eng.selection.fell_back:
+        raise AssertionError(f"stream coalesced on {eng.backend.name}")
+    launches0 = tm_infer_planes.launches
+    server, wall = stream_round(eng, model, frames)
+    launches = stream_launches("coalesced", tm_infer_planes, launches0,
+                               eng.summary())
+    ta_d, w_d = torch.from_numpy(ta).to(device), torch.from_numpy(w).to(device)
+    classes = set()
+    for sess, rows in zip(server.sessions.values(),
+                          offline_rows(model, frames, device)):
+        preds = [d.pred for d in sess.decisions]
+        want = co.forward(ta_d, w_d, rows, ccfg).argmax(dim=-1).tolist()
+        if preds != want:
+            raise AssertionError(f"stream coalesced {sess.sid}: windows "
+                                 "differ from core.coalesced.forward")
+        classes.update(preds)
+    emit({"phase": "stream", "round": "coalesced", "config": STREAM_COALESCED,
+          "backend": eng.backend.name, "launches": launches,
+          "equals_forward": True, "classes_seen": len(classes),
+          **stream_stats(server, wall)})
+
+
+def stream_cli_round():
+    """(h) round 6: ``repro_torch.launch.stream.main`` on the card, KWS and
+    anomaly (STREAM_CLI_ARGS: 300 clauses a class, 64 sessions, R = 4,
+    ``ensemble``, the async engine): a summary with ``decision_accuracy`` and no backend
+    fallback.  The CLI's JSON goes to a buffer; one line a run here."""
+    from repro_torch.launch import stream as cli
+    for workload in ("kws", "anomaly"):
+        argv = ["--workload", workload, *STREAM_CLI_ARGS]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            summ = cli.main(argv)
+        wall = time.perf_counter() - t0
+        if "decision_accuracy" not in summ or summ["forward_fallbacks"] or \
+                summ["fallback_dispatches"]:
+            raise AssertionError(f"stream CLI {workload}: no accuracy or a "
+                                 "backend fallback")
+        emit({"phase": "stream", "round": "cli", "workload": workload,
+              "argv": argv, "backend": summ["backend"],
+              "decision_accuracy": summ["decision_accuracy"],
+              "digital_window_accuracy": summ["digital_window_accuracy"],
+              "requests": summ["requests"], "dispatches": summ["batches"],
+              "mean_batch": summ["mean_batch"], "wall_s": wall})
+
+
+def phase_stream(device):
+    """Phase 3 (h), the streaming path; returns its launches per kernel."""
+    from repro_torch.serve import AsyncServeEngine, ServeEngine
+
+    def drive():
+        kws = stream_model(KWS_TASK, device)
+        anomaly = stream_model(ANOMALY_TASK, device)
+        frames, labels = kws_sessions()
+        for routing in ("ensemble", "round_robin"):
+            for cls in (ServeEngine, AsyncServeEngine):
+                stream_nominal_round(kws, frames, routing, cls, device)
+        emit({"phase": "stream", "round": "traced", "routing": "ensemble",
+              **{cls.__name__: stream_idle_share(kws, frames, cls, device)
+                 for cls in (ServeEngine, AsyncServeEngine)}})
+        stream_c2c_round(kws, frames, labels, device)
+        stream_anomaly_round(anomaly, device)
+        stream_coalesced_round(kws, frames, device)
+        stream_cli_round()
+    return path_launches(drive, STREAM_KERNELS)
+
+
 def clause_case(inc, x, device):
     """Operands of the two clause-bit kernels for one shape, keyed by
     kernel, and the share of (row, clause) pairs that fire, over all
@@ -1625,14 +2163,19 @@ def clause_case(inc, x, device):
 def clause_shapes(device):
     """``(label, include, x)`` of the clause-kernel checks: the digital
     (C = 2000) and the coalesced (C = 1000) widths with one clause in 16
-    emptied, at each of CLAUSE_BATCHES, and one ragged shape (C = 101,
-    L = 74, B = 13, an empty clause)."""
+    emptied, at each of CLAUSE_BATCHES, the streaming widths (one clause
+    in 16 emptied) at B = STREAM_TRAIN_BATCH, and one ragged shape
+    (C = 101, L = 74, B = 13, an empty clause)."""
     from repro_torch.core.coalesced import CoalescedConfig
     shapes = []
     for label, inc, _, x in tm_widths(device, n=max(CLAUSE_BATCHES)):
         inc = inc.clone()
         inc[5::16] = False                                 # empty clauses
         shapes += [(label, inc, x[:b]) for b in CLAUSE_BATCHES]
+    for label, inc, _, x in stream_widths(device, n=STREAM_TRAIN_BATCH):
+        inc = inc.clone()
+        inc[5::16] = False
+        shapes.append((label, inc, x))           # the stream training step
     ragged = CoalescedConfig(n_classes=3, n_clauses=101, n_features=37,
                              n_states=100)
     rta, _, rx, _ = coalesced_task(ragged, 13, SEED + 2)
@@ -1871,7 +2414,56 @@ def phase_training(device):
     cta, cw = out["coalesced"]
     coalesced_round(ccfg, cta.cpu().numpy(), cw.cpu().numpy(), xte, yte, {},
                     "coalesced-cuda-packed2", "tm_infer_planes", device)
+    monte_carlo_round(device)
     return launches, out["epochs"]
+
+
+def monte_carlo_round(device):
+    """The Monte-Carlo row: ``monte_carlo_accuracy`` and
+    ``clause_error_rate`` (MC_DRAWS draws, each one programmed chip and one
+    read; eager, as in the reference) on MC_ROWS requests of the serving
+    phases' imbue-tm-mnist model.  At nominal every draw equals the digital
+    accuracy and no clause errs; under ``VariationConfig()`` (D2D + C2C +
+    CSA offset) the mean accuracy is at least the digital one - 0.02 and
+    the worst clause error rate at most 0.01 (``tests/test_imbue.py``'s
+    bars).  Every draw, their mean and spread, ms a draw."""
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import imbue, tm
+    from repro_torch.core.variations import VariationConfig
+    cfg = tm_config(MODEL)
+    ta, x, y = (torch.from_numpy(a).to(device)
+                for a in prototype_task(cfg, MC_ROWS, SEED))
+    digital = float(tm.accuracy(ta, x, y, cfg))
+    row = {"phase": "training", "check": "monte carlo", "model": MODEL,
+           "rows": MC_ROWS, "draws": MC_DRAWS, "digital_accuracy": digital}
+    for name, vcfg in (("nominal", VariationConfig.nominal()),
+                       ("d2d_c2c_csa", VariationConfig())):
+        gen = torch.Generator(device=device).manual_seed(SEED + 1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accs = imbue.monte_carlo_accuracy(ta, x, y, gen, cfg, vcfg, MC_DRAWS,
+                                          device=device).cpu().numpy()
+        t1 = time.perf_counter()
+        errs = imbue.clause_error_rate(ta, x, gen, cfg, vcfg, MC_DRAWS,
+                                       device=device).cpu().numpy()
+        t2 = time.perf_counter()
+        row[name] = {"accuracy": accs.tolist(),
+                     "accuracy_mean": float(accs.mean()),
+                     "accuracy_std": float(accs.std(ddof=1)),
+                     "clause_error": errs.tolist(),
+                     "clause_error_mean": float(errs.mean()),
+                     "clause_error_max": float(errs.max()),
+                     "accuracy_ms_per_draw": (t1 - t0) * 1e3 / MC_DRAWS,
+                     "clause_error_ms_per_draw": (t2 - t1) * 1e3 / MC_DRAWS}
+    nom, var_ = row["nominal"], row["d2d_c2c_csa"]
+    if not all(a == np.float32(digital) for a in nom["accuracy"]) or \
+            nom["clause_error_max"] != 0.0:
+        raise AssertionError(f"monte carlo at nominal differs from digital: "
+                             f"{nom}")
+    if var_["accuracy_mean"] < digital - 0.02 or \
+            var_["clause_error_max"] > 0.01:
+        raise AssertionError(f"monte carlo under variation: {var_}")
+    emit(row)
 
 
 def clause_bytes_and_work(name, args):
@@ -2586,7 +3178,8 @@ def main() -> int:
                "crossbar": phase_crossbar(device),
                "coalesced": phase_coalesced_serving(device),
                "digital": phase_digital_fused(device),
-               "live": phase_live(device)}
+               "live": phase_live(device),
+               "stream": phase_stream(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

@@ -11,7 +11,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 CPU tensor a kernel wrapper computes with its plain PyTorch version; on a
 CUDA tensor it launches the kernel or raises.
 
-Ported so far (the serving paths, TM training and flash attention):
+Ported so far (the serving paths, streaming, TM training and flash
+attention):
 
 * ``kernels.bitpack`` / ``kernels.ops`` / ``kernels.imbue_infer`` — the
   packed wire format and the ``imbue_infer_planes`` CUDA kernel;
@@ -28,7 +29,14 @@ Ported so far (the serving paths, TM training and flash attention):
 * ``train.online`` — the replay-buffer ``OnlineTrainer``;
 * ``distributed.checkpoint`` — digest-verified checkpoints, in the
   reference's format;
-* ``data.tm_datasets`` — noisy XOR and the synthetic image set;
+* ``data.tm_datasets`` — noisy XOR, the synthetic image set, the KWS-6
+  and sensor-anomaly frame streams and their offline windows, and the
+  paper's Table IV;
+* ``core.booleanize`` / ``serve.stream`` / ``launch.stream`` — the
+  thermometer booleanizers, per-session sliding windows over a shared
+  engine (``StreamServer``) and the streaming CLI;
+* ``core.imbue``'s Monte-Carlo studies — ``monte_carlo_accuracy``,
+  ``clause_error_rate``, ``stacked_class_sums``;
 * ``kernels.flash_attention`` — ``flash_attention`` and the
   differentiable ``flash_attention_trainable`` on the ``flash_fwd``,
   ``flash_bwd_dkv`` and ``flash_bwd_dq`` CUDA kernels.  Unlike the

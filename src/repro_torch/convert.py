@@ -4,8 +4,9 @@ The two packages draw different random numbers from the same seed, so a
 parity check programs ONE pool with the reference and hands its arrays
 (``np.asarray(pool.r_stack)``, ``np.asarray(pool.include)``, a TA state,
 a coalesced model's TA state and weights, a single chip's ``r_mem``, a
-fault mask) to the port through these functions.  Both then compute the
-same thing.  Nothing here imports the reference: it takes numpy arrays.
+fault mask, a booleanizer's thresholds) to the port through these
+functions.  Both then compute the same thing.  Nothing here imports the
+reference: it takes numpy arrays.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.api.states import CrossbarState
+from repro_torch.core.booleanize import Booleanizer
 from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.tm import TMConfig
@@ -102,3 +104,14 @@ def coalesced_pool_from_numpy(ta_state: np.ndarray, weights: np.ndarray,
             device=device, dtype=cfg.state_dtype),
         weights=torch.from_numpy(w.astype(np.int32)).to(device),
         cfg=cfg, version=int(version))
+
+
+def booleanizer_from_numpy(thresholds: np.ndarray,
+                           device: DeviceLike = None) -> Booleanizer:
+    """A port ``Booleanizer`` holding ``thresholds`` ``[F, K]`` (float32,
+    bit for bit: ``np.asarray(reference.thresholds)``) on ``device``."""
+    thr = np.asarray(thresholds, dtype=np.float32)
+    if thr.ndim != 2:
+        raise ValueError(f"thresholds must be [F, K], got {thr.shape}")
+    return Booleanizer(thresholds=torch.from_numpy(thr.copy()).to(
+        resolve_device(device)))

@@ -14,6 +14,11 @@ splits its generator into a C2C stream and a CSA stream
 (``analog_clause_outputs_raw``), exactly as ``repro.core.imbue`` splits
 its key.  The replica axis ``R`` is written out as a leading tensor
 dimension where the reference uses ``vmap``.
+
+The Monte-Carlo studies (``monte_carlo_accuracy``, ``clause_error_rate``)
+stay eager, as in the reference: one programmed chip and one read per
+draw, each draw's two generators split off the caller's, and the draw
+axis a loop, so one read's column currents are live at a time.
 """
 
 from __future__ import annotations
@@ -23,9 +28,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import variations as var
 from repro_torch.core.mapping import CrossbarMapping, pad_to_columns
-from repro_torch.core.tm import TMConfig, class_sums, literals
+from repro_torch.core.tm import (TMConfig, class_sums, clause_outputs,
+                                 include_mask, literals)
 
 # Nominal single-cell read currents (Table I).
 I_INCLUDE_ON = var.V_READ / (var.SERIES_FACTOR * var.LRS_MEAN_OHM)   # ~75.7 uA
@@ -215,3 +222,91 @@ def stacked_clause_outputs(
     mapping = CrossbarMapping(n_clauses=c, n_literals=l, width=cfg.width)
     return analog_clause_outputs_raw(r_stack, include, lits, mapping, cfg,
                                      generator, vcfg)
+
+
+def stacked_class_sums(
+    r_stack: torch.Tensor,            # [R, C, L]
+    include: torch.Tensor,            # [C, L] bool
+    x: torch.Tensor,                  # [B, F] raw Boolean features
+    tm_cfg: TMConfig,
+    generator: Optional[torch.Generator] = None,
+    vcfg: var.VariationConfig = var.VariationConfig(),
+    cfg: IMBUEConfig = IMBUEConfig(),
+    *,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Per-replica class sums ``[R, B, M]`` int32 (the stacked analog
+    forward), empty clauses masked, on ``device``."""
+    device = resolve_device(device)
+    include = include.to(device)
+    cls = stacked_clause_outputs(r_stack.to(device), include,
+                                 literals(x.to(device)), tm_cfg, generator,
+                                 vcfg, cfg)                     # [R, B, C]
+    cls = cls * include.any(dim=-1)[None, None, :].to(cls.dtype)
+    return class_sums(cls, tm_cfg)
+
+
+# --------------------------------------------------------------------------
+# Monte-Carlo variation studies (paper §III-C / Fig. 7)
+# --------------------------------------------------------------------------
+
+def _draws(generator: torch.Generator, draws: int):
+    """One ``(program, read)`` generator pair per draw: ``draws`` children
+    split off ``generator``, each split in two."""
+    return [var.split_generator(g, 2)
+            for g in var.split_generator(generator, draws)]
+
+
+def monte_carlo_accuracy(
+    ta_state: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    generator: torch.Generator,
+    tm_cfg: TMConfig,
+    vcfg: var.VariationConfig = var.VariationConfig(),
+    draws: int = 16,
+    *,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Accuracy over independent device / cycle draws, ``[draws]`` float32
+    on ``device`` (where ``generator`` lives).
+
+    Each draw programs a fresh crossbar (D2D), then reads the batch under
+    fresh C2C + CSA-offset noise: one manufactured chip and one read
+    cycle.
+    """
+    device = resolve_device(device)
+    inc = include_mask(ta_state.to(device), tm_cfg)
+    x, y = x.to(device), y.to(device)
+    accs = torch.empty(draws, dtype=torch.float32, device=device)
+    for i, (g_prog, g_read) in enumerate(_draws(generator, draws)):
+        xbar = program_crossbar(inc, g_prog, vcfg)
+        pred = analog_predict(xbar, x, tm_cfg, g_read, vcfg)
+        accs[i] = (pred == y).to(torch.float32).mean()
+    return accs
+
+
+def clause_error_rate(
+    ta_state: torch.Tensor,
+    x: torch.Tensor,
+    generator: torch.Generator,
+    tm_cfg: TMConfig,
+    vcfg: var.VariationConfig = var.VariationConfig(),
+    draws: int = 16,
+    *,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Share of (datapoint, clause) cells where the analog readout
+    disagrees with the digital oracle (training semantics: an empty clause
+    fires), per draw: ``[draws]`` float32 on ``device``."""
+    device = resolve_device(device)
+    ta_state = ta_state.to(device)
+    inc = include_mask(ta_state, tm_cfg)
+    lits = literals(x.to(device))
+    oracle = clause_outputs(ta_state, lits, tm_cfg, training=True)
+    errs = torch.empty(draws, dtype=torch.float32, device=device)
+    for i, (g_prog, g_read) in enumerate(_draws(generator, draws)):
+        xbar = program_crossbar(inc, g_prog, vcfg)
+        got = analog_clause_outputs(xbar, lits, g_read, vcfg)
+        errs[i] = (got != oracle).to(torch.float32).mean()
+    return errs

@@ -11,7 +11,9 @@
   scored per replica into quarantine / readmit decisions;
 * ``swap``     — snapshot -> canary -> promote / rollback over a live
   engine, and the ``RepairPolicy`` self-healing loop;
-* ``metrics``  — latency/throughput and the paper's energy figures.
+* ``metrics``  — latency/throughput and the paper's energy figures;
+* ``stream``   — per-session sliding windows over a shared engine
+  (``StreamServer``), argmax or margin decisions smoothed by a vote.
 """
 
 from repro_torch.serve.batching import (QOS_BULK, QOS_CLASSES, QOS_LATENCY,
@@ -36,6 +38,10 @@ from repro_torch.serve.replica import (CoalescedPool, ReplicaPool,
 from repro_torch.serve.swap import (HotSwapper, RepairConfig, RepairPolicy,
                                     SwapConfig, hot_swap, reprogrammed_pool,
                                     restore_pool, snapshot_pool)
+from repro_torch.serve.stream import (DECISION_MODES, Decision,
+                                      StreamConfig, StreamServer,
+                                      StreamSession, majority_vote,
+                                      margin_of)
 
 __all__ = [
     "QOS_BULK", "QOS_CLASSES", "QOS_LATENCY", "Batch", "BatcherConfig",
@@ -49,4 +55,6 @@ __all__ = [
     "ReplicaPool", "RouterState", "ensemble_vote", "program_replica_pool",
     "HotSwapper", "RepairConfig", "RepairPolicy", "SwapConfig", "hot_swap",
     "reprogrammed_pool", "restore_pool", "snapshot_pool",
+    "DECISION_MODES", "Decision", "StreamConfig", "StreamServer",
+    "StreamSession", "majority_vote", "margin_of",
 ]

@@ -973,3 +973,95 @@ def test_a_failed_issue_gives_up_its_slot(cuda):
     eng._forward = orig
     eng.submit_many(list(xs))
     assert len(eng.drain()) == 64 and eng._n_slots == 1
+
+
+# KWS-6 streaming width: 8 frames x 12 mels x 4 bits = 384 features
+# (L = 768, 24 words), 6 classes x 300 clauses (C = 1800).
+KWS_STREAM = dict(mels=12, bits=4, window=8, hop=4)
+
+
+def _stream_setup(cuda, cls, routing, vcfg, sessions=8, frames=64):
+    """A stream server at the KWS width on the card: numpy-drawn frames,
+    a quantile booleanizer on the card, a sparse TA state (~3 includes a
+    clause), R = 4 under ``vcfg``; and each session's frames."""
+    from repro_torch.core.booleanize import fit_quantile
+    from repro_torch.serve import (BatcherConfig, EngineConfig, StreamConfig,
+                                   StreamServer)
+    k = KWS_STREAM
+    cfg = tm.TMConfig(n_classes=6, clauses_per_class=300,
+                      n_features=k["window"] * k["mels"] * k["bits"],
+                      n_states=127)
+    rng = np.random.default_rng(8)
+    streams = rng.normal(size=(sessions, frames, k["mels"])).astype(
+        np.float32)
+    b = fit_quantile(streams.reshape(-1, k["mels"]), k["bits"], device=cuda)
+    inc = rng.random((cfg.n_clauses, cfg.n_literals)) < 0.004
+    ta = torch.from_numpy(np.where(inc, cfg.n_states + 1,
+                                   cfg.n_states).astype(np.int16))
+    eng = cls.from_ta_state(ta, cfg, n_replicas=4, seed=13, vcfg=vcfg,
+                            ecfg=EngineConfig(
+                                routing=routing,
+                                batcher=BatcherConfig.for_max_batch(64)),
+                            device=cuda)
+    server = StreamServer(eng, b, StreamConfig(window=k["window"],
+                                               hop=k["hop"], vote=5))
+    return server, cfg, ta, streams
+
+
+def _stream_rounds(server, streams, hop):
+    for lo in range(0, streams.shape[1], hop):
+        for i, s in enumerate(streams):
+            server.feed(f"s{i}", s[lo:lo + hop])
+        server.pump()
+    server.drain()
+
+
+@pytest.mark.parametrize("routing", ["round_robin", "ensemble"])
+@pytest.mark.parametrize("engine", ["sync", "async"])
+def test_streamed_equals_offline_at_nominal_on_the_card(cuda, routing,
+                                                        engine):
+    """At the KWS width and nominal, eight sessions fed hop by hop decide
+    every window as offline ``api.predict`` and the digital TM do, with
+    one ``imbue_infer_planes`` launch a dispatch and no fallback."""
+    from repro_torch import api
+    from repro_torch.core.booleanize import StreamingBooleanizer
+    from repro_torch.serve import AsyncServeEngine, ServeEngine
+    cls = AsyncServeEngine if engine == "async" else ServeEngine
+    server, cfg, ta, streams = _stream_setup(cuda, cls, routing,
+                                             VariationConfig.nominal())
+    eng = server.engine
+    assert eng.backend.name == "analog-cuda-packed2"
+    launches0 = imbue_infer_planes.launches
+    _stream_rounds(server, streams, KWS_STREAM["hop"])
+    s = eng.summary()
+    assert imbue_infer_planes.launches - launches0 == s["batches"]
+    assert s["fallback_dispatches"] == 0
+    sb = StreamingBooleanizer(server.booleanizer, KWS_STREAM["window"],
+                              KWS_STREAM["hop"])
+    seen = set()
+    for i, frames in enumerate(streams):
+        rows = torch.from_numpy(sb.transform_offline(frames)).to(cuda)
+        got = [d.pred for d in server.sessions[f"s{i}"].decisions]
+        assert got == api.predict(eng.state, rows).tolist()
+        assert got == tm.predict(ta.to(cuda), rows, cfg).tolist()
+        seen.update(got)
+    assert len(seen) > 1
+
+
+@pytest.mark.parametrize("routing", ["round_robin", "ensemble"])
+def test_stream_sync_equals_async_under_c2c_on_the_card(cuda, routing):
+    """Under D2D + C2C, the sync and the async engine on one seed give
+    every session bit-equal decisions (preds, keywords, versions)."""
+    from repro_torch.serve import AsyncServeEngine, ServeEngine
+    out = {}
+    for cls in (ServeEngine, AsyncServeEngine):
+        server, _, _, streams = _stream_setup(
+            cuda, cls, routing, VariationConfig(csa_offset=False))
+        _stream_rounds(server, streams, KWS_STREAM["hop"])
+        out[cls.__name__] = {
+            sid: [(d.index, d.pred, d.keyword, d.version)
+                  for d in sess.decisions]
+            for sid, sess in server.sessions.items()}
+        assert server.summary()["fallback_dispatches"] == 0
+    assert out["AsyncServeEngine"] == out["ServeEngine"]
+    assert sum(map(len, out["ServeEngine"].values())) == 8 * 15

@@ -22,12 +22,14 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core import coalesced, tm, variations  # noqa: E402
+from repro_torch.core import (booleanize, coalesced, imbue, tm,  # noqa: E402
+                              variations)
 from repro_torch.data import tm_datasets  # noqa: E402
 from repro_torch.distributed import checkpoint  # noqa: E402
 from repro_torch.train import online  # noqa: E402
 from repro_torch.core.imbue import IMBUEConfig  # noqa: E402
 from repro_torch.kernels import bitpack, flash_attention, ops  # noqa: E402
+from repro_torch.launch import stream as stream_cli  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,7 +60,8 @@ def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "ops.py", "imbue_infer.py", "clause_eval.py",
             "coalesced.py", "tm_train.py", "online.py", "checkpoint.py",
-            "tm_datasets.py", "flash_attention.py", "chip_smoke.py"} <= names
+            "tm_datasets.py", "flash_attention.py", "booleanize.py",
+            "stream.py", "chip_smoke.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
@@ -191,6 +194,43 @@ def test_training_entry_points_raise_without_device_and_cuda(no_cuda,
         3, CFG.n_clauses)
     assert tm.init_ta_state(gen, CFG, "cpu").device.type == "cpu"
     assert online.OnlineTrainer(CFG, gen, device="cpu").device.type == "cpu"
+
+
+def test_stream_and_montecarlo_entry_points_raise_without_device_and_cuda(
+        no_cuda):
+    gen = torch.Generator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm_datasets.synthetic_kws6(gen, 2, 8, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tm_datasets.synthetic_sensor_anomaly(gen, 2, 8, 2, burst_frames=4)
+    frames = np.linspace(0.0, 1.0, 24, dtype=np.float32).reshape(6, 4)
+    for fit in (booleanize.fit_quantile, booleanize.fit_uniform):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fit(frames, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.booleanizer_from_numpy(np.zeros((4, 2), np.float32))
+    ta = torch.full((CFG.n_clauses, CFG.n_literals), CFG.n_states + 1,
+                    dtype=torch.int16)
+    x = torch.ones(3, CFG.n_features, dtype=torch.uint8)
+    y = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imbue.monte_carlo_accuracy(ta, x, y, gen, CFG, draws=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imbue.clause_error_rate(ta, x, gen, CFG, draws=2)
+    r = torch.full((2, CFG.n_clauses, CFG.n_literals), 1.64e3)
+    inc = tm.include_mask(ta, CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imbue.stacked_class_sums(r, inc, x, CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stream_cli.main(["--sessions", "1", "--frames", "16"])
+    # With device="cpu" they run on the plain versions.
+    assert imbue.monte_carlo_accuracy(
+        ta, x, y, gen, CFG, variations.VariationConfig.nominal(), draws=2,
+        device="cpu").shape == (2,)
+    assert imbue.stacked_class_sums(r, inc, x, CFG, device="cpu").shape == (
+        2, 3, CFG.n_classes)
+    b = booleanize.fit_quantile(frames, 2, device="cpu")
+    assert b.transform(frames).shape == (6, 8)
 
 
 def test_flash_wrappers_take_only_cpu_or_cuda_tensors():
