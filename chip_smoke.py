@@ -22,7 +22,12 @@ the ``repro_torch.launch.stream`` CLI) and the Monte-Carlo variation
 studies; and flash attention (``flash_attention_trainable`` forward and
 backward -> ``flash_fwd``, ``flash_bwd_dkv``, ``flash_bwd_dq``;
 ``flash_attention`` -> ``flash_fwd``) at the attention widths of
-qwen2-0.5b, gemma2-2b and the whisper-large-v3 encoder.
+qwen2-0.5b, gemma2-2b and the whisper-large-v3 encoder.  Every fused
+dispatch carries the committed tuning table's tiles for its backend,
+shape bucket and card (``src/repro_torch/kernels/tuning_table.json``;
+none, the kernel's own geometry, where the sweep found no tile clearly
+faster in every served state), and every ``BatcherConfig.for_max_batch``
+engine its ladder.
 
 Phases, each printing JSON lines (any failure raises, so the exit code
 is non-zero and no result line is printed):
@@ -165,9 +170,36 @@ is non-zero and no result line is printed):
    main row, ``FLASH_PATH_STEPS`` forward + backward steps of
    ``flash_attention_trainable`` (exactly one launch of each flash kernel
    a step) and one ``flash_attention`` (the forward kernel alone);
+   then the tuning phase (after every path, before the timing): (a) the
+   six fused inference kernels at every tile of the autotuner's full
+   grid (analog ``ng`` in {1, 2, 4} x ``ks`` in {2, 4, 8}, TM ``wm`` x
+   ``wn`` in {1, 2, 4}) and ``"auto"`` against their plain versions,
+   tolerance 0: the analog ones at imbue-tm-mnist and the KWS and anomaly
+   widths, B in ``CHECK_BATCHES``, with and without the deviation plane
+   (D2D and nominal planes for the dense two) and the ragged small shape
+   (where a ks past its 3 columns must raise and launch nothing); the TM
+   ones at the digital, coalesced, KWS, KWS-coalesced and anomaly widths,
+   B in ``TM_CHECK_BATCHES``, and the ragged shape; (b)
+   ``autotune(smoke=True, register=False)``, and ``lazy_tune`` at an
+   unseen shape bucket measuring once for two engines (then the tuned
+   engine equal to the digital TM); (c) engines under
+   ``BatcherConfig.for_max_batch(128)`` at imbue-tm-mnist (R = 4,
+   ``ensemble``) and at the coalesced width report the committed entry's
+   ladder and tiles (``buckets_tuned_for``, ``kernel_tiles``) and serve
+   512 nominal requests equal to the digital TM / ``core.coalesced
+   .forward``, one launch a dispatch; (d) each fused kernel's device
+   time at the committed tiles beside ``"auto"`` at B = 128 and the full
+   widths (``time_ms``), the analog ones in both served states the sweep
+   measures (R = 4 D2D, R = 1 nominal); (e) the nominal KWS ``ensemble``
+   stream round on both engines on the static ladder and on the tuned
+   one, in the order static, tuned, tuned, static, with each ladder's
+   medians (decisions/s, ``mean_batch``, ``padding_overhead``, window
+   p50 / p99; recorded only);
 5. timing — each kernel's median device time (CUDA events, L2 flushed,
-   the host's enqueue hidden behind a spin kernel) beside
-   its bound, what sets the bound, and the plain version's time:
+   the host's enqueue hidden behind a spin kernel; the six fused
+   inference kernels at the tiles their main path's engine launches, with
+   ``"auto"`` beside them) beside its bound, what sets the bound, and the
+   plain version's time:
    ``imbue_infer_planes`` at R = 4 and R = 1 with the deviation plane
    (and the C2C pre-pass) and at R = 1 without it, B in {8, 64, 128};
    ``imbue_infer_packed`` and ``imbue_infer`` at R = 4, B in {8, 64, 128}
@@ -200,8 +232,9 @@ is non-zero and no result line is printed):
    backward pair's ms over SDPA's backward, the split's tensor work
    beside the bound, and the port's trainable forward + backward.
 
-Then the launches of each path, the ``{"kernels": [...]}`` line (each
-kernel's launches on its main path: the plane-packed analog path for
+Then the launches of each path, the ``{"kernels": [...]}`` line (with
+each inference kernel's tiles and ``auto_ms``, and each kernel's
+launches on its main path: the plane-packed analog path for
 ``imbue_infer_planes``, the lower analog tiers for ``imbue_infer_packed``
 and ``imbue_infer``, the coalesced path for the TM kernels, the training
 path for the clause-bit kernels, the trainable attention steps for the
@@ -1880,13 +1913,14 @@ def stream_stats(server, wall):
             "fallback_dispatches": s["fallback_dispatches"]}
 
 
-def stream_engine(cls, model, vcfg, routing, device):
+def stream_engine(cls, model, vcfg, routing, device, batcher=None):
     """An analog engine of R = REPLICAS chips on the stream model, under
-    ``BatcherConfig.for_max_batch(STREAM_BATCH)``, on the planes tier."""
+    ``batcher`` (default ``BatcherConfig.for_max_batch(STREAM_BATCH)``,
+    whose ladder the tuning table replaces), on the planes tier."""
     from repro_torch.serve import BatcherConfig, EngineConfig
     eng = cls.from_ta_state(
         model["ta"], model["cfg"], n_replicas=REPLICAS, seed=SEED, vcfg=vcfg,
-        ecfg=EngineConfig(routing=routing, batcher=BatcherConfig
+        ecfg=EngineConfig(routing=routing, batcher=batcher or BatcherConfig
                           .for_max_batch(STREAM_BATCH)), device=device)
     if eng.backend.name != "analog-cuda-packed2" or eng.selection.fell_back:
         raise AssertionError(f"stream engine on {eng.backend.name}")
@@ -1913,22 +1947,25 @@ def offline_rows(model, frames, device):
             for f in frames]
 
 
-def stream_nominal_round(model, frames, routing, cls, device):
+def stream_nominal_round(model, frames, routing, cls, device, batcher=None,
+                         label="nominal"):
     """(h) round 2: 64 sessions at nominal.  Every session's per-window
     predictions equal offline ``api.predict`` and the digital TM on its
     windows, every keyword the vote over the last STREAM_VOTE windows; one
-    ``imbue_infer_planes`` launch a dispatch, no fallback."""
+    ``imbue_infer_planes`` launch a dispatch, no fallback.  ``batcher``
+    and ``label``: the tuning phase's ladder rounds (e)."""
     from repro_torch import api
     from repro_torch.core import tm
     from repro_torch.core.variations import VariationConfig
     from repro_torch.kernels.imbue_infer import imbue_infer_planes
     from repro_torch.serve import majority_vote
     eng = stream_engine(cls, model, VariationConfig.nominal(), routing,
-                        device)
+                        device, batcher)
     launches0 = imbue_infer_planes.launches
     server, wall = stream_round(eng, model, frames)
+    summ = eng.summary()
     launches = stream_launches("nominal", imbue_infer_planes, launches0,
-                               eng.summary())
+                               summ)
     classes = set()
     for sess, rows in zip(server.sessions.values(),
                           offline_rows(model, frames, device)):
@@ -1943,14 +1980,18 @@ def stream_nominal_round(model, frames, routing, cls, device):
                 raise AssertionError(f"stream {sess.sid}: keyword {i} is "
                                      "not the vote")
         classes.update(preds)
-    row = {"phase": "stream", "round": "nominal", "engine": cls.__name__,
+    row = {"phase": "stream", "round": label, "engine": cls.__name__,
            "routing": routing, "R": REPLICAS, "launches": launches,
            "equals_offline_and_digital": True, "classes_seen": len(classes),
+           "bucket_sizes": summ["bucket_sizes"],
+           "buckets_tuned_for": summ["buckets_tuned_for"],
+           "kernel_tiles": summ["kernel_tiles"],
            **stream_stats(server, wall)}
     if row["decisions"] != STREAM_SESSIONS * (
             (frames.shape[1] - KWS_TASK["window"]) // KWS_TASK["hop"] + 1):
         raise AssertionError(f"stream: {row['decisions']} decisions")
     emit(row)
+    return row
 
 
 def stream_idle_share(model, frames, cls, device):
@@ -2123,14 +2164,17 @@ def stream_cli_round():
               "mean_batch": summ["mean_batch"], "wall_s": wall})
 
 
-def phase_stream(device):
-    """Phase 3 (h), the streaming path; returns its launches per kernel."""
+def phase_stream(device, keep):
+    """Phase 3 (h), the streaming path; returns its launches per kernel
+    and leaves the trained KWS model and its session frames in ``keep``
+    (for the tuning phase's ladder rounds)."""
     from repro_torch.serve import AsyncServeEngine, ServeEngine
 
     def drive():
         kws = stream_model(KWS_TASK, device)
         anomaly = stream_model(ANOMALY_TASK, device)
         frames, labels = kws_sessions()
+        keep.update(kws=kws, frames=frames)
         for routing in ("ensemble", "round_robin"):
             for cls in (ServeEngine, AsyncServeEngine):
                 stream_nominal_round(kws, frames, routing, cls, device)
@@ -2497,18 +2541,22 @@ def clause_route(name, b, l):
     return "warp per clause" if lib.clause_eval_small_route(b, l) else "tile"
 
 
-def b1_geometry(name, *shape):
+def b1_geometry(name, *shape, tiles=None):
     """The launch geometry of ``name`` (a kernel on ``csrc/tm_b1.cuh``) at
     ``shape``, as its ``<name>_geometry`` export reports it: grid,
     threads, shared bytes, resident blocks an SM, K-split, block tile,
     and the launched warps an SM (the grid's warps / SMs, capped by what
     is resident).  ``shape``: ``(B, C, Lw)`` for ``clause_eval_packed``,
     ``(B, C, Lw, M)`` for ``tm_infer_planes`` and ``tm_infer_packed``,
-    ``(B, C, L, M)`` for ``tm_infer``."""
+    ``(B, C, L, M)`` for ``tm_infer``, the three inference kernels with
+    the tile override ``tiles`` (None: the kernel's own layout)."""
     import ctypes
     from repro_torch.kernels import _build
+    from repro_torch.kernels.clause_eval import tm_tiles
     lib = ctypes.CDLL(str(_build.library_path(name)))
     info = (ctypes.c_int * 9)()
+    if name != "clause_eval_packed":
+        shape = (*shape, *tm_tiles(tiles))
     if getattr(lib, f"{name}_geometry")(*shape, info) != 0:
         raise RuntimeError(f"{name}_geometry failed")
     gx, gy, threads, smem, per_sm, ksplit, bt, ct, _ = list(info)
@@ -2573,6 +2621,392 @@ def phase_clause_timing(device, train_epochs):
     return rows
 
 
+# ------------------------------------------------------------ tuning
+
+def main_path_tiles(backend, c, l, device):
+    """The tiles an engine serving ``backend`` at a ``[C, L]`` model
+    launches on this card: the committed entry's where they fit the model
+    (``ServeEngine``'s rule), else none ("auto", ``{}``)."""
+    from repro_torch import api
+    from repro_torch.kernels import autotune
+    entry = api.get_tuning(backend, api.shape_bucket_key(c, l), device)
+    tiles = dict((entry or {}).get("tiles") or {})
+    return tiles if autotune.tiles_fit(tiles, l) else {}
+
+
+def tm_backend(family, name):
+    """The fused ``family`` ("digital" or "coalesced") backend that runs
+    TM kernel ``name``, or None (there is no digital planes backend)."""
+    from repro_torch.kernels import autotune
+    tier = {"tm_infer_planes": "-packed2", "tm_infer_packed": "-packed",
+            "tm_infer": ""}[name]
+    backend = f"{family}-cuda{tier}"
+    return backend if backend in autotune.KERNEL_OF else None
+
+
+def tile_label(tiles):
+    """``"auto"`` for no override, else the tile's table key."""
+    from repro_torch.kernels import autotune
+    return autotune.tile_key(tiles)
+
+
+def timed_at_tiles(fn, args, tiles, flush):
+    """``(ms, auto_ms)``: ``fn``'s device time with the tile override
+    ``tiles`` and without one ("auto"); one timing when there is none."""
+    ms = time_ms(lambda: fn(*args, tiles=tiles), 20, flush)
+    return ms, (time_ms(lambda: fn(*args), 20, flush) if tiles else ms)
+
+
+def check_tiles(name, args, lw, rows, label, **extra):
+    """``name`` at every tile of its full grid and "auto" on ``args``
+    against its plain version, tolerance 0: one launch a tile; a ks past
+    the ``lw`` columns raises ``ValueError`` and launches nothing."""
+    from repro_torch.kernels import autotune
+    fn, ref = kernel_pair(name)
+    want = ref(*args)
+    analog = name.startswith("imbue")
+    n_ok = 0
+    for tiles in autotune.grid_tiles(autotune.ANALOG_GRID if analog
+                                     else autotune.TM_GRID):
+        before = fn.launches
+        if analog and tiles.get("ks", 0) > lw:
+            try:
+                fn(*args, tiles=tiles)
+            except ValueError:
+                if fn.launches != before:
+                    raise AssertionError(f"{name}: a refused tile launched")
+                continue
+            raise AssertionError(f"{name}: ks {tiles['ks']} past {lw} "
+                                 "columns was not refused")
+        got = fn(*args, tiles=tiles)
+        torch.cuda.synchronize()
+        if fn.launches != before + 1 or not torch.equal(got, want):
+            raise AssertionError(f"{name} at tile {tiles} disagrees with "
+                                 f"its plain version ({label}, {extra})")
+        n_ok += 1
+    rows.append({"kernel": name, "width": label, **extra, "tiles": n_ok,
+                 "nonzero_frac": float((want != 0).float().mean())})
+
+
+def tuning_exactness(device):
+    """(a) the six fused inference kernels at every tile of the full grid
+    plus "auto", exact against their plain versions: the analog kernels at
+    imbue-tm-mnist and the KWS and anomaly widths, B in CHECK_BATCHES, with
+    and without the deviation plane (D2D and nominal planes for the dense
+    two), and the ragged small shape; the TM kernels at the digital,
+    coalesced and streaming widths, B in TM_CHECK_BATCHES, and the ragged
+    shape."""
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core.coalesced import CoalescedConfig
+    from repro_torch.core.tm import TMConfig
+    from repro_torch.kernels import ops
+    rows = []
+    small = TMConfig(n_classes=4, clauses_per_class=8, n_features=37,
+                     n_states=100)                         # C=32, L=74
+    widths = [("imbue-tm-mnist", tm_config(MODEL), SEED, CHECK_BATCHES),
+              ("kws", stream_config(KWS_TASK), SEED + 5, CHECK_BATCHES),
+              ("anomaly", stream_config(ANOMALY_TASK), SEED + 5,
+               CHECK_BATCHES), ("ragged", small, SEED + 1, (13,))]
+    for label, cfg, seed, batches in widths:
+        ta, x, _ = prototype_task(cfg, max(128, *batches), seed)
+        if label == "ragged":
+            ta[5] = 1                                      # empty clause
+        lw = -(-cfg.n_literals // 32)
+        for b in batches:
+            xb = check_rows(x, b)
+            for dev in (False, True):
+                r = 3 if label == "ragged" else REPLICAS
+                args = planes_case(cfg, ta, xb, r if dev else 1, dev,
+                                   seed + b, device)
+                check_tiles("imbue_infer_planes", args, lw, rows, label,
+                            B=b, R=r if dev else 1, dev=dev)
+                cases, _ = dense_case(cfg, ta, xb, r, dev, seed + b, device)
+                for name in DENSE_KERNELS:
+                    check_tiles(name, cases[name], lw, rows, label, B=b, R=r,
+                                d2d=dev)
+                del cases
+    tm_cases = [(label, inc, comb, x[:b]) for label, inc, comb, x
+                in tm_widths(device, n=TM_CHECK_BATCHES[-1]) +
+                stream_widths(device, n=TM_CHECK_BATCHES[-1])
+                for b in TM_CHECK_BATCHES]
+    ragged = CoalescedConfig(n_classes=3, n_clauses=101, n_features=37,
+                             n_states=100)                 # C=101, L=74
+    rta, rw, rx, _ = coalesced_task(ragged, 13, SEED + 2)   # B=13
+    rinc = torch.from_numpy(rta > ragged.n_states)
+    rinc[50] = False                                        # empty clause
+    tm_cases.append(("ragged", rinc, ops.coalesced_combine(
+        torch.from_numpy(rw), rinc.any(dim=-1)), rx))
+    for label, inc, comb, x in tm_cases:
+        args, _ = tm_case(inc, x, comb, device)
+        for name in TM_KERNELS:
+            check_tiles(name, args["dense" if name == "tm_infer"
+                                   else "packed"], 0, rows, label,
+                        B=int(x.shape[0]), C=int(inc.shape[0]))
+    for kernel, label in {(r["kernel"], r["width"]) for r in rows}:
+        if max(r["nonzero_frac"] for r in rows if r["kernel"] == kernel
+               and r["width"] == label) < 0.05:
+            raise AssertionError(f"{kernel}: parity of (mostly) zeros at "
+                                 f"the {label} width")
+    emit({"phase": "tuning", "part": "a", "check": "every tile exact",
+          "tolerance": 0, "tiles_checked": sum(r["tiles"] for r in rows),
+          "cases": rows})
+
+
+def tuning_smoke_and_lazy(device):
+    """(b) ``autotune(smoke=True, register=False)`` on the card; then
+    ``ensure_tuning`` at a shape the table lacks measures once, and a
+    second engine at that bucket does not measure again."""
+    from repro_torch import api
+    from repro_torch.core import tm
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.kernels import autotune
+    from repro_torch.serve import BatcherConfig, EngineConfig, ServeEngine
+    t0 = time.perf_counter()
+    smoke = autotune.autotune(smoke=True, register=False, device=device)
+    smoke_s = time.perf_counter() - t0
+    if set(smoke) != set(autotune.KERNEL_OF) or not all(
+            autotune.AUTO in e["tile_latency_us"] and e["bucket_sizes"]
+            and e["device_name"] == torch.cuda.get_device_name(device)
+            for shapes in smoke.values() for e in shapes.values()):
+        raise AssertionError(f"autotune smoke: {smoke}")
+    cfg = tm.TMConfig(n_classes=3, clauses_per_class=20, n_features=100,
+                      n_states=100)                   # c64-l256: unseen
+    key = api.shape_bucket_key(cfg.n_clauses, cfg.n_literals)
+    snap = api.tuning_snapshot()
+    measure, calls = autotune.autotune_backend, []
+
+    def counted(backend, **kw):
+        calls.append(backend.name)
+        return measure(backend, **kw)
+
+    autotune.autotune_backend = counted
+    try:
+        if api.get_tuning("analog-cuda-packed2", key, device) is not None:
+            raise AssertionError(f"{key} is not an unseen shape")
+        ta, x, _ = prototype_task(cfg, 64, SEED + 9)
+        engines = [ServeEngine.from_ta_state(
+            torch.from_numpy(ta), cfg, n_replicas=REPLICAS, seed=SEED,
+            vcfg=VariationConfig.nominal(), ecfg=EngineConfig(
+                lazy_tune=True, batcher=BatcherConfig.for_max_batch(128)),
+            device=device) for _ in range(2)]
+        if calls != ["analog-cuda-packed2"]:
+            raise AssertionError(f"lazy tune measured {calls}")
+        entry = engines[0].tuning
+        for eng in engines:
+            s = eng.summary()
+            if not (s["tuning_lazy"] and s["shape_key"] == key
+                    and s["kernel_tiles"] == entry["tiles"]
+                    and eng.tuning == entry):
+                raise AssertionError(f"lazy tune: {s}")
+        out = serve_all(engines[1], x)
+        sums = np.stack([r.class_sums for r in out])
+        want = tm.forward(torch.from_numpy(ta).to(device),
+                          torch.from_numpy(x).to(device), cfg).cpu().numpy()
+        if not np.array_equal(sums, want):
+            raise AssertionError("lazily tuned engine differs from the "
+                                 "digital TM")
+    finally:
+        autotune.autotune_backend = measure
+        api.restore_tuning(snap)
+    emit({"phase": "tuning", "part": "b", "smoke_cells": sum(
+        len(v) for v in smoke.values()), "smoke_s": smoke_s,
+        "smoke": {n: {k: {"tiles": e["tiles"], "buckets": e["bucket_sizes"]}
+                      for k, e in v.items()} for n, v in smoke.items()},
+        "lazy_shape_key": key, "lazy_measurements": len(calls),
+        "lazy_engines": 2, "lazy_entry": {
+            k: entry[k] for k in ("tiles", "bucket_sizes", "tile_latency_us",
+                                  "bucket_latency_us", "tile_estimator")}})
+
+
+def serve_all(eng, x):
+    """Submit every row of ``x``, drain, and return the Responses in
+    submission order."""
+    rids = eng.submit_many(list(x))
+    eng.pump()
+    out = {r.rid: r for r in eng.drain()}
+    return [out[i] for i in rids]
+
+
+def tuned_engine_round(kind, device):
+    """(c) an engine under ``BatcherConfig.for_max_batch(128)`` at
+    imbue-tm-mnist (R = 4, ``analog-cuda-packed2``, ensemble) or at the
+    coalesced width (``coalesced-cuda-packed2``) consumes the committed
+    table's entry for its backend, shape bucket and card: its ladder and
+    its tiles in ``summary()``; 512 nominal requests equal the digital TM
+    / ``core.coalesced.forward``, 0 fallbacks, one launch a dispatch."""
+    from repro_torch import api
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import coalesced as co
+    from repro_torch.core import tm
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.serve import BatcherConfig, EngineConfig, ServeEngine
+    ecfg = EngineConfig(batcher=BatcherConfig.for_max_batch(128),
+                        routing="ensemble")
+    if kind == "analog":
+        cfg = tm_config(MODEL)
+        ta, x, _ = prototype_task(cfg, N_REQUESTS, SEED + 400)
+        eng = ServeEngine.from_ta_state(
+            torch.from_numpy(ta), cfg, n_replicas=REPLICAS, seed=SEED,
+            vcfg=VariationConfig.nominal(), ecfg=ecfg, device=device)
+        want = REPLICAS * tm.forward(torch.from_numpy(ta).to(device),
+                                     torch.from_numpy(x).to(device), cfg)
+        backend, kernel = "analog-cuda-packed2", "imbue_infer_planes"
+    else:
+        cfg = coalesced_config()
+        ta, w, x, _ = coalesced_task(cfg, N_REQUESTS, SEED + 401)
+        eng = ServeEngine.from_coalesced(
+            torch.from_numpy(ta), torch.from_numpy(w), cfg, ecfg=ecfg,
+            device=device)
+        want = co.forward(torch.from_numpy(ta).to(device),
+                          torch.from_numpy(w).to(device),
+                          torch.from_numpy(x).to(device), cfg)
+        backend, kernel = "coalesced-cuda-packed2", "tm_infer_planes"
+    entry = api.get_tuning(backend, eng.shape_key, device)
+    s0 = eng.summary()
+    ladder = [b for b in entry["bucket_sizes"] if b < 128] + [128] \
+        if entry else None
+    if (eng.backend.name != backend or entry is None
+            or s0["buckets_tuned_for"] != backend
+            or s0["kernel_tiles"] != entry["tiles"]
+            or s0["bucket_sizes"] != ladder):
+        raise AssertionError(f"{kind} engine does not report the committed "
+                             f"entry: {s0} vs {entry}")
+    fn, _ = kernel_pair(kernel)
+    launches0 = fn.launches
+    t0 = time.perf_counter()
+    out = serve_all(eng, x)
+    wall = time.perf_counter() - t0
+    s = eng.summary()
+    launches = fn.launches - launches0
+    sums = np.stack([r.class_sums for r in out])
+    if (len(out) != len(x) or s["fallback_dispatches"] != 0
+            or launches != s["batches"]
+            or not np.array_equal(sums, want.cpu().numpy())):
+        raise AssertionError(f"tuned {kind} engine: {len(out)} served, "
+                             f"{launches} launches for {s['batches']} "
+                             "dispatches, or sums off the reference")
+    emit({"phase": "tuning", "part": "c", "engine": kind, "backend": backend,
+          "shape_key": s["shape_key"], "kernel_tiles": s["kernel_tiles"],
+          "bucket_sizes": s["bucket_sizes"],
+          "buckets_tuned_for": s["buckets_tuned_for"],
+          "entry_device": entry["device_name"],
+          "entry_power_limit_w": entry["power_limit_w"],
+          "requests": len(out), "dispatches": s["batches"],
+          "launches": launches, "fallback_dispatches": 0,
+          "equals_reference": True, "requests_per_s": len(out) / wall,
+          "mean_batch": s["mean_batch"],
+          "padding_overhead": s["padding_overhead"]})
+
+
+def tuning_tile_times(device):
+    """(d) each fused kernel's device time at the committed tiles beside
+    "auto" (no override), at B = 128 and the full widths, with
+    ``time_ms`` (L2 flushed, enqueue behind a spin kernel): the analog
+    kernels at R = 4 on D2D planes (the planes kernel also nominal, R = 1,
+    as the sweep measured it), the TM kernels on each width's operands."""
+    from repro_torch import api
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.kernels import autotune
+    flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
+                        device=device)
+    rows = []
+
+    def timed(backend, key, name, args, label, **extra):
+        entry = api.get_tuning(backend, key, device)
+        if entry is None:
+            raise AssertionError(f"no committed entry {backend} @ {key}")
+        fn, _ = kernel_pair(name)
+        tiles = entry["tiles"]
+        auto = time_ms(lambda: fn(*args), 20, flush)
+        tuned = time_ms(lambda: fn(*args, tiles=tiles), 20, flush)
+        rows.append({"backend": backend, "kernel": name, "width": label,
+                     "shape_key": key, **extra, "tiles": tiles or "auto",
+                     "tuned_ms": tuned, "auto_ms": auto,
+                     "tuned_over_auto": tuned / auto,
+                     "sweep_us": entry["tile_latency_by_state"]})
+
+    widths = [("imbue-tm-mnist", tm_config(MODEL), SEED),
+              ("kws", stream_config(KWS_TASK), SEED + 5),
+              ("anomaly", stream_config(ANOMALY_TASK), SEED + 5)]
+    for label, cfg, seed in widths:
+        key = api.shape_bucket_key(cfg.n_clauses, cfg.n_literals)
+        ta, x, _ = prototype_task(cfg, 128, seed)
+        for r, dev in ((REPLICAS, True), (1, False)):
+            timed("analog-cuda-packed2", key, "imbue_infer_planes",
+                  planes_case(cfg, ta, x, r, dev, seed, device), label,
+                  R=r, dev=dev)
+        cases, _ = dense_case(cfg, ta, x, REPLICAS, True, seed, device)
+        for backend, name in (("analog-cuda-packed", "imbue_infer_packed"),
+                              ("analog-cuda", "imbue_infer")):
+            timed(backend, key, name, cases[name], label, R=REPLICAS,
+                  dev=True)
+        del cases
+    tm_sets = tm_widths(device) + stream_widths(device)
+    for label, inc, comb, x in tm_sets:
+        key = api.shape_bucket_key(*inc.shape)
+        args, _ = tm_case(inc, x[:128], comb, device)
+        family = ("coalesced" if label in ("coalesced", "kws-coalesced")
+                  else "digital")
+        for name in TM_KERNELS:
+            backend = tm_backend(family, name)
+            if backend is None:
+                continue                   # no digital planes backend
+            timed(backend, key, name,
+                  args["dense" if name == "tm_infer" else "packed"], label)
+    emit({"phase": "tuning", "part": "d", "B": 128,
+          "clock": "cuda events, median of 20, L2 flushed, host enqueue "
+                   "hidden behind a spin kernel",
+          "rows": rows})
+    return rows
+
+
+def tuning_ladders(device, keep):
+    """(e) the phase 3 (h) nominal KWS ``ensemble`` round on both engines,
+    on the static ladder (a hand-picked ``BatcherConfig``, which the table
+    never replaces) and on the tuned one (``for_max_batch``), in the order
+    static, tuned, tuned, static; each ladder's medians are recorded
+    only."""
+    from repro_torch.serve import AsyncServeEngine, BatcherConfig, \
+        ServeEngine
+    from repro_torch.serve.batching import STATIC_BUCKETS
+    static = BatcherConfig(max_batch=STREAM_BATCH,
+                           bucket_sizes=tuple(b for b in STATIC_BUCKETS
+                                              if b <= STREAM_BATCH))
+    for cls in (ServeEngine, AsyncServeEngine):
+        rows = {"ladder-static": [], "ladder-tuned": []}
+        for label in ("ladder-static", "ladder-tuned", "ladder-tuned",
+                      "ladder-static"):
+            rows[label].append(stream_nominal_round(
+                keep["kws"], keep["frames"], "ensemble", cls, device,
+                batcher=static if label == "ladder-static" else None,
+                label=label))
+        emit({"phase": "tuning", "part": "e", "engine": cls.__name__,
+              "order": "static, tuned, tuned, static", "medians": {
+                  label: {key: statistics.median(r[key] for r in rs)
+                          for key in ("decisions_per_s", "mean_batch",
+                                      "padding_overhead",
+                                      "session_p50_ms_median",
+                                      "session_p99_ms_median")}
+                  | {"bucket_sizes": rs[0]["bucket_sizes"]}
+                  for label, rs in rows.items()}})
+
+
+def phase_tuning(device, keep):
+    """The tuning phase: (a) every tile exact, (b) the smoke sweep and one
+    lazy measurement, (c) engines on the committed table, (d) tuned tiles
+    against "auto", (e) the static ladder against the tuned one."""
+    t0 = time.perf_counter()
+    tuning_exactness(device)
+    t_a = time.perf_counter()
+    tuning_smoke_and_lazy(device)
+    for kind in ("analog", "coalesced"):
+        tuned_engine_round(kind, device)
+    tuning_tile_times(device)
+    tuning_ladders(device, keep)
+    emit({"phase": "tuning", "exactness_s": t_a - t0,
+          "wall_s": time.perf_counter() - t0})
+
+
 def time_ms(fn, reps, flush):
     """Median device ms of ``fn`` over ``reps`` runs, CUDA events around
     each.  Before every run L2 is flushed and the card is held busy by a
@@ -2593,13 +3027,14 @@ def time_ms(fn, reps, flush):
     return statistics.median(times)
 
 
-def analog_launch_record(name, args):
+def analog_launch_record(name, args, tiles=None):
     """Kernel ``name``'s launch on the wrapper's operands ``args`` (an
-    analog kernel, all three on ``csrc/imbue_core.cuh``): its grid,
-    block, shared memory, resident blocks an SM (``<name>_geometry``),
-    the launched warps an SM (the grid's warps / SMs, capped by what is
-    resident), and from one counted launch (``<name>_launch_counted``,
-    outside every launch counter, held against ``<name>_ref``) the share
+    analog kernel, all three on ``csrc/imbue_core.cuh``) with the tile
+    override ``tiles``: its grid, block, shared memory, resident blocks an
+    SM (``<name>_geometry``), the launched warps an SM (the grid's warps /
+    SMs, capped by what is resident), and from one counted launch
+    (``<name>_launch_counted``, outside every launch counter, held
+    against ``<name>_ref``; it runs the kernel's own geometry) the share
     of (warp, row, column) steps the early exit skipped."""
     import ctypes
     from repro_torch.kernels import _build
@@ -2614,8 +3049,9 @@ def analog_launch_record(name, args):
         litw, incw, dev, pol, scal = args
         (b, lw), (c, m) = litw.shape, pol.shape
         r = 1 if dev is None else dev.shape[0]
-        err = geometry(r, b, c, lw, int(dev is not None), info)
-        counted.argtypes = ii._ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+        err = geometry(r, b, c, lw, int(dev is not None),
+                       *ii.analog_tiles(tiles, lw), info)
+        counted.argtypes = ii._ARGTYPES[:-3] + [ctypes.c_void_p] * 2
         out = torch.zeros((r, b, m), dtype=torch.int32, device=litw.device)
         err = err or counted(
             litw.data_ptr(), incw.data_ptr(),
@@ -2627,8 +3063,8 @@ def analog_launch_record(name, args):
         lits, g, leak, pol, i_ref, v_read = args
         (r, c, l), (b, m) = g.shape, (lits.shape[0], pol.shape[1])
         lw = -(-l // 32)
-        err = geometry(r, b, c, l, info)
-        counted.argtypes = ii._DENSE_ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+        err = geometry(r, b, c, l, *ii.analog_tiles(tiles, lw), info)
+        counted.argtypes = ii._DENSE_ARGTYPES[:-3] + [ctypes.c_void_p] * 2
         out = torch.zeros((r, b, m), dtype=torch.int32, device=lits.device)
         err = err or counted(
             lits.data_ptr(), g.data_ptr(), leak.data_ptr(), pol.data_ptr(),
@@ -2661,7 +3097,8 @@ def fired_share(cfg, ta, x, device):
 def phase_timing(device):
     """``imbue_infer_planes`` at R = 4 and R = 1 with the deviation plane
     (and the C2C pre-pass) and at R = 1 without it (nominal), B in
-    BATCHES."""
+    BATCHES, at the tiles the analog path's engine launches (the committed
+    entry's; "auto" timed beside them)."""
     from repro_torch.configs.imbue_tm import tm_config
     from repro_torch.core.variations import VariationConfig
     from repro_torch.kernels import ops
@@ -2672,21 +3109,26 @@ def phase_timing(device):
     flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
                         device=device)              # > 50 MB of L2
     vcfg = VariationConfig(csa_offset=False)
+    tiles = main_path_tiles("analog-cuda-packed2", cfg.n_clauses,
+                            cfg.n_literals, device)
     rows = []
     for r, with_dev in ((REPLICAS, True), (1, True), (1, False)):
         for b in BATCHES:
             args = planes_case(cfg, ta, x[:b], r, with_dev, SEED, device)
-            ms = time_ms(lambda: imbue_infer_planes(*args), 20, flush)
+            ms, auto_ms = timed_at_tiles(imbue_infer_planes, args, tiles,
+                                         flush)
             plain = time_ms(lambda: imbue_infer_planes_ref(*args), 3, flush)
             nbytes, nops = operand_bytes_and_ops(*args)
             bms, by = bound_ms(nbytes, [(nops, FP32_FLOP_PER_S)])
             row = {"R": r, "B": b, "dev": with_dev, "ms": ms,
+                   "tiles": tile_label(tiles), "auto_ms": auto_ms,
                    "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                    "issue_floor_ms": issue_floor_ms(nops),
                    "bytes": nbytes, "fp32_ops": nops,
                    "bound_share": bms / ms,
                    "fired_frac": fired_share(cfg, ta, x[:b], device),
-                   **analog_launch_record("imbue_infer_planes", args)}
+                   **analog_launch_record("imbue_infer_planes", args,
+                                          tiles)}
             if with_dev:
                 litw, incw, dev, _, _ = args
                 gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2702,8 +3144,9 @@ def phase_timing(device):
 
 
 def phase_dense_timing(device):
-    """The dense-plane analog kernels at R = 4, B in {8, 64, 128}, with the
-    eager conductance pre-pass and a partial library yardstick."""
+    """The dense-plane analog kernels at R = 4, B in {8, 64, 128}, at the
+    tiles the lower analog tiers' engines launch ("auto" beside them), with
+    the eager conductance pre-pass and a partial library yardstick."""
     from repro_torch.configs.imbue_tm import tm_config
     from repro_torch.core import tm
     from repro_torch.core.imbue import (IMBUEConfig, conductances,
@@ -2713,6 +3156,11 @@ def phase_dense_timing(device):
     ta, x, _ = prototype_task(cfg, 128, SEED)
     flush = torch.empty(256 * 2 ** 20 // 4, dtype=torch.float32,
                         device=device)              # > 50 MB of L2
+    tiles = {name: main_path_tiles(backend, cfg.n_clauses, cfg.n_literals,
+                                   device)
+             for name, backend in (
+                 ("imbue_infer_packed", "analog-cuda-packed"),
+                 ("imbue_infer", "analog-cuda"))}
     rows = []
     for b in BATCHES:
         cases, fired = dense_case(cfg, ta, x[:b], REPLICAS, True, SEED,
@@ -2720,7 +3168,7 @@ def phase_dense_timing(device):
         for name in DENSE_KERNELS:
             fn, ref = kernel_pair(name)
             args = cases[name]
-            ms = time_ms(lambda: fn(*args), 20, flush)
+            ms, auto_ms = timed_at_tiles(fn, args, tiles[name], flush)
             plain = time_ms(lambda: ref(*args), 3, flush)
             nbytes, nops = dense_bytes_and_ops(*args)
             bms, by = bound_ms(nbytes, [(nops, FP32_FLOP_PER_S)])
@@ -2739,12 +3187,13 @@ def phase_dense_timing(device):
                 torch.einsum("bkw,rckw->rbck", v_drive, g4),
                 torch.einsum("bkw,rckw->rbck", lit1, leak4)), 10, flush)
             row = {"kernel": name, "R": r, "B": b, "ms": ms,
+                   "tiles": tile_label(tiles[name]), "auto_ms": auto_ms,
                    "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                    "issue_floor_ms": issue_floor_ms(nops),
                    "bytes": nbytes, "fp32_ops": nops,
                    "bound_share": bms / ms, "fired_frac": fired,
                    "column_current_einsum_ms": einsum_ms,
-                   **analog_launch_record(name, args)}
+                   **analog_launch_record(name, args, tiles[name])}
             rows.append(row)
     include = tm.include_mask(torch.from_numpy(ta).to(device), cfg)
     vcfg = VariationConfig(csa_offset=False)
@@ -2766,8 +3215,9 @@ def phase_dense_timing(device):
 
 
 def phase_tm_timing(device):
-    """The three TM kernels at both widths, B in BATCHES: device time,
-    plain version, bound, the ``torch.matmul`` bracket of the violation
+    """The three TM kernels at both widths, B in BATCHES: device time at
+    the tiles the width's engine launches ("auto" beside them), plain
+    version, bound, the ``torch.matmul`` bracket of the violation
     product, the wrapper's ``[B, M]`` zero fill alone (inside every TM
     row's time), and the geometry and launched warps an SM of each (all
     three on ``csrc/tm_b1.cuh``); the timing clock's floor; then the host
@@ -2795,13 +3245,17 @@ def phase_tm_timing(device):
             for name in TM_KERNELS:
                 fn, ref = kernel_pair(name)
                 a = args["dense" if name == "tm_infer" else "packed"]
-                ms = time_ms(lambda: fn(*a), 20, flush)
+                backend = tm_backend(label, name)
+                tiles = ({} if backend is None else main_path_tiles(
+                    backend, *inc.shape, device))
+                ms, auto_ms = timed_at_tiles(fn, a, tiles, flush)
                 plain = time_ms(lambda: ref(*a), 5, flush)
                 nbytes, work = tm_bytes_and_work(name, a)
                 bms, by = bound_ms(nbytes, work)
                 row = {"kernel": name, "width": label,
                        "C": int(inc.shape[0]), "L": int(inc.shape[1]),
-                       "B": b, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+                       "B": b, "ms": ms, "tiles": tile_label(tiles),
+                       "auto_ms": auto_ms, "plain_ms": plain, "bound_ms": bms,
                        "bound_by": by, "bytes": nbytes,
                        "ops": [ops for ops, _ in work],
                        "ops_per_s": [rate for _, rate in work],
@@ -2809,7 +3263,8 @@ def phase_tm_timing(device):
                        "violation_matmul_ms": bracket, "zero_fill_ms": fill}
                 if name in B1_KERNELS:
                     row.update(b1_geometry(name, b, int(a[1].shape[0]),
-                                           int(a[1].shape[1]), m))
+                                           int(a[1].shape[1]), m,
+                                           tiles=tiles))
                 rows.append(row)
     emit({"phase": "timing", "kernels": list(TM_KERNELS),
           "clock": "cuda events, median, L2 flushed, host enqueue "
@@ -3166,6 +3621,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE fp32 plain paths
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    stream_keep = {}
     smi = phase_environment()
     max_err = phase_kernels(device)
     max_err.update(phase_dense_kernels(device))
@@ -3179,10 +3635,11 @@ def main() -> int:
                "coalesced": phase_coalesced_serving(device),
                "digital": phase_digital_fused(device),
                "live": phase_live(device),
-               "stream": phase_stream(device)}
+               "stream": phase_stream(device, stream_keep)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})
+    phase_tuning(device, stream_keep)
     # The kernels line counts each kernel on its main path: the analog
     # path for imbue_infer_planes, the lower analog tiers for the
     # dense-plane kernels, the coalesced path for the TM kernels, the
@@ -3225,7 +3682,11 @@ def main() -> int:
         plain_ms=main_rows[name]["plain_ms"],
         bound_ms=main_rows[name]["bound_ms"],
         bound_by=main_rows[name]["bound_by"],
-        library_ms=library.get(name))
+        library_ms=library.get(name),
+        # The six fused inference kernels run the committed tiles on their
+        # main paths ("auto": none); ms is timed at them, auto_ms without.
+        tiles=main_rows[name].get("tiles"),
+        auto_ms=main_rows[name].get("auto_ms"))
         for name in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

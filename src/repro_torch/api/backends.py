@@ -54,6 +54,9 @@ comes with the multi-device slice.
 
 :func:`class_sums` and :func:`predict` are the entry points with
 capability-based selection; ``get_backend(name).fn`` pins a backend.
+The eight fused backends (``CAP_FUSED_KERNEL``) also take ``tiles=``, the
+kernel's launch-geometry override (``ops``; the tuning table's measured
+tiles, which ``ServeEngine`` passes to every dispatch).
 """
 
 from __future__ import annotations
@@ -97,11 +100,12 @@ def digital_torch(state: DigitalState, lits: torch.Tensor,
 @register_backend("digital-cuda", state_types=(DigitalState,),
                   capabilities={CAP_DIGITAL, CAP_FUSED_KERNEL}, priority=20)
 def digital_cuda(state: DigitalState, lits: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None, *,
+                 tiles: ops.Tiles = None) -> torch.Tensor:
     """Fused clause evaluation + polarity combine (``tm_infer``)."""
     del generator
     return ops.tm_class_sums(lits, state.include, state.combine,
-                             device=state.device)
+                             device=state.device, tiles=tiles)
 
 
 @register_backend("digital-cuda-packed", state_types=(DigitalState,),
@@ -109,14 +113,15 @@ def digital_cuda(state: DigitalState, lits: torch.Tensor,
                                 CAP_PACKED_IO},
                   priority=30, predicate=lambda s: s.packed)
 def digital_cuda_packed(state: DigitalState, lits: torch.Tensor,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None, *,
+                        tiles: ops.Tiles = None
                         ) -> torch.Tensor:
     """Packed-wire digital kernel: int32 words, AND + popcount
     (``tm_infer_packed``)."""
     del generator
     return ops.tm_class_sums_packed(_as_packed_lits(lits),
                                     state.include_packed, state.combine,
-                                    device=state.device)
+                                    device=state.device, tiles=tiles)
 
 
 _ANALOG_STATES = (CrossbarState, ReplicaStackState)
@@ -156,7 +161,8 @@ def analog_torch(state, lits: torch.Tensor,
                                 CAP_MODELS_C2C, CAP_REPLICA_VMAP},
                   priority=20)
 def analog_cuda(state, lits: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, *,
+                tiles: ops.Tiles = None
                 ) -> torch.Tensor:
     """Dense-plane analog kernel (``imbue_infer``): g and leak built per
     read, then one launch for the whole stack (a chip is a stack of
@@ -164,7 +170,7 @@ def analog_cuda(state, lits: torch.Tensor,
     r_stack, one_chip = _as_stack(state)
     sums = ops.imbue_class_sums_stack(
         lits, r_stack, state.include, state.icfg, state.tm_cfg, generator,
-        vcfg=state.vcfg, device=state.device)
+        vcfg=state.vcfg, device=state.device, tiles=tiles)
     return sums[0] if one_chip else sums
 
 
@@ -174,14 +180,16 @@ def analog_cuda(state, lits: torch.Tensor,
                                 CAP_PACKED_IO},
                   priority=30, predicate=lambda s: s.packed)
 def analog_cuda_packed(state, lits: torch.Tensor,
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None, *,
+                       tiles: ops.Tiles = None
                        ) -> torch.Tensor:
     """Packed-wire analog kernel (``imbue_infer_packed``): literals as
     int32 words, g and leak dense float32 (noise as ``analog-cuda``)."""
     r_stack, one_chip = _as_stack(state)
     sums = ops.imbue_class_sums_stack_packed(
         _as_packed_lits(lits), r_stack, state.include, state.icfg,
-        state.tm_cfg, generator, vcfg=state.vcfg, device=state.device)
+        state.tm_cfg, generator, vcfg=state.vcfg, device=state.device,
+        tiles=tiles)
     return sums[0] if one_chip else sums
 
 
@@ -191,7 +199,8 @@ def analog_cuda_packed(state, lits: torch.Tensor,
                                 CAP_PACKED_IO, CAP_PACKED_PLANES},
                   priority=40, predicate=lambda s: s.plane_packed)
 def analog_cuda_packed2(state, lits: torch.Tensor,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None, *,
+                        tiles: ops.Tiles = None
                         ) -> torch.Tensor:
     """Plane-packed analog kernel: the resident planes stay compressed
     (index bitplane + deviation plane, elided when nominal) and the CUDA
@@ -203,10 +212,11 @@ def analog_cuda_packed2(state, lits: torch.Tensor,
         return ops.imbue_class_sums_stack_planes(
             litw, state.plane_index, state.plane_dev, state.icfg,
             state.tm_cfg, generator, vcfg=state.vcfg, l_valid=l_valid,
-            n_replicas=state.n_replicas, device=state.device)
+            n_replicas=state.n_replicas, device=state.device, tiles=tiles)
     return ops.imbue_class_sums_planes(
         litw, state.plane_index, state.plane_dev, state.icfg, state.tm_cfg,
-        generator, vcfg=state.vcfg, l_valid=l_valid, device=state.device)
+        generator, vcfg=state.vcfg, l_valid=l_valid, device=state.device,
+        tiles=tiles)
 
 
 @register_backend("coalesced", state_types=(CoalescedState,),
@@ -225,13 +235,14 @@ def coalesced_torch(state: CoalescedState, lits: torch.Tensor,
                                 CAP_FUSED_KERNEL},
                   priority=20)
 def coalesced_cuda(state: CoalescedState, lits: torch.Tensor,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None, *,
+                   tiles: ops.Tiles = None
                    ) -> torch.Tensor:
     """Fused clause evaluation + weighted combine (``tm_infer`` with W in
     place of the polarity matrix)."""
     del generator
     return ops.tm_class_sums(lits, state.include, state.combine,
-                             device=state.device)
+                             device=state.device, tiles=tiles)
 
 
 @register_backend("coalesced-cuda-packed", state_types=(CoalescedState,),
@@ -239,14 +250,15 @@ def coalesced_cuda(state: CoalescedState, lits: torch.Tensor,
                                 CAP_FUSED_KERNEL, CAP_PACKED_IO},
                   priority=30, predicate=lambda s: s.packed)
 def coalesced_cuda_packed(state: CoalescedState, lits: torch.Tensor,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None, *,
+                          tiles: ops.Tiles = None
                           ) -> torch.Tensor:
     """Packed-wire coalesced kernel: AND + popcount, weighted combine
     (``tm_infer_packed``)."""
     del generator
     return ops.tm_class_sums_packed(_as_packed_lits(lits),
                                     state.include_packed, state.combine,
-                                    device=state.device)
+                                    device=state.device, tiles=tiles)
 
 
 @register_backend("coalesced-cuda-packed2", state_types=(CoalescedState,),
@@ -255,7 +267,8 @@ def coalesced_cuda_packed(state: CoalescedState, lits: torch.Tensor,
                                 CAP_PACKED_PLANES},
                   priority=40, predicate=lambda s: s.plane_packed)
 def coalesced_cuda_packed2(state: CoalescedState, lits: torch.Tensor,
-                           generator: Optional[torch.Generator] = None
+                           generator: Optional[torch.Generator] = None, *,
+                           tiles: ops.Tiles = None
                            ) -> torch.Tensor:
     """Plane-packed coalesced kernel: the resident include plane, staged
     whole and counted on the b1 tensor cores (``tm_infer_planes``; the
@@ -263,7 +276,7 @@ def coalesced_cuda_packed2(state: CoalescedState, lits: torch.Tensor,
     del generator
     return ops.tm_class_sums_planes(_as_packed_lits(lits),
                                     state.plane_index, state.combine,
-                                    device=state.device)
+                                    device=state.device, tiles=tiles)
 
 
 def class_sums(state, lits: torch.Tensor,

@@ -103,14 +103,19 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """``<name>_launch`` from the kernel's library (built at first use),
-    with its ``argtypes`` declared and an ``int`` (CUDA error) result."""
+def library(name: str) -> ctypes.CDLL:
+    """The kernel's library, built at first use."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
         lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
-    fn = getattr(lib, f"{name}_launch")
+    return lib
+
+
+def load(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """``<name>_launch`` from the kernel's library (built at first use),
+    with its ``argtypes`` declared and an ``int`` (CUDA error) result."""
+    fn = getattr(library(name), f"{name}_launch")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

@@ -38,6 +38,17 @@ dispatch): ``litw [B, Lw]`` and ``incw [C, Lw]`` int32 words,
 ``comb [C, M]`` int32 (the polarity matrix or the coalesced weights, rows
 of empty clauses zeroed by the caller).
 
+The three fused wrappers take ``tiles``, an optional override of the
+layout their ``choose`` would pick (the tuning table's measured tiles,
+``kernels/autotune.py``): ``{"wm": 1 | 2 | 4, "wn": 1 | 2 | 4}`` warp
+tiles of 16 rows x 32 clauses a block, the K-splits then by the
+kernel's own rule (``tmb::choose``'s for the packed-word two,
+``WARPS_MAX / (wm * wn)`` for ``tm_infer``).  None or ``{}`` keeps
+``choose``'s layout.  A tile outside its set raises ``ValueError``
+naming it, on every device (:func:`tm_tiles`); none is clamped and
+none falls back to ``choose``.  The plain versions compute the same
+function for every tile, so they ignore it.
+
 On CPU tensors a wrapper computes with its plain PyTorch version (same
 signature).  On CUDA tensors it launches its hand-written kernel or
 raises — there is no fallback.  ``<wrapper>.launches`` counts kernel
@@ -47,15 +58,42 @@ launches, nothing else.
 from __future__ import annotations
 
 import ctypes
+import numbers
+from typing import Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-# <name>_launch(a, inc, comb, out, B, K, C, M, stream) for the fused three;
-# <name>_launch(a, inc, out, B, K, C, stream) for the clause-bit two.
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# <name>_launch(a, inc, comb, out, B, K, C, M, wm, wn, stream) for the
+# fused three; <name>_launch(a, inc, out, B, K, C, stream) for the
+# clause-bit two.
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _EVAL_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+# Tile overrides: wm x wn warp tiles a block (tm_b1.cuh's tile_ok).  What
+# a launch returns for a tile it refuses (tmb::TILE_INVALID).
+TILE_SET = (1, 2, 4)
+TILE_INVALID = -1
+
+
+def tm_tiles(tiles: Optional[Mapping[str, int]]) -> Tuple[int, int]:
+    """``(wm, wn)`` of a TM tile override, or ``(0, 0)`` for none (the
+    kernel's ``choose``).  Raises ``ValueError`` naming the tile for other
+    keys than wm and wn or a value outside ``TILE_SET``."""
+    if not tiles:
+        return 0, 0
+    tiles = dict(tiles)
+    if set(tiles) != {"wm", "wn"} or not all(
+            isinstance(v, numbers.Integral) and not isinstance(v, bool)
+            for v in tiles.values()):
+        raise ValueError(f"TM tile {tiles} must set exactly the integers "
+                         "wm and wn")
+    wm, wn = int(tiles["wm"]), int(tiles["wn"])
+    if wm not in TILE_SET or wn not in TILE_SET:
+        raise ValueError(f"TM tile {tiles} is outside its set: wm and wn "
+                         f"in {TILE_SET}")
+    return wm, wn
 
 
 def _check_pair(name: str, a: torch.Tensor, inc: torch.Tensor,
@@ -88,10 +126,11 @@ def _check(name: str, a: torch.Tensor, inc: torch.Tensor,
 
 
 def _launch(name: str, a: torch.Tensor, inc: torch.Tensor,
-            comb: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """Launch ``name`` on CUDA operands; returns the ``[B, M]`` int32 sums
-    and the launches made: 1, or 0 (zeros) when there is no batch row,
-    clause or class."""
+            comb: torch.Tensor, tiles=None) -> tuple[torch.Tensor, int]:
+    """Launch ``name`` on CUDA operands (with the tile override ``tiles``,
+    checked by :func:`tm_tiles` before this); returns the ``[B, M]``
+    int32 sums and the launches made: 1, or 0 (zeros) when there is no
+    batch row, clause or class."""
     if a.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{a.device}")
@@ -110,7 +149,10 @@ def _launch(name: str, a: torch.Tensor, inc: torch.Tensor,
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(pa, pi, comb.data_ptr(), out.data_ptr(), b, k, c, m,
-                     stream)
+                     *tm_tiles(tiles), stream)
+    if err == TILE_INVALID:
+        raise ValueError(f"{name}: tile {dict(tiles or {})} refused by the "
+                         "kernel")
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return out, 1
@@ -194,39 +236,49 @@ def clause_eval_ref(lits: torch.Tensor, include: torch.Tensor) -> torch.Tensor:
 
 
 def tm_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
-                    comb: torch.Tensor) -> torch.Tensor:
+                    comb: torch.Tensor,
+                    tiles: Optional[Mapping[str, int]] = None
+                    ) -> torch.Tensor:
     """``[B, M]`` int32 class sums from packed words, counted on the b1
-    tensor cores."""
+    tensor cores; ``tiles`` overrides the layout (module docstring)."""
     _check("tm_infer_planes", litw, incw, comb, (torch.int32,))
+    tm_tiles(tiles)
     if litw.device.type == "cpu":
         return tm_infer_planes_ref(litw, incw, comb)
-    out, launched = _launch("tm_infer_planes", litw, incw, comb)
+    out, launched = _launch("tm_infer_planes", litw, incw, comb, tiles)
     tm_infer_planes.launches += launched
     return out
 
 
 def tm_infer_packed(litw: torch.Tensor, incw: torch.Tensor,
-                    comb: torch.Tensor) -> torch.Tensor:
+                    comb: torch.Tensor,
+                    tiles: Optional[Mapping[str, int]] = None
+                    ) -> torch.Tensor:
     """``[B, M]`` int32 class sums from packed words, counted on the b1
-    tensor cores (the kernel of the ``*-packed`` backends)."""
+    tensor cores (the kernel of the ``*-packed`` backends); ``tiles``
+    overrides the layout (module docstring)."""
     _check("tm_infer_packed", litw, incw, comb, (torch.int32,))
+    tm_tiles(tiles)
     if litw.device.type == "cpu":
         return tm_infer_packed_ref(litw, incw, comb)
-    out, launched = _launch("tm_infer_packed", litw, incw, comb)
+    out, launched = _launch("tm_infer_packed", litw, incw, comb, tiles)
     tm_infer_packed.launches += launched
     return out
 
 
 def tm_infer(lits: torch.Tensor, include: torch.Tensor,
-             comb: torch.Tensor) -> torch.Tensor:
+             comb: torch.Tensor,
+             tiles: Optional[Mapping[str, int]] = None) -> torch.Tensor:
     """``[B, M]`` int32 class sums from dense 0/1 bytes (a bool include
-    plane is read as its bytes, without a copy)."""
+    plane is read as its bytes, without a copy); ``tiles`` overrides the
+    layout (module docstring)."""
     if include.dtype == torch.bool:
         include = include.view(torch.uint8)
     _check("tm_infer", lits, include, comb, (torch.uint8,))
+    tm_tiles(tiles)
     if lits.device.type == "cpu":
         return tm_infer_ref(lits, include, comb)
-    out, launched = _launch("tm_infer", lits, include, comb)
+    out, launched = _launch("tm_infer", lits, include, comb, tiles)
     tm_infer.launches += launched
     return out
 
@@ -263,3 +315,29 @@ tm_infer_packed.launches = 0
 tm_infer.launches = 0
 clause_eval_packed.launches = 0
 clause_eval.launches = 0
+
+
+GEOMETRY_FIELDS = ("grid", "threads", "smem_bytes", "blocks_per_sm",
+                   "k_splits", "row_tile", "clause_tile", "chunk_words")
+
+
+def launch_geometry(name: str, b: int, c: int, k: int, m: int,
+                    tiles: Optional[Mapping[str, int]] = None) -> dict:
+    """The launch of fused TM kernel ``name`` at ``B = b``, ``C = c``,
+    ``k`` words (bytes for ``tm_infer``) a row and ``M = m`` classes with
+    the tile override ``tiles``, as its ``<name>_geometry`` export reports
+    it: grid, threads, shared bytes, resident blocks an SM, K-splits, row
+    and clause tile and the words staged a chunk.  On the card only (it
+    builds the kernel's library)."""
+    wm, wn = tm_tiles(tiles)
+    info = (ctypes.c_int * 9)()
+    geometry = getattr(_build.library(name), f"{name}_geometry")
+    err = geometry(b, c, k, m, wm, wn, info)
+    if err == TILE_INVALID:
+        raise ValueError(f"{name}: tile {dict(tiles or {})} refused by the "
+                         "kernel")
+    if err != 0:
+        raise RuntimeError(f"{name}_geometry failed with CUDA error {err}")
+    v = list(info)
+    return dict(zip(GEOMETRY_FIELDS, [v[:2], *v[2:]]))
+

@@ -37,6 +37,10 @@
 //   as the batch needs (every row of a block shares the pairs a warp
 //   builds) unless the grid would then hold fewer than 16 warps an SM;
 //   then it halves NG and spreads the rows over more blocks.
+//   A caller may set (KS, NG) instead (`geometry`, the tuning table's
+//   measured tiles): KS in 1..8 and at most Lw, NG in {1, 2, 4}; an
+//   override outside that set, or over the shared-memory limit, is
+//   refused (TILE_INVALID), never clamped.
 // * Each warp stages its own column with cp.async, coalesced (lanes
 //   along cells, 16-byte chunks where the rows allow), into rows padded
 //   to 36 floats (a lane reading its clause's row as float4 hits distinct
@@ -388,6 +392,11 @@ struct Geometry {
   dim3 grid;     // (batch tiles, clause tiles, R)
 };
 
+// What a launch or geometry export returns for a tile override outside
+// its set, with ks > Lw, or whose shared memory exceeds the card's
+// opt-in limit: nothing is launched.  Not a CUDA error code.
+constexpr int TILE_INVALID = -1;
+
 inline int sm_count() {
   int dev = 0, n = 0;
   cudaGetDevice(&dev);
@@ -407,6 +416,33 @@ inline Geometry choose(int R, int B, int C, int Lw) {
                   dim3(tiles(ng), static_cast<unsigned>(ctiles), R)};
 }
 
+// The geometry of a launch: choose's when ks == ng == 0, else the tile
+// override (ks column splits in 1..KS_MAX, at most Lw; ng in {1, 2, 4}),
+// which is never clamped.  Returns false for an override outside its set.
+// Rows past B in a block (ng * 32 > B) start dead in init_alive.
+inline bool geometry(int R, int B, int C, int Lw, int ks, int ng,
+                     Geometry& geo) {
+  if (ks == 0 && ng == 0) {
+    geo = choose(R, B, C, Lw);
+    return true;
+  }
+  if (ks < 1 || ks > KS_MAX || ks > Lw || (ng != 1 && ng != 2 && ng != 4)) {
+    return false;
+  }
+  geo = Geometry{ks, ng, (Lw + ks - 1) / ks,
+                 dim3((B + ng * WORD - 1) / (ng * WORD),
+                      static_cast<unsigned>((C + CT - 1) / CT), R)};
+  return true;
+}
+
+// The dynamic shared memory a block may opt in to on this card.
+inline size_t smem_optin() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<size_t>(n);
+}
+
 // The kernel instance for `ng` row groups (1, 2 or 4), with its dynamic
 // shared memory for a launch at `geo` allowed; `err` is the CUDA error.
 template <class Src>
@@ -420,12 +456,14 @@ auto* kernel_for(const Geometry& geo, size_t smem, cudaError_t& err) {
 }
 
 // Launch on `st` with geometry `geo`; returns cudaGetLastError() after the
-// launch (0 on success).
+// launch (0 on success), or TILE_INVALID without launching when a block's
+// shared memory exceeds smem_optin().
 template <class Src>
 int launch(const Src& src, const int32_t* pol, int32_t* out,
            unsigned long long* rows_run, int B, int C, int M, int Lw,
            float i_ref, const Geometry& geo, cudaStream_t st) {
   const size_t smem = smem_words<Src>(geo.ks, geo.ng) * 4;
+  if (smem > smem_optin()) return TILE_INVALID;
   cudaError_t err;
   auto* kern = kernel_for<Src>(geo, smem, err);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -436,10 +474,12 @@ int launch(const Src& src, const int32_t* pol, int32_t* out,
 
 // `info` = {grid.x, grid.y, grid.z, threads, shared bytes, resident blocks
 // an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ks, ng, cols}
-// of a launch at `geo`.  Returns the CUDA error (0 on success).
+// of a launch at `geo`.  Returns the CUDA error (0 on success), or
+// TILE_INVALID when a block's shared memory exceeds smem_optin().
 template <class Src>
 int describe(const Geometry& geo, int* info) {
   const size_t smem = smem_words<Src>(geo.ks, geo.ng) * 4;
+  if (smem > smem_optin()) return TILE_INVALID;
   cudaError_t err;
   auto* kern = kernel_for<Src>(geo, smem, err);
   int blocks = 0;

@@ -71,8 +71,9 @@ struct DenseSource {
 
 template <bool VEC>
 int run(const void* lits, const void* g, const void* leak, const void* pol,
-        void* out, void* rows_run, int R, int B, int L, int C, int M,
-        float i_ref, float v_read, cudaStream_t st) {
+        void* out, void* rows_run, int B, int L, int C, int M,
+        float i_ref, float v_read, const imbue::Geometry& geo,
+        cudaStream_t st) {
   const int Lw = (L + WORD - 1) / WORD;
   const DenseSource<VEC> src{{static_cast<const float*>(g),
                               static_cast<const float*>(leak), v_read, C, L},
@@ -80,42 +81,49 @@ int run(const void* lits, const void* g, const void* leak, const void* pol,
   return imbue::launch(src, static_cast<const int32_t*>(pol),
                        static_cast<int32_t*>(out),
                        static_cast<unsigned long long*>(rows_run), B, C, M,
-                       Lw, i_ref, imbue::choose(R, B, C, Lw), st);
+                       Lw, i_ref, geo, st);
 }
 
+// ks == ng == 0: imbue::choose's geometry; else the tile override.
 int dense_launch(const void* lits, const void* g, const void* leak,
                  const void* pol, void* out, int R, int B, int L, int C,
-                 int M, float i_ref, float v_read, void* rows_run,
-                 void* stream) {
+                 int M, float i_ref, float v_read, int ks, int ng,
+                 void* rows_run, void* stream) {
+  imbue::Geometry geo;
+  if (!imbue::geometry(R, B, C, (L + WORD - 1) / WORD, ks, ng, geo)) {
+    return imbue::TILE_INVALID;
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (L % 16 == 0 && aligned(lits) && aligned(g) && aligned(leak)) {
-    return run<true>(lits, g, leak, pol, out, rows_run, R, B, L, C, M,
-                     i_ref, v_read, st);
+    return run<true>(lits, g, leak, pol, out, rows_run, B, L, C, M,
+                     i_ref, v_read, geo, st);
   }
-  return run<false>(lits, g, leak, pol, out, rows_run, R, B, L, C, M, i_ref,
-                    v_read, st);
+  return run<false>(lits, g, leak, pol, out, rows_run, B, L, C, M, i_ref,
+                    v_read, geo, st);
 }
 
 }  // namespace
 
 // lits [B, L] uint8, g / leak [R, C, L] float32, pol [C, M] int32,
-// out [R, B, M] int32 zeroed by the caller.  Returns cudaGetLastError()
-// after the launch (0 on success).
-extern "C" int imbue_infer_launch(const void* lits, const void* g,
-                                  const void* leak, const void* pol,
-                                  void* out, int R, int B, int L, int C,
-                                  int M, float i_ref, float v_read,
-                                  void* stream) {
+// out [R, B, M] int32 zeroed by the caller; the tile override ks column
+// splits, ng row groups (both 0 for imbue::choose's geometry).  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// imbue::TILE_INVALID, launching nothing, for a tile outside its set,
+// ks > ceil(L / 32), or shared memory over the card's opt-in limit.
+extern "C" int imbue_infer_launch(
+    const void* lits, const void* g, const void* leak, const void* pol,
+    void* out, int R, int B, int L, int C, int M, float i_ref, float v_read,
+    int ks, int ng, void* stream) {
   return dense_launch(lits, g, leak, pol, out, R, B, L, C, M, i_ref, v_read,
-                      nullptr, stream);
+                      ks, ng, nullptr, stream);
 }
 
-// The same launch, adding to `*rows_run` (one uint64 on the card) the
-// (warp, row, column) steps its warps summed, of R * ceil(C / 32) * B *
-// ceil(L / 32).  For measurement only.
+// The launch at imbue::choose's geometry, adding to `*rows_run` (one
+// uint64 on the card) the (warp, row, column) steps its warps summed, of
+// R * ceil(C / 32) * B * ceil(L / 32).  For measurement only.
 extern "C" int imbue_infer_launch_counted(const void* lits, const void* g,
                                           const void* leak, const void* pol,
                                           void* out, int R, int B, int L,
@@ -123,13 +131,17 @@ extern "C" int imbue_infer_launch_counted(const void* lits, const void* g,
                                           float v_read, void* rows_run,
                                           void* stream) {
   return dense_launch(lits, g, leak, pol, out, R, B, L, C, M, i_ref, v_read,
-                      rows_run, stream);
+                      0, 0, rows_run, stream);
 }
 
-// The launch geometry at (R, B, C, L): `info` as imbue::describe fills
-// it.  Returns the CUDA error.
-extern "C" int imbue_infer_geometry(int R, int B, int C, int L, int* info) {
-  const int Lw = (L + WORD - 1) / WORD;
-  return imbue::describe<DenseSource<true>>(imbue::choose(R, B, C, Lw),
-                                            info);
+// The launch geometry at (R, B, C, L) with the tile override (ks, ng;
+// both 0 for imbue::choose's): `info` as imbue::describe fills it.
+// Returns the CUDA error, or imbue::TILE_INVALID as the launch does.
+extern "C" int imbue_infer_geometry(int R, int B, int C, int L, int ks,
+                                    int ng, int* info) {
+  imbue::Geometry geo;
+  if (!imbue::geometry(R, B, C, (L + WORD - 1) / WORD, ks, ng, geo)) {
+    return imbue::TILE_INVALID;
+  }
+  return imbue::describe<DenseSource<true>>(geo, info);
 }

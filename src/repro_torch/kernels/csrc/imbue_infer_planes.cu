@@ -115,18 +115,21 @@ struct PlaneSource {
 template <bool HAS_DEV, bool VEC>
 int run(const int32_t* litw, const int32_t* incw, const float* dev,
         const int32_t* pol, int32_t* out, unsigned long long* rows_run,
-        int R, int B, int Lw, int C, int M, const Scalars& s,
-        cudaStream_t st) {
+        int B, int Lw, int C, int M, const Scalars& s,
+        const imbue::Geometry& geo, cudaStream_t st) {
   const PlaneSource<HAS_DEV, VEC> src{litw, incw, dev, s, B, C, Lw};
-  return imbue::launch(src, pol, out, rows_run, B, C, M, Lw, s.i_ref,
-                       imbue::choose(R, B, C, Lw), st);
+  return imbue::launch(src, pol, out, rows_run, B, C, M, Lw, s.i_ref, geo,
+                       st);
 }
 
+// ks == ng == 0: imbue::choose's geometry; else the tile override.
 int planes_launch(const void* litw, const void* incw, const void* dev,
                   const void* pol, void* out, int R, int B, int Lw, int C,
                   int M, int l_valid, float i_ref, float v_read, float r_lrs,
                   float r_hrs, float leak_inc, float leak_exc, float series,
-                  void* rows_run, void* stream) {
+                  int ks, int ng, void* rows_run, void* stream) {
+  imbue::Geometry geo;
+  if (!imbue::geometry(R, B, C, Lw, ks, ng, geo)) return imbue::TILE_INVALID;
   const Scalars s{i_ref, v_read, r_lrs, r_hrs, leak_inc, leak_exc, series,
                   l_valid};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -137,31 +140,36 @@ int planes_launch(const void* litw, const void* incw, const void* dev,
   auto* o = static_cast<int32_t*>(out);
   auto* rr = static_cast<unsigned long long*>(rows_run);
   if (dv == nullptr) {
-    return run<false, false>(lw, iw, dv, pl, o, rr, R, B, Lw, C, M, s, st);
+    return run<false, false>(lw, iw, dv, pl, o, rr, B, Lw, C, M, s, geo, st);
   }
   if (l_valid % 4 == 0 && reinterpret_cast<uintptr_t>(dv) % 16 == 0) {
-    return run<true, true>(lw, iw, dv, pl, o, rr, R, B, Lw, C, M, s, st);
+    return run<true, true>(lw, iw, dv, pl, o, rr, B, Lw, C, M, s, geo, st);
   }
-  return run<true, false>(lw, iw, dv, pl, o, rr, R, B, Lw, C, M, s, st);
+  return run<true, false>(lw, iw, dv, pl, o, rr, B, Lw, C, M, s, geo, st);
 }
 
 }  // namespace
 
-// Launch on `stream`; `dev` may be null (nominal stack, R must be 1).
-// Returns cudaGetLastError() after the launch (0 on success).
+// Launch on `stream` with the tile override (ks column splits, ng row
+// groups; both 0 for imbue::choose's geometry); `dev` may be null
+// (nominal stack, R must be 1).  Returns cudaGetLastError() after the
+// launch (0 on success), or imbue::TILE_INVALID, launching nothing, for a
+// tile outside its set, ks > Lw, or shared memory over the card's opt-in
+// limit.
 extern "C" int imbue_infer_planes_launch(
     const void* litw, const void* incw, const void* dev, const void* pol,
     void* out, int R, int B, int Lw, int C, int M, int l_valid, float i_ref,
     float v_read, float r_lrs, float r_hrs, float leak_inc, float leak_exc,
-    float series, void* stream) {
+    float series, int ks, int ng, void* stream) {
   return planes_launch(litw, incw, dev, pol, out, R, B, Lw, C, M, l_valid,
                        i_ref, v_read, r_lrs, r_hrs, leak_inc, leak_exc,
-                       series, nullptr, stream);
+                       series, ks, ng, nullptr, stream);
 }
 
-// The same launch, adding to `*rows_run` (one uint64 on the card) the
-// (warp, row, column) steps its warps summed: the early exit skipped the
-// rest of R * ceil(C / 32) * B * Lw.  For measurement only.
+// The launch at imbue::choose's geometry, adding to `*rows_run` (one
+// uint64 on the card) the (warp, row, column) steps its warps summed: the
+// early exit skipped the rest of R * ceil(C / 32) * B * Lw.  For
+// measurement only.
 extern "C" int imbue_infer_planes_launch_counted(
     const void* litw, const void* incw, const void* dev, const void* pol,
     void* out, int R, int B, int Lw, int C, int M, int l_valid, float i_ref,
@@ -169,14 +177,18 @@ extern "C" int imbue_infer_planes_launch_counted(
     float series, void* rows_run, void* stream) {
   return planes_launch(litw, incw, dev, pol, out, R, B, Lw, C, M, l_valid,
                        i_ref, v_read, r_lrs, r_hrs, leak_inc, leak_exc,
-                       series, rows_run, stream);
+                       series, 0, 0, rows_run, stream);
 }
 
-// The launch geometry at (R, B, C, Lw) with or without a deviation plane:
-// `info` as imbue::describe fills it.  Returns the CUDA error.
+// The launch geometry at (R, B, C, Lw) with or without a deviation plane
+// and with the tile override (ks, ng; both 0 for imbue::choose's): `info`
+// as imbue::describe fills it.  Returns the CUDA error, or
+// imbue::TILE_INVALID as the launch does.
 extern "C" int imbue_infer_planes_geometry(int R, int B, int C, int Lw,
-                                           int has_dev, int* info) {
-  const imbue::Geometry geo = imbue::choose(R, B, C, Lw);
+                                           int has_dev, int ks, int ng,
+                                           int* info) {
+  imbue::Geometry geo;
+  if (!imbue::geometry(R, B, C, Lw, ks, ng, geo)) return imbue::TILE_INVALID;
   return has_dev ? imbue::describe<PlaneSource<true, true>>(geo, info)
                  : imbue::describe<PlaneSource<false, false>>(geo, info);
 }

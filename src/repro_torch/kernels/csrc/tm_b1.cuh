@@ -25,6 +25,10 @@
 //   A = ~litw, B = incw.  Include words past Lw are staged as 0, so the
 //   pad never counts.  A warp takes 16 rows x 32 clauses and every ks-th
 //   8-word step; a block wm x wn such warp tiles and ks K-splits.
+// * A caller may fix (wm, wn) (tile overrides, the tuning table's
+//   measured tiles; choose's fix_wm / fix_wn): each in {1, 2, 4}, ks then
+//   by choose's rule, so wm * wn * ks <= WARPS_MAX and ks <= ceil(Lw / 8)
+//   hold; a tile outside the set is refused (TILE_INVALID), never clamped.
 // * The warps of a block meet as flags: a lane with a non-zero count
 //   writes 1 into the block's [bt, ct] byte tile in shared memory (zeroed
 //   before the staging barrier; every writer writes the same value).
@@ -343,21 +347,36 @@ inline Geo finish(Geo g, int B, int C, int Lw) {
   return g;
 }
 
+// What a launch or geometry export returns for a tile override outside
+// its set: nothing is launched.  Not a CUDA error code.
+constexpr int TILE_INVALID = -1;
+
+// A tile override (wm, wn) is in its set: each 1, 2 or 4.
+inline bool tile_ok(int wm, int wn) {
+  return (wm == 1 || wm == 2 || wm == 4) && (wn == 1 || wn == 2 || wn == 4);
+}
+
 // wm x wn warp tiles of 16 x 32 and ks K-splits (at most one 8-word step
 // each).  Of the layouts whose grid holds 16 warps an SM, the one that
 // stages the fewest words (each block stages its rows and clauses once),
 // then the fewest warps; if none does, the most warps.  M > 0: the blocks
 // also stage their slices of an [C, M] combine matrix where they fit
-// (comb_words).
-inline Geo choose(int B, int C, int Lw, int M = 0) {
+// (comb_words).  A tile override (fix_wm, fix_wn, both non-zero and
+// tile_ok) fixes the warp tiles, even past B or C, and takes ks by the
+// same rule; 0, 0 searches them.
+inline Geo choose(int B, int C, int Lw, int M = 0, int fix_wm = 0,
+                  int fix_wn = 0) {
   const long want = static_cast<long>(WARPS_PER_SM) * sm_count();
   const int steps = std::max(1, cdiv(Lw, MMA_K));
+  const bool fixed = fix_wm != 0;
   Geo best{};
   long best_warps = -1, best_words = 0;
   // Warp tiles past B or C in every block would only add idle warps.
-  for (int wm = 1; wm <= std::min(4, std::max(1, cdiv(B, 16))); wm *= 2) {
-    for (int wn = 1; wn <= std::min(WN_MAX, std::max(1, cdiv(C, 32)));
-         wn *= 2) {
+  const int wm_hi = fixed ? fix_wm : std::min(4, std::max(1, cdiv(B, 16)));
+  const int wn_hi =
+      fixed ? fix_wn : std::min(WN_MAX, std::max(1, cdiv(C, 32)));
+  for (int wm = fixed ? fix_wm : 1; wm <= wm_hi; wm *= 2) {
+    for (int wn = fixed ? fix_wn : 1; wn <= wn_hi; wn *= 2) {
       const long tiles = std::max(
           1L, static_cast<long>(cdiv(B, 16 * wm)) * cdiv(C, 32 * wn));
       const long words = tiles * (16 * wm + 32 * wn);
@@ -379,6 +398,25 @@ inline Geo choose(int B, int C, int Lw, int M = 0) {
     }
   }
   return finish(best, B, C, Lw);
+}
+
+// The geometry of a launch from a kernel's choose(fix_wm, fix_wn): its
+// own search when wm == wn == 0, else the tile override's.  Returns false,
+// choosing nothing, for an override outside its set.
+template <typename Choose>
+inline bool geometry_with(Choose choose_fixed, int wm, int wn, Geo& g) {
+  if ((wm != 0 || wn != 0) && !tile_ok(wm, wn)) return false;
+  g = choose_fixed(wm, wn);
+  return true;
+}
+
+// geometry_with over this file's choose (tm_infer_planes, tm_infer_packed).
+inline bool geometry(int B, int C, int Lw, int M, int wm, int wn, Geo& g) {
+  return geometry_with(
+      [&](int fix_wm, int fix_wn) {
+        return choose(B, C, Lw, M, fix_wm, fix_wn);
+      },
+      wm, wn, g);
 }
 
 // The `info` fields of the <name>_geometry exports: {grid.x, grid.y,

@@ -129,16 +129,20 @@ __global__ void __launch_bounds__(tmb::WARPS_MAX * WORD) tm_infer_kernel(
 
 // Of the wm x wn layouts (ks = the K-splits that make WARPS_MAX warps),
 // the one whose SMs read the fewest bytes, then the fewest bytes in all,
-// then the fewest blocks.
-Geo choose(int B, int C, int L, int M) {
+// then the fewest blocks.  A tile override (fix_wm, fix_wn, non-zero and
+// tmb::tile_ok) fixes the warp tiles, even past B or C, with the same ks.
+Geo choose(int B, int C, int L, int M, int fix_wm = 0, int fix_wn = 0) {
   const long sms = tmb::sm_count();
+  const bool fixed = fix_wm != 0;
   Geo best{};
   long best_sm = -1, best_all = 0, best_blocks = 0;
-  for (int wm = 1; wm <= std::min(4, std::max(1, tmb::cdiv(B, 16)));
-       wm *= 2) {
-    for (int wn = 1;
-         wn <= std::min(tmb::WN_MAX, std::max(1, tmb::cdiv(C, 32)));
-         wn *= 2) {
+  const int wm_hi =
+      fixed ? fix_wm : std::min(4, std::max(1, tmb::cdiv(B, 16)));
+  const int wn_hi =
+      fixed ? fix_wn
+            : std::min(tmb::WN_MAX, std::max(1, tmb::cdiv(C, 32)));
+  for (int wm = fixed ? fix_wm : 1; wm <= wm_hi; wm *= 2) {
+    for (int wn = fixed ? fix_wn : 1; wn <= wn_hi; wn *= 2) {
       const long blocks =
           std::max(1L, static_cast<long>(tmb::cdiv(B, 16 * wm)) *
                            tmb::cdiv(C, 32 * wn));
@@ -159,20 +163,32 @@ Geo choose(int B, int C, int L, int M) {
   return tmb::finish(best, B, C, tmb::cdiv(L, WORD));
 }
 
+// tmb::geometry_with over this file's choose.
+bool geometry_of(int B, int C, int L, int M, int wm, int wn, Geo& g) {
+  return tmb::geometry_with(
+      [&](int fix_wm, int fix_wn) {
+        return choose(B, C, L, M, fix_wm, fix_wn);
+      },
+      wm, wn, g);
+}
+
 }  // namespace
 
-// Launch on `stream`.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// Launch on `stream` with the tile override (wm x wn warp tiles, each 1,
+// 2 or 4, and WARPS_MAX / (wm * wn) K-splits; both 0 for this file's
+// choose).  Returns cudaGetLastError() after the launch (0 on success),
+// or tmb::TILE_INVALID, launching nothing, for a tile outside its set.
 extern "C" int tm_infer_launch(const void* lits, const void* inc,
                                const void* comb, void* out, int B, int L,
-                               int C, int M, void* stream) {
+                               int C, int M, int wm, int wn, void* stream) {
+  Geo g;
+  if (!geometry_of(B, C, L, M, wm, wn, g)) return tmb::TILE_INVALID;
   const auto* l = static_cast<const uint8_t*>(lits);
   const auto* i = static_cast<const uint8_t*>(inc);
   const auto* cb = static_cast<const int32_t*>(comb);
   auto* o = static_cast<int32_t*>(out);
   const bool vec = L % 16 == 0 && reinterpret_cast<uintptr_t>(l) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(i) % 16 == 0;
-  const Geo g = choose(B, C, L, M);
   const int threads = g.wm * g.wn * g.ks * WORD;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec) {
@@ -185,10 +201,13 @@ extern "C" int tm_infer_launch(const void* lits, const void* inc,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch geometry at (B, C, L, M), the fields of tmb::geometry_info
-// (words staged a chunk: L / 32 rounded up to 8 words).  Returns the CUDA
-// error.
-extern "C" int tm_infer_geometry(int B, int C, int L, int M, int* info) {
-  return tmb::geometry_info(choose(B, C, L, M), tm_infer_kernel<true>,
-                            info);
+// The launch geometry at (B, C, L, M) with the tile override (wm, wn;
+// both 0 for this file's choose), the fields of tmb::geometry_info (words
+// staged a chunk: L / 32 rounded up to 8 words).  Returns the CUDA error,
+// or tmb::TILE_INVALID as the launch does.
+extern "C" int tm_infer_geometry(int B, int C, int L, int M, int wm, int wn,
+                                 int* info) {
+  Geo g;
+  if (!geometry_of(B, C, L, M, wm, wn, g)) return tmb::TILE_INVALID;
+  return tmb::geometry_info(g, tm_infer_kernel<true>, info);
 }

@@ -68,12 +68,16 @@ __global__ void __launch_bounds__(tmb::WARPS_MAX * WORD) planes_kernel(
 
 }  // namespace
 
-// Launch on `stream`.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// Launch on `stream` with the tile override (wm x wn warp tiles, each 1,
+// 2 or 4; both 0 for tmb::choose's layout).  Returns cudaGetLastError()
+// after the launch (0 on success), or tmb::TILE_INVALID, launching
+// nothing, for a tile outside its set.
 extern "C" int tm_infer_planes_launch(const void* litw, const void* incw,
                                       const void* comb, void* out, int B,
-                                      int Lw, int C, int M, void* stream) {
-  const Geo g = tmb::choose(B, C, Lw, M);
+                                      int Lw, int C, int M, int wm, int wn,
+                                      void* stream) {
+  Geo g;
+  if (!tmb::geometry(B, C, Lw, M, wm, wn, g)) return tmb::TILE_INVALID;
   planes_kernel<<<g.grid, g.wm * g.wn * g.ks * WORD, tmb::smem_bytes(g),
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(litw), static_cast<const int32_t*>(incw),
@@ -82,10 +86,12 @@ extern "C" int tm_infer_planes_launch(const void* litw, const void* incw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch geometry at (B, C, Lw, M), the fields of
-// tmb::geometry_info.  Returns the CUDA error.
-extern "C" int tm_infer_planes_geometry(int B, int C, int Lw, int M,
-                                        int* info) {
-  return tmb::geometry_info(tmb::choose(B, C, Lw, M), planes_kernel,
-                            info);
+// The launch geometry at (B, C, Lw, M) with the tile override (wm, wn;
+// both 0 for tmb::choose's), the fields of tmb::geometry_info.  Returns
+// the CUDA error, or tmb::TILE_INVALID as the launch does.
+extern "C" int tm_infer_planes_geometry(int B, int C, int Lw, int M, int wm,
+                                        int wn, int* info) {
+  Geo g;
+  if (!tmb::geometry(B, C, Lw, M, wm, wn, g)) return tmb::TILE_INVALID;
+  return tmb::geometry_info(g, planes_kernel, info);
 }

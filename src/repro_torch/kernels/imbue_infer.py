@@ -33,6 +33,17 @@ as float32 values.
 * ``scal``  the electrical scalars, each rounded to float32 once on the
   host, as the reference does.
 
+Each wrapper takes ``tiles``, an optional override of the launch
+geometry that ``imbue::choose`` would pick (the tuning table's measured
+tiles, ``kernels/autotune.py``): ``{"ks": 1..8, "ng": 1 | 2 | 4}``, ks
+warps a block splitting the columns (at most ``ceil(L / 32)``), ng
+32-row groups a block.  None or ``{}`` keeps ``choose``'s geometry.  A
+tile outside its set raises ``ValueError`` naming it, on every device
+(:func:`analog_tiles`); on the card a tile whose shared memory exceeds
+the opt-in limit raises too.  No tile is clamped and none falls back to
+``choose``.  The plain versions compute the same function for every
+tile, so they ignore it.
+
 On CPU tensors a wrapper computes with its plain PyTorch version (same
 signature, ``<name>_ref``).  On CUDA tensors it launches its hand-written
 kernel or raises — there is no fallback.  ``<wrapper>.launches`` counts
@@ -43,7 +54,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+import numbers
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,12 +64,50 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bitpack import WORD, unpack_bits, words_for
 
 KERNEL = "imbue_infer_planes"
+# imbue_infer_planes_launch(litw, incw, dev, pol, out, R, B, Lw, C, M,
+# l_valid, 7 scalars, ks, ng, stream); <name>_launch(lits, g, leak, pol,
+# out, R, B, L, C, M, i_ref, v_read, ks, ng, stream) for both dense-plane
+# kernels.  <name>_launch_counted takes rows_run in place of (ks, ng).
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-             + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-# <name>_launch(lits, g, leak, pol, out, R, B, L, C, M, i_ref, v_read,
-# stream) for both dense-plane kernels.
+             + [ctypes.c_float] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _DENSE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+
+# Tile overrides: ks column splits (warps) a block, ng 32-row groups a
+# block (imbue_core.cuh's KS_MAX and row groups).  What a launch
+# returns for a tile it refuses (imbue::TILE_INVALID).
+KS_MAX = 8
+NG_SET = (1, 2, 4)
+TILE_INVALID = -1
+
+
+def analog_tiles(tiles: Optional[Mapping[str, int]],
+                 lw: int) -> Tuple[int, int]:
+    """``(ks, ng)`` of an analog tile override for rows of ``lw`` columns,
+    or ``(0, 0)`` for none (``imbue::choose``'s geometry).  Raises
+    ``ValueError`` naming the tile for other keys than ks and ng, a ks
+    outside 1..``KS_MAX`` or past ``lw``, or an ng outside ``NG_SET``."""
+    if not tiles:
+        return 0, 0
+    tiles = dict(tiles)
+    if set(tiles) != {"ks", "ng"} or not all(
+            isinstance(v, numbers.Integral) and not isinstance(v, bool)
+            for v in tiles.values()):
+        raise ValueError(f"analog tile {tiles} must set exactly the "
+                         "integers ks and ng")
+    ks, ng = int(tiles["ks"]), int(tiles["ng"])
+    if not 1 <= ks <= min(KS_MAX, lw) or ng not in NG_SET:
+        raise ValueError(f"analog tile {tiles} is outside its set: ks in "
+                         f"1..{min(KS_MAX, lw)} (at most {KS_MAX} and the "
+                         f"{lw} columns), ng in {NG_SET}")
+    return ks, ng
+
+
+def _refused(name: str, tiles) -> ValueError:
+    return ValueError(f"{name}: tile {dict(tiles or {})} refused by the "
+                      "kernel (its shared memory exceeds the card's opt-in "
+                      "limit)")
 
 
 def _f32(x: float) -> float:
@@ -158,9 +208,13 @@ def _class_sums_ref(lits: torch.Tensor, g: torch.Tensor, leak: torch.Tensor,
 
 def imbue_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
                        dev: Optional[torch.Tensor], pol: torch.Tensor,
-                       scal: PlaneScalars) -> torch.Tensor:
-    """``[R, B, M]`` int32 class sums (R = 1 when ``dev`` is None)."""
+                       scal: PlaneScalars,
+                       tiles: Optional[Mapping[str, int]] = None
+                       ) -> torch.Tensor:
+    """``[R, B, M]`` int32 class sums (R = 1 when ``dev`` is None);
+    ``tiles`` overrides the launch geometry (module docstring)."""
     _check(litw, incw, dev, pol, scal)
+    ks, ng = analog_tiles(tiles, litw.shape[1])
     if litw.device.type == "cpu":
         return imbue_infer_planes_ref(litw, incw, dev, pol, scal)
     if litw.device.type != "cuda":
@@ -180,7 +234,9 @@ def imbue_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
                      pol.data_ptr(), out.data_ptr(), r, b, lw, c, m,
                      scal.l_valid, scal.i_ref, scal.v_read, scal.r_lrs,
                      scal.r_hrs, scal.leak_inc, scal.leak_exc,
-                     scal.series_factor, stream)
+                     scal.series_factor, ks, ng, stream)
+    if err == TILE_INVALID:
+        raise _refused(KERNEL, tiles)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed with CUDA error {err}")
     imbue_infer_planes.launches += 1
@@ -239,9 +295,12 @@ def imbue_infer_ref(lits: torch.Tensor, g: torch.Tensor, leak: torch.Tensor,
 
 def _launch_dense(wrapper, lits: torch.Tensor, g: torch.Tensor,
                   leak: torch.Tensor, pol: torch.Tensor, i_ref: float,
-                  v_read: float) -> torch.Tensor:
-    """Launch ``wrapper``'s kernel on CUDA operands and count the launch
-    on ``wrapper.launches``; returns ``[R, B, M]`` int32."""
+                  v_read: float, tile: Tuple[int, int],
+                  tiles) -> torch.Tensor:
+    """Launch ``wrapper``'s kernel on CUDA operands (``tile`` the checked
+    ``(ks, ng)`` of ``tiles``, ``(0, 0)`` for ``choose``'s geometry) and
+    count the launch on ``wrapper.launches``; returns ``[R, B, M]``
+    int32."""
     name = wrapper.__name__
     if lits.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
@@ -256,7 +315,9 @@ def _launch_dense(wrapper, lits: torch.Tensor, g: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(lits.data_ptr(), g.data_ptr(), leak.data_ptr(),
                      pol.data_ptr(), out.data_ptr(), r, b, l, c, m,
-                     _f32(i_ref), _f32(v_read), stream)
+                     _f32(i_ref), _f32(v_read), *tile, stream)
+    if err == TILE_INVALID:
+        raise _refused(name, tiles)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     wrapper.launches += 1
@@ -265,27 +326,63 @@ def _launch_dense(wrapper, lits: torch.Tensor, g: torch.Tensor,
 
 def imbue_infer_packed(litw: torch.Tensor, g: torch.Tensor,
                        leak: torch.Tensor, pol: torch.Tensor, i_ref: float,
-                       v_read: float) -> torch.Tensor:
+                       v_read: float,
+                       tiles: Optional[Mapping[str, int]] = None
+                       ) -> torch.Tensor:
     """``[R, B, M]`` int32 class sums from packed literal words and dense
-    ``[R, C, L]`` conductance / leak planes."""
+    ``[R, C, L]`` conductance / leak planes; ``tiles`` overrides the
+    launch geometry (module docstring)."""
     _check_dense("imbue_infer_packed", litw, g, leak, pol, packed=True)
+    tile = analog_tiles(tiles, litw.shape[1])
     if litw.device.type == "cpu":
         return imbue_infer_packed_ref(litw, g, leak, pol, i_ref, v_read)
     return _launch_dense(imbue_infer_packed, litw, g, leak, pol, i_ref,
-                         v_read)
+                         v_read, tile, tiles)
 
 
 def imbue_infer(lits: torch.Tensor, g: torch.Tensor, leak: torch.Tensor,
-                pol: torch.Tensor, i_ref: float,
-                v_read: float) -> torch.Tensor:
+                pol: torch.Tensor, i_ref: float, v_read: float,
+                tiles: Optional[Mapping[str, int]] = None) -> torch.Tensor:
     """``[R, B, M]`` int32 class sums from 0/1 literal bytes and dense
-    ``[R, C, L]`` conductance / leak planes."""
+    ``[R, C, L]`` conductance / leak planes; ``tiles`` overrides the
+    launch geometry (module docstring)."""
     _check_dense("imbue_infer", lits, g, leak, pol, packed=False)
+    tile = analog_tiles(tiles, words_for(g.shape[2]))
     if lits.device.type == "cpu":
         return imbue_infer_ref(lits, g, leak, pol, i_ref, v_read)
-    return _launch_dense(imbue_infer, lits, g, leak, pol, i_ref, v_read)
+    return _launch_dense(imbue_infer, lits, g, leak, pol, i_ref, v_read,
+                         tile, tiles)
 
 
 imbue_infer_planes.launches = 0
 imbue_infer_packed.launches = 0
 imbue_infer.launches = 0
+
+
+GEOMETRY_FIELDS = ("grid", "threads", "smem_bytes", "blocks_per_sm",
+                   "column_splits", "row_groups", "steps")
+
+
+def launch_geometry(name: str, r: int, b: int, c: int, l: int,
+                    has_dev: bool = True,
+                    tiles: Optional[Mapping[str, int]] = None) -> dict:
+    """The launch of analog kernel ``name`` at ``R = r``, ``B = b``,
+    ``C = c`` and ``L = l`` literals (with or without a deviation plane for
+    ``imbue_infer_planes``) and the tile override ``tiles``, as its
+    ``<name>_geometry`` export reports it: grid, threads, shared bytes,
+    resident blocks an SM, column splits, row groups and the most columns
+    a warp sums.  On the card only (it builds the kernel's library)."""
+    lw = words_for(l)
+    ks, ng = analog_tiles(tiles, lw)
+    info = (ctypes.c_int * 9)()
+    geometry = getattr(_build.library(name), f"{name}_geometry")
+    shape = ((r, b, c, lw, int(has_dev)) if name == KERNEL
+             else (r, b, c, l))
+    err = geometry(*shape, ks, ng, info)
+    if err == TILE_INVALID:
+        raise _refused(name, tiles)
+    if err != 0:
+        raise RuntimeError(f"{name}_geometry failed with CUDA error {err}")
+    v = list(info)
+    return dict(zip(GEOMETRY_FIELDS, [v[:3], *v[3:]]))
+

@@ -43,13 +43,18 @@ reference); capability selection routes such reads to ``analog-torch``.
 
 No tile padding is needed: the CUDA kernel masks the ragged batch and
 clause edges itself, and the word padding past ``l_valid`` is masked by
-the kernel's validity test.  Entry points run on ``device`` (default
-``cuda``; ``None`` without CUDA raises).
+the kernel's validity test.  The wrappers the fused backends call take
+``tiles``, the kernel's launch-geometry override (``{"ks", "ng"}`` for
+the analog kernels, ``{"wm", "wn"}`` for the TM ones; the tuning table's
+measured tiles, ``kernels/autotune.py``), and hand it to the kernel's
+wrapper, which checks it; None keeps the kernel's own choice.  Entry
+points run on ``device`` (default ``cuda``; ``None`` without CUDA
+raises).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -65,6 +70,9 @@ from repro_torch.kernels.clause_eval import (tm_infer, tm_infer_packed,
 from repro_torch.kernels.imbue_infer import (PlaneScalars, _f32, imbue_infer,
                                              imbue_infer_packed,
                                              imbue_infer_planes)
+
+# A kernel's launch-geometry override (module docstring); None: its own.
+Tiles = Optional[Mapping[str, int]]
 
 
 def polarity_matrix(cfg: TMConfig, include: Optional[torch.Tensor] = None,
@@ -131,6 +139,7 @@ def imbue_class_sums_stack_planes(
     l_valid: int,
     n_replicas: int,
     device: DeviceLike = None,
+    tiles: Tiles = None,
 ) -> torch.Tensor:
     """Plane-packed replica-stack inference -> ``[R, B, M]`` int32.
 
@@ -157,7 +166,7 @@ def imbue_class_sums_stack_planes(
     out = imbue_infer_planes(
         litw, plane_index.contiguous(),
         None if dev is None else dev.contiguous(), pol.contiguous(),
-        plane_scalars(icfg, l_valid))
+        plane_scalars(icfg, l_valid), tiles)
     if dev is None:
         return out.expand(n_replicas, *out.shape[1:])
     return out
@@ -174,12 +183,13 @@ def imbue_class_sums_planes(
     vcfg: Optional[var.VariationConfig] = None,
     l_valid: int,
     device: DeviceLike = None,
+    tiles: Tiles = None,
 ) -> torch.Tensor:
     """Fused analog inference from ONE plane-packed chip -> ``[B, M]``."""
     dev = None if plane_dev is None else plane_dev[None]
     return imbue_class_sums_stack_planes(
         litw, plane_index, dev, icfg, cfg, generator, vcfg=vcfg,
-        l_valid=l_valid, n_replicas=1, device=device)[0]
+        l_valid=l_valid, n_replicas=1, device=device, tiles=tiles)[0]
 
 
 # ------------------------------------------------ analog, dense planes
@@ -187,7 +197,8 @@ def imbue_class_sums_planes(
 def _dense_class_sums(kernel, lits: torch.Tensor, g: torch.Tensor,
                       leak: torch.Tensor, include: torch.Tensor,
                       v_read: float, r_div: float, v_ref: float,
-                      cfg: TMConfig, width: int) -> torch.Tensor:
+                      cfg: TMConfig, width: int,
+                      tiles: Tiles = None) -> torch.Tensor:
     """One launch of ``kernel`` on ``[R, C, L]`` planes (on ``lits``'
     device) -> ``[R, B, M]`` int32."""
     if width != bitpack.WORD:
@@ -199,7 +210,7 @@ def _dense_class_sums(kernel, lits: torch.Tensor, g: torch.Tensor,
     pol = polarity_matrix(cfg, include.to(device=device, dtype=torch.bool),
                           device=device)
     return kernel(lits, g, leak, pol.contiguous(), _f32(v_ref / r_div),
-                  _f32(v_read))
+                  _f32(v_read), tiles)
 
 
 def _lits(lits: torch.Tensor, device: DeviceLike) -> torch.Tensor:
@@ -270,14 +281,16 @@ def imbue_class_sums(lits: torch.Tensor, xbar: ProgrammedCrossbar,
 def _stack_sums(kernel, lits: torch.Tensor, r_stack: torch.Tensor,
                 include: torch.Tensor, icfg: IMBUEConfig, cfg: TMConfig,
                 generator: Optional[torch.Generator],
-                vcfg: Optional[var.VariationConfig]) -> torch.Tensor:
+                vcfg: Optional[var.VariationConfig],
+                tiles: Tiles) -> torch.Tensor:
     vcfg = vcfg or var.VariationConfig.nominal()
     include = include.to(device=lits.device, dtype=torch.bool)
     g_on, i_leak = conductances(r_stack.to(lits.device), include, icfg,
                                 generator, vcfg)           # [R, C, L] each
     return _dense_class_sums(kernel, lits, g_on, i_leak, include,
                              icfg.v_read, icfg.r_divider,
-                             icfg.reference_voltage(), cfg, icfg.width)
+                             icfg.reference_voltage(), cfg, icfg.width,
+                             tiles)
 
 
 def imbue_class_sums_stack(
@@ -290,13 +303,14 @@ def imbue_class_sums_stack(
     *,
     vcfg: Optional[var.VariationConfig] = None,
     device: DeviceLike = None,
+    tiles: Tiles = None,
 ) -> torch.Tensor:
     """Replica-stack inference -> ``[R, B, M]`` int32 in ONE launch (R is
     a grid axis of ``imbue_infer``).  The conductance planes are built
     eagerly in ``[R, C, L]`` first; a C2C read (``generator`` given and
     ``vcfg.c2c``) draws fresh noise for every cell of every replica."""
     return _stack_sums(imbue_infer, _lits(lits, device), r_stack, include,
-                       icfg, cfg, generator, vcfg)
+                       icfg, cfg, generator, vcfg, tiles)
 
 
 def imbue_class_sums_stack_packed(
@@ -309,12 +323,13 @@ def imbue_class_sums_stack_packed(
     *,
     vcfg: Optional[var.VariationConfig] = None,
     device: DeviceLike = None,
+    tiles: Tiles = None,
 ) -> torch.Tensor:
     """Packed-literal replica-stack inference -> ``[R, B, M]`` int32 in
     ONE launch of ``imbue_infer_packed``; noise as
     :func:`imbue_class_sums_stack`."""
     return _stack_sums(imbue_infer_packed, _litw(litw, device), r_stack,
-                       include, icfg, cfg, generator, vcfg)
+                       include, icfg, cfg, generator, vcfg, tiles)
 
 
 # ------------------------------------------- digital / coalesced, fused
@@ -346,34 +361,34 @@ def _comb(comb: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def tm_class_sums(lits: torch.Tensor, include: torch.Tensor,
-                  comb: torch.Tensor, *,
-                  device: DeviceLike = None) -> torch.Tensor:
+                  comb: torch.Tensor, *, device: DeviceLike = None,
+                  tiles: Tiles = None) -> torch.Tensor:
     """Fused inference: ``[B, L]`` literals, the ``[C, L]`` include plane
     and the ``[C, M]`` combine matrix (:func:`polarity_matrix` for a
     digital TM, :func:`coalesced_combine` for a coalesced pool) ->
     ``[B, M]`` int32 (the ``tm_infer`` kernel)."""
     lits, include = _dense_operands(lits, include, device)
-    return tm_infer(lits, include, _comb(comb, lits.device))
+    return tm_infer(lits, include, _comb(comb, lits.device), tiles)
 
 
 def tm_class_sums_packed(litw: torch.Tensor, include_w: torch.Tensor,
-                         comb: torch.Tensor, *,
-                         device: DeviceLike = None) -> torch.Tensor:
+                         comb: torch.Tensor, *, device: DeviceLike = None,
+                         tiles: Tiles = None) -> torch.Tensor:
     """:func:`tm_class_sums` from packed words -> ``[B, M]`` int32 (the
     ``tm_infer_packed`` kernel)."""
     litw, incw = _packed_operands(litw, include_w, device)
-    return tm_infer_packed(litw, incw, _comb(comb, litw.device))
+    return tm_infer_packed(litw, incw, _comb(comb, litw.device), tiles)
 
 
 def tm_class_sums_planes(litw: torch.Tensor, include_w: torch.Tensor,
-                         comb: torch.Tensor, *,
-                         device: DeviceLike = None) -> torch.Tensor:
+                         comb: torch.Tensor, *, device: DeviceLike = None,
+                         tiles: Tiles = None) -> torch.Tensor:
     """:func:`tm_class_sums` on the resident include plane, staged whole
     and counted on the b1 tensor cores -> ``[B, M]`` int32 (the
     ``tm_infer_planes`` kernel; the same integers as
     :func:`tm_class_sums_packed`)."""
     litw, incw = _packed_operands(litw, include_w, device)
-    return tm_infer_planes(litw, incw, _comb(comb, litw.device))
+    return tm_infer_planes(litw, incw, _comb(comb, litw.device), tiles)
 
 
 # ------------------------------------------- clause bits, training semantics

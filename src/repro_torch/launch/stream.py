@@ -18,7 +18,10 @@ by default; ``--device cpu`` runs the plain versions).  The frames are
 drawn on the host from ``torch.Generator``s seeded as the reference seeds
 its keys (train 0, test 1, session ``s`` 10 + s), so a run is the same
 data on either device; the TA init, the training and the engine take
-seeds 2, 3 and 4.
+seeds 2, 3 and 4.  ``--lazy-tune`` (on by default, as in the reference)
+measures the engine's kernel tiles and bucket ladder once when the
+tuning table has no entry for the model's shape bucket on this device
+(``kernels/autotune.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.stream --sessions 8
   PYTHONPATH=src python -m repro_torch.launch.stream --workload anomaly \\
@@ -102,6 +105,11 @@ def main(argv=None):
     ap.add_argument("--backend", default=None, choices=ANALOG_BACKENDS)
     ap.add_argument("--packed", action=argparse.BooleanOptionalAction,
                     default=True)
+    ap.add_argument("--lazy-tune", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="measure kernel tiles and a bucket ladder on first "
+                         "sight of this model's shape bucket on this device "
+                         "(default on)")
     ap.add_argument("--async-serve", action="store_true")
     ap.add_argument("--max-in-flight", type=int, default=2)
     ap.add_argument("--checkpoint-dir", default=None,
@@ -152,13 +160,16 @@ def main(argv=None):
     ecfg = EngineConfig(
         batcher=BatcherConfig.for_max_batch(args.batch),
         routing=args.routing, backend=args.backend, packed=args.packed,
-        max_in_flight=args.max_in_flight)
+        max_in_flight=args.max_in_flight, lazy_tune=args.lazy_tune)
     cls = AsyncServeEngine if args.async_serve else ServeEngine
     engine = cls.from_ta_state(ta, cfg, n_replicas=args.replicas, seed=4,
                                vcfg=vcfg, ecfg=ecfg, device=device)
+    tuning = engine.tuning or {}
     print(f"[stream] pool of {args.replicas} crossbars "
           f"(pool version {engine.version}), routing={args.routing}, "
-          f"backend={engine.backend.name}")
+          f"backend={engine.backend.name}, shape bucket {engine.shape_key} "
+          f"(tiles {tuning.get('tiles') or 'default'}"
+          f"{', lazily measured' if tuning.get('lazy') else ''})")
     if args.checkpoint_dir:
         from repro_torch.serve import snapshot_pool
         path = snapshot_pool(engine.pool, args.checkpoint_dir)

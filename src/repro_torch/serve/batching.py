@@ -8,10 +8,12 @@ requests are waiting to fill the largest bucket, or (b) the oldest
 request's batching deadline expires.  Cut batches are padded up to the
 smallest *bucket* that fits — multiples of 8 up to ``max_batch`` (128
 by default) — so the batch shapes a kernel sees stay few and bounded.
-An explicit ``bucket_sizes`` tuple sets the ladder; the measured
-per-backend ladders of the reference's tuning table
-(``BatcherConfig.with_tuned_buckets``) come with the port's autotuner in
-a later slice.
+An explicit ``bucket_sizes`` tuple sets the ladder and is never
+replaced.  A config built by ``BatcherConfig.for_max_batch`` is marked
+``auto_tune``: the engine swaps in the measured per-backend ladder of the
+registry's tuning table (``BatcherConfig.with_tuned_buckets``;
+``kernels/autotune.py``) where the table has an entry for the engine's
+backend, model shape and device.
 
 The batcher owns the **wire format**: in packed mode (the packed_io
 backends) each request's Boolean features are packed ONCE at submit time

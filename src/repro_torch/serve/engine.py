@@ -23,6 +23,13 @@ ladder: ``analog-cuda-packed2`` for a plane-packed state (the default),
 ``analog-cuda`` with ``EngineConfig(packed=False)``.  A fallback (e.g. a
 ``csa_offset`` pool, which the kernels do not model, going to
 ``analog-torch``) warns and is counted per dispatch in ``ServeMetrics``.
+The registry's tuning table (``kernels/autotune.py``) is read once too,
+for the selected backend, the model's shape bucket and the engine's
+device: its kernel tiles go into every fused dispatch, its bucket ladder
+replaces a ``for_max_batch`` batcher's static one, and
+``EngineConfig.lazy_tune`` measures a missing entry once
+(``summary()``: ``kernel_tiles``, ``buckets_tuned_for``, ``shape_key``,
+``tuning_lazy``).
 An injectable ``clock`` makes deadline behaviour deterministic under
 test, and every analog read draws its noise from one engine-owned
 ``torch.Generator``, in issue order.
@@ -74,13 +81,15 @@ import torch
 
 from repro_torch import api
 from repro_torch._device import DeviceLike, resolve_device
-from repro_torch.api.registry import CAP_PACKED_IO, CAP_PACKED_PLANES
+from repro_torch.api.registry import (CAP_FUSED_KERNEL, CAP_PACKED_IO,
+                                      CAP_PACKED_PLANES)
 from repro_torch.core import tm
 from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import (FaultConfig, VariationConfig,
                                          split_generator)
+from repro_torch.kernels.autotune import ensure_tuning, tiles_fit
 from repro_torch.serve.batching import (QOS_BULK, Batch, BatcherConfig,
                                         DynamicBatcher, QueueFull,
                                         pack_request_np, validate_qos)
@@ -148,6 +157,14 @@ class EngineConfig:
     # AsyncServeEngine only: how many issued batches may be outstanding
     # (uncollected) at once; 2 is double buffering.
     max_in_flight: int = 2
+    # Shape-aware autotuning: the tuning table is keyed by (backend,
+    # shape bucket) and bound to the device it was measured on, so an
+    # engine whose model shape has no entry for its device serves on the
+    # kernels' own geometry and the static ladder.  With lazy_tune=True
+    # a fused backend measures the missing entry ONCE at construction (a
+    # small tile / bucket sweep, ``kernels.autotune.ensure_tuning``) and
+    # registers it for every later engine at the same (backend, bucket).
+    lazy_tune: bool = False
     # Queued-but-undispatched requests held before submit() raises
     # QueueFull (None = unbounded).
     max_queue_depth: Optional[int] = None
@@ -289,7 +306,36 @@ class ServeEngine:
         # Wire format follows the SELECTED backend: a fallback off the
         # packed kernel also falls back to the dense uint8 queue.
         self.packed_io = CAP_PACKED_IO in self.backend.capabilities
-        self.batcher = DynamicBatcher(ecfg.batcher, packed=self.packed_io)
+        # Measured tuning (kernels/autotune.py) for this backend, model
+        # shape and device: kernel tiles for every fused dispatch (probe
+        # and canary reads too), and the bucket ladder when the batcher
+        # config was built by for_max_batch (auto_tune), never over a
+        # hand-picked one.
+        self.shape_key: str = api.shape_bucket_key(tm_cfg.n_clauses,
+                                                   tm_cfg.n_literals)
+        fused = CAP_FUSED_KERNEL in self.backend.capabilities
+        self.tuning: Optional[dict] = api.get_tuning(
+            self.backend.name, shape_key=self.shape_key, device=self.device)
+        if self.tuning is None and ecfg.lazy_tune and fused:
+            self.tuning = ensure_tuning(self.backend, tm_cfg,
+                                        device=self.device)
+        tiles = dict((self.tuning or {}).get("tiles") or {})
+        if tiles and not tiles_fit(tiles, tm_cfg.n_literals):
+            # The entry covers a shape bucket and was measured at one model
+            # in it; its ks cannot launch on this model's fewer columns.
+            warnings.warn(
+                f"tuning entry {self.backend.name} @ {self.shape_key}: "
+                f"tiles {tiles} do not fit L = {tm_cfg.n_literals}; serving "
+                "on the kernel's own geometry (summary()['kernel_tiles'])",
+                stacklevel=2)
+            tiles = {}
+        self._kernel_opts = {"tiles": tiles} if fused and tiles else {}
+        bcfg = ecfg.batcher
+        if bcfg.auto_tune and self.tuning and \
+                self.tuning.get("bucket_sizes"):
+            bcfg = bcfg.with_tuned_buckets(self.tuning["bucket_sizes"],
+                                           self.backend.name)
+        self.batcher = DynamicBatcher(bcfg, packed=self.packed_io)
         self._set_pool(pool, state)
         self._mask_one = torch.ones(1, dtype=torch.bool, device=self.device)
         self._healthy_mask = torch.ones(pool.n_replicas, dtype=torch.bool,
@@ -396,7 +442,8 @@ class ServeEngine:
         """Backend forward + prediction for one batch: ``[B, M]`` sums and
         ``[B]`` predictions (summed/voted over the healthy chips in
         ensemble mode)."""
-        sums = self.backend.fn(state, lits, generator)   # [R, B, M] | [B, M]
+        sums = self.backend.fn(state, lits, generator,     # [R, B, M] or
+                               **self._kernel_opts)        # [B, M]
         if sums.ndim == 3:                       # replica-stacked output
             if self.ecfg.routing == "ensemble":
                 preds = ensemble_vote(sums, self.ecfg.ensemble_mode,
@@ -938,6 +985,10 @@ class ServeEngine:
         out["resident_nbytes_slice"] = self._resident_slice
         out["device"] = str(self.device)
         out["bucket_sizes"] = list(self.batcher.cfg.bucket_sizes)
+        out["buckets_tuned_for"] = self.batcher.cfg.tuned_for
+        out["kernel_tiles"] = dict(self._kernel_opts.get("tiles", {}))
+        out["shape_key"] = self.shape_key
+        out["tuning_lazy"] = bool((self.tuning or {}).get("lazy"))
         if includes is None:
             includes = int(self.pool.include.sum())
         out["hardware"] = hardware_figures(

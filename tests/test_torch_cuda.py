@@ -525,12 +525,12 @@ def test_tm_infer_geometry_fills_the_card(cuda, b, c):
     block an SM at most (each SM reads one tile's bytes), on at least half
     of the SMs where the 16 x 32 tiles allow it."""
     for name in ("tm_infer_planes", "tm_infer_packed"):
-        g = _geometry(name, b, c, 49, 10)
+        g = _geometry(name, b, c, 49, 10, 0, 0)
         assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
         assert g["smem"] <= 48 * 1024 and g["kc"] == 56
         assert g["per_sm"] >= 1
         assert g["launched"] >= 16 or g["ksplit"] == 7
-    g = _geometry("tm_infer", b, c, 1568, 10)
+    g = _geometry("tm_infer", b, c, 1568, 10, 0, 0)
     assert g["gx"] * g["bt"] >= b and g["gy"] * g["ct"] >= c
     assert g["smem"] <= 48 * 1024 and g["kc"] == 56 and g["per_sm"] >= 1
     blocks, n_sm = g["gx"] * g["gy"], g["n_sm"]
@@ -1065,3 +1065,167 @@ def test_stream_sync_equals_async_under_c2c_on_the_card(cuda, routing):
         assert server.summary()["fallback_dispatches"] == 0
     assert out["AsyncServeEngine"] == out["ServeEngine"]
     assert sum(map(len, out["ServeEngine"].values())) == 8 * 15
+
+
+# ------------------------------------------------------- tile overrides
+
+ANALOG_KERNELS = ("imbue_infer_planes", "imbue_infer_packed", "imbue_infer")
+ANALOG_TILES = [{}] + [{"ks": ks, "ng": ng} for ng in (1, 2, 4)
+                       for ks in (1, 2, 4, 8)]
+TM_TILES = [{}] + [{"wm": wm, "wn": wn} for wm in (1, 2, 4)
+                   for wn in (1, 2, 4)]
+
+
+def _tile_id(t):
+    return "-".join(f"{k}{v}" for k, v in sorted(t.items())) or "auto"
+
+
+def _analog_tile_args(name, f, b, r, dev, device):
+    cfg = _analog_config(f)
+    rng = np.random.default_rng(f + b + r)
+    inc = torch.from_numpy(rng.random((cfg.n_clauses, cfg.n_literals))
+                           < 4.0 / cfg.n_literals).to(device)
+    x = torch.from_numpy((rng.random((b, f)) < 0.5).astype(np.uint8))
+    if name == "imbue_infer_planes":
+        return _planes_args(cfg, inc, x, r, dev, b, device)
+    return _dense_args(name, cfg, inc, x, r, dev, b, device)
+
+
+@pytest.mark.parametrize("tiles", ANALOG_TILES, ids=_tile_id)
+@pytest.mark.parametrize("name", ANALOG_KERNELS)
+@pytest.mark.parametrize("f,b,r,dev", [
+    (37, 13, 3, True),            # 3 columns: ks 4 and 8 are refused
+    (300, 70, 4, True), (300, 33, 1, False),
+    (F_MNIST, 8, 1, False),       # ng = 4: one live row group of four
+    (F_MNIST, 129, 4, True)])
+def test_analog_kernels_exact_at_every_tile(cuda, tiles, name, f, b, r, dev):
+    """Each analog kernel at every tile override equals its plain version
+    (and its own "auto" launch); a ks past the columns raises before
+    launching."""
+    args = _analog_tile_args(name, f, b, r, dev, cuda)
+    wrapper = getattr(imbue_infer, name)
+    before = wrapper.launches
+    if tiles.get("ks", 0) > -(-2 * f // 32):
+        with pytest.raises(ValueError, match="tile"):
+            wrapper(*args, tiles=tiles)
+        assert wrapper.launches == before
+        return
+    got = wrapper(*args, tiles=tiles)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = getattr(imbue_infer, f"{name}_ref")(*args)
+    assert torch.equal(got, want) and int((want != 0).sum()) > 0
+    if tiles:
+        geo = imbue_infer.launch_geometry(
+            name, got.shape[0], b, args[3].shape[0],
+            args[2].shape[2] if name != "imbue_infer_planes"
+            else args[4].l_valid, dev, tiles)
+        assert geo["column_splits"] == tiles["ks"]
+        assert geo["row_groups"] == tiles["ng"]
+        assert geo["grid"] == [-(-b // (32 * tiles["ng"])),
+                               -(-args[3].shape[0] // 32), got.shape[0]]
+
+
+@pytest.mark.parametrize("tiles", TM_TILES, ids=_tile_id)
+@pytest.mark.parametrize("name", TM_KERNELS)
+@pytest.mark.parametrize("b,c,f,m,case", [
+    (13, 37, 50, 5, "mixed"), (129, 2000, 784, 10, "mixed"),
+    (8, 1000, 784, 10, "mixed"),  # wm = 4: three row tiles past B
+    (5, 5000, 5000, 3, "mixed"),  # K in chunks
+    (9, 70, 51, 3, "fire")])
+def test_tm_kernels_exact_at_every_tile(cuda, tiles, name, b, c, f, m, case):
+    """Each fused TM kernel at every tile override equals its plain
+    version, and its geometry reports the override."""
+    args = _tm_case(name, b, c, f, m, case, cuda)
+    wrapper = getattr(clause_eval, name)
+    before = wrapper.launches
+    got = wrapper(*args, tiles=tiles)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = getattr(clause_eval, f"{name}_ref")(*args)
+    assert torch.equal(got, want) and int((want != 0).sum()) > 0
+    geo = clause_eval.launch_geometry(name, b, c, args[0].shape[1], m, tiles)
+    if tiles:
+        assert geo["row_tile"] == 16 * tiles["wm"]
+        assert geo["clause_tile"] == 32 * tiles["wn"]
+        ks = geo["k_splits"]
+        assert tiles["wm"] * tiles["wn"] * ks <= 32
+        if name != "tm_infer":
+            assert ks <= max(1, -(-args[0].shape[1] // 8))
+        assert geo["threads"] == tiles["wm"] * tiles["wn"] * ks * 32
+    assert geo["grid"][0] * geo["row_tile"] >= b
+    assert geo["grid"][1] * geo["clause_tile"] >= c
+
+
+@pytest.mark.parametrize("name,tiles", [
+    ("imbue_infer_planes", {"ks": 9, "ng": 1}),
+    ("imbue_infer_packed", {"ks": 2, "ng": 3}),
+    ("imbue_infer", {"ks": 0, "ng": 2}),
+    ("imbue_infer", {"wm": 1, "wn": 1}),
+    ("tm_infer_planes", {"wm": 3, "wn": 1}),
+    ("tm_infer_packed", {"wm": 1, "wn": 8}),
+    ("tm_infer", {"ks": 2, "ng": 1})], ids=str)
+def test_invalid_tile_raises_and_does_not_launch(cuda, name, tiles):
+    if name.startswith("imbue"):
+        args = _analog_tile_args(name, 300, 40, 2, True, cuda)
+        wrapper = getattr(imbue_infer, name)
+    else:
+        args = _tm_case(name, 13, 37, 50, 5, "mixed", cuda)
+        wrapper = getattr(clause_eval, name)
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="tile"):
+        wrapper(*args, tiles=tiles)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", ANALOG_KERNELS + TM_KERNELS)
+def test_launch_exports_refuse_a_bad_tile(cuda, name):
+    """The C entries themselves return TILE_INVALID (-1) for a tile outside
+    its set, launching nothing, and so does the geometry export."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = _build.library(name)
+    info = (ctypes.c_int * 9)()
+    geometry = getattr(lib, f"{name}_geometry")
+    if name.startswith("imbue"):
+        shape = ((4, 128, 2000, 49, 1) if name == "imbue_infer_planes"
+                 else (4, 128, 2000, 1568))
+        assert geometry(*shape, 9, 1, info) == -1
+        assert geometry(*shape, 2, 3, info) == -1
+        assert geometry(*shape, 50, 1, info) == -1
+        assert geometry(*shape, 8, 4, info) == 0
+        args = _analog_tile_args(name, 300, 40, 2, True, cuda)
+        out = torch.zeros((2, 40, 5), dtype=torch.int32, device=cuda)
+        launch = getattr(lib, f"{name}_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if name == "imbue_infer_planes":
+            litw, incw, dev, pol, scal = args
+            launch.argtypes = imbue_infer._ARGTYPES
+            err = launch(litw.data_ptr(), incw.data_ptr(), dev.data_ptr(),
+                         pol.data_ptr(), out.data_ptr(), 2, 40,
+                         litw.shape[1], pol.shape[0], 5, scal.l_valid,
+                         scal.i_ref, scal.v_read, scal.r_lrs, scal.r_hrs,
+                         scal.leak_inc, scal.leak_exc, scal.series_factor,
+                         9, 1, stream)
+        else:
+            a, g, leak, pol, i_ref, v_read = args
+            launch.argtypes = imbue_infer._DENSE_ARGTYPES
+            err = launch(a.data_ptr(), g.data_ptr(), leak.data_ptr(),
+                         pol.data_ptr(), out.data_ptr(), 2, 40, g.shape[2],
+                         g.shape[1], 5, i_ref, v_read, 9, 1, stream)
+    else:
+        assert geometry(128, 1000, 49, 10, 3, 1, info) == -1
+        assert geometry(128, 1000, 49, 10, 1, 8, info) == -1
+        assert geometry(128, 1000, 49, 10, 4, 4, info) == 0
+        a, inc, comb = _tm_case(name, 13, 37, 50, 5, "mixed", cuda)
+        out = torch.zeros((13, 5), dtype=torch.int32, device=cuda)
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = clause_eval._ARGTYPES
+        err = launch(a.data_ptr(), inc.data_ptr(), comb.data_ptr(),
+                     out.data_ptr(), 13, a.shape[1], 37, 5, 3, 1,
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == -1
+    assert int(out.abs().sum()) == 0          # nothing ran
+

@@ -21,20 +21,22 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from repro_torch import convert  # noqa: E402
+from repro_torch import api, convert  # noqa: E402
+from repro_torch.api import doctable  # noqa: E402
 from repro_torch.core import (booleanize, coalesced, imbue, tm,  # noqa: E402
                               variations)
 from repro_torch.data import tm_datasets  # noqa: E402
 from repro_torch.distributed import checkpoint  # noqa: E402
 from repro_torch.train import online  # noqa: E402
 from repro_torch.core.imbue import IMBUEConfig  # noqa: E402
-from repro_torch.kernels import bitpack, flash_attention, ops  # noqa: E402
+from repro_torch.kernels import (autotune, bitpack,  # noqa: E402
+                                 flash_attention, ops)
 from repro_torch.launch import stream as stream_cli  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "kernel_bench_torch.py"]
 CFG = tm.TMConfig(n_classes=2, clauses_per_class=4, n_features=5)
 
 
@@ -61,7 +63,8 @@ def test_scan_covers_the_port():
     assert {"engine.py", "ops.py", "imbue_infer.py", "clause_eval.py",
             "coalesced.py", "tm_train.py", "online.py", "checkpoint.py",
             "tm_datasets.py", "flash_attention.py", "booleanize.py",
-            "stream.py", "chip_smoke.py"} <= names
+            "stream.py", "chip_smoke.py", "autotune.py", "registry.py",
+            "doctable.py", "kernel_bench_torch.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
@@ -231,6 +234,37 @@ def test_stream_and_montecarlo_entry_points_raise_without_device_and_cuda(
         2, 3, CFG.n_classes)
     b = booleanize.fit_quantile(frames, 2, device="cpu")
     assert b.transform(frames).shape == (6, 8)
+
+
+def test_tuning_entry_points_raise_without_device_and_cuda(no_cuda):
+    """The tuning surface runs on the card unless the caller names the
+    host: a lookup, a measurement and the benchmark CLI."""
+    backend = api.get_backend("digital-cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.get_tuning("digital-cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autotune.autotune(["digital-cuda"], smoke=True, register=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autotune.autotune_backend(backend, shape=autotune.REF_SHAPE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        autotune.ensure_tuning(backend, CFG)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    run = subprocess.run(
+        [sys.executable, "-m", "benchmarks.kernel_bench_torch", "--smoke"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode != 0 and "device='cpu'" in run.stderr
+    assert "PASS" not in run.stdout
+    # With device="cpu" they run on the plain versions.
+    snap = api.tuning_snapshot()
+    try:
+        entry = autotune.ensure_tuning(backend, CFG, device="cpu", reps=1)
+        assert entry["platform"] == "cpu"
+        assert api.get_tuning("digital-cuda", api.shape_bucket_key(
+            CFG.n_clauses, CFG.n_literals), device="cpu") == entry
+    finally:
+        api.restore_tuning(snap)
+    assert doctable.render().startswith("# Backend registry")
 
 
 def test_flash_wrappers_take_only_cpu_or_cuda_tensors():

@@ -93,21 +93,24 @@ def kws():
                 ta=_sparse_ta(CFG, 5, density=0.03))
 
 
-def _engines(kws, kind="sync", routing="round_robin", ta=None, **ecfg_kw):
+def _engines(kws, kind="sync", routing="round_robin", ta=None,
+             clock=None, **ecfg_kw):
     """The reference engine and the port engine on the same nominal pool
-    (2 chips) of the same TA state."""
+    (2 chips) of the same TA state; ``clock``, when given, is both
+    engines' clock."""
     cls, ref_cls = ENGINES[kind]
     ta = kws["ta"] if ta is None else ta
+    clocked = {} if clock is None else {"clock": clock}
     ref = ref_cls.from_ta_state(
         jnp.asarray(ta), REF_CFG, n_replicas=2, key=jax.random.PRNGKey(3),
         vcfg=NOMINAL[1], ecfg=ref_engine.EngineConfig(
             batcher=ref_batching.BatcherConfig(**BATCHER), routing=routing,
-            **ecfg_kw))
+            **ecfg_kw), **clocked)
     port = cls.from_ta_state(
         ta_from_numpy(ta, CFG, device="cpu"), CFG, n_replicas=2, seed=3,
         vcfg=NOMINAL[0], ecfg=EngineConfig(
             batcher=BatcherConfig(**BATCHER), routing=routing, **ecfg_kw),
-        device="cpu")
+        device="cpu", **clocked)
     return ref, port
 
 
@@ -426,8 +429,10 @@ def test_coalesced_engine_streams_bit_exact(kws):
 def test_sessions_share_engine_without_crosstalk(kws):
     """Three sessions interleaved hop by hop on one engine each reproduce
     their own offline predictions and the reference's decisions, and
-    their windows really batched together."""
-    ref_server, server = _servers(kws)
+    their windows really batched together, cut where the reference cuts.
+    Both engines read one frozen clock: the cuts then follow the queue
+    alone (full buckets, the drain), not how long each host took."""
+    ref_server, server = _servers(kws, clock=lambda: 0.0)
     streams = {f"u{i}": kws["frames"][i * 2:i * 2 + 2].reshape(-1, MELS)
                for i in range(3)}
     for s in (server, ref_server):
