@@ -114,12 +114,42 @@ def kernel_roofline(b: int, c: int, l: int, *, m: int = 10, r: int = 1,
             "intensity": ops / nbytes}
 
 
+def ref_operands(name, state, lits):
+    """The ``kernels/ref.py`` oracle for ``name``'s backend call on
+    ``(state, lits)``, as a closure over its float operands: complemented
+    literals, or drive voltages and the (nominal, C2C-free) conductance
+    and leak planes of the stack's first chip, with the state's own
+    polarity or combine matrix."""
+    from repro_torch.core import imbue
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.bitpack import unpack_bits
+    c, l = state.include.shape
+    bits = unpack_bits(lits, l) if lits.dtype == torch.int32 else lits
+    bits = bits.to(torch.float32)
+    if name.startswith("analog"):
+        icfg = state.icfg
+        g_on, i_leak = imbue.conductances(state.r_stack[0], state.include,
+                                          icfg)
+        pol = ops.polarity_matrix(state.tm_cfg, state.include,
+                                  device=state.include.device)
+        v_drive = (1.0 - bits) * icfg.v_read
+        return lambda: ref.imbue_infer_ref(                 # noqa: E731
+            v_drive, bits, g_on, i_leak, pol, icfg.width, icfg.r_divider,
+            icfg.reference_voltage())
+    include = state.include.to(torch.float32)
+    lit0 = 1.0 - bits
+    return lambda: ref.tm_infer_ref(lit0, include,        # noqa: E731
+                                    state.combine)
+
+
 def bench(reps: int = 25, device=None):
     """The two main-path kernels through their ops wrappers at
     imbue-tm-mnist (nominal plane-packed analog, R = 1; the coalesced
     pool at ``chip_smoke.COALESCED``), B = 128, each beside its H100
-    roofline.  Times are device time on a card (CUDA events, median) and
-    the host clock on the host, named so."""
+    roofline and the ``kernels/ref.py`` oracle of the same function on
+    the same operands (``ref_us``; ``ref_equal``: the oracle's sums equal
+    the kernel's).  Times are device time on a card (CUDA events, median)
+    and the host clock on the host, named so."""
     from repro_torch import api
     device = resolve_device(device)
     on_card = device.type == "cuda"
@@ -128,16 +158,22 @@ def bench(reps: int = 25, device=None):
                         ("coalesced-cuda-packed2", full_widths()[3][1])):
         backend = api.get_backend(name)
         state, lits = autotune._reference_state(backend, shape, device, 128)
-        fn = lambda: backend.fn(state, lits, None)      # noqa: E731
-        us = (autotune._device_times_us({0: fn}, reps)[0] if on_card
-              else autotune._host_times_us({0: fn}, reps, sync=False)[0])
+        fns = {"kernel": lambda: backend.fn(state, lits, None),
+               "ref": ref_operands(name, state, lits)}
+        us = (autotune._device_times_us(fns, reps) if on_card
+              else autotune._host_times_us(fns, reps, sync=False))
+        got = fns["kernel"]()
+        got = got[0] if got.ndim == 3 else got
         c, l = state.include.shape
         m = shape["n_classes"]
         roof = kernel_roofline(128, c, l, m=m, analog=name.startswith(
             "analog"))
+        unit = "device_us" if on_card else "host_us"
         rows.append({"backend": name, "kernel": autotune.KERNEL_OF[name],
                      "B": 128, "C": int(c), "L": int(l),
-                     ("device_us" if on_card else "host_us"): us,
+                     unit: us["kernel"], "ref_" + unit: us["ref"],
+                     "ref_equal": bool(torch.equal(
+                         got.to(torch.float32), fns["ref"]())),
                      "bound_us": roof["bound_s"] * 1e6,
                      "bound_by": roof["bound_by"]})
     return rows

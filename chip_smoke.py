@@ -141,6 +141,26 @@ is non-zero and no result line is printed):
    KWS width (``STREAM_COALESCED``, ``coalesced-cuda-packed2``; every
    window equal to ``core.coalesced.forward``); and the streaming CLI,
    ``launch.stream.main`` with ``STREAM_CLI_ARGS``, KWS and anomaly.
+   (i) the cli path, the entry points a user runs: ``launch.serve
+   .build_engine`` at imbue-tm-mnist (``--routing ensemble --nominal
+   --batch 128``, R = 4), sync and async, 512 requests equal to the
+   digital TM with one ``imbue_infer_planes`` launch a dispatch;
+   ``launch.serve.main`` with ``CLI_SERVE_ARGS`` on each analog tier (its
+   kernel alone launched, once a dispatch, 0 fallbacks) and at its
+   defaults (``VariationConfig()``: a warning, ``analog-torch``, every
+   dispatch a counted fallback, no analog launch), a line a run with
+   requests/s, p50 / p95 / p99, ``mean_batch``, padding and accuracy;
+   ``launch.chaos.main`` with ``--smoke`` (to ``smoke_ok``) and with
+   ``CLI_CHAOS_ARGS`` sync and async (0 oracle mismatches, none expired
+   or rejected, ``tm_infer`` launched, and, as the reference reads at
+   that width, no chip quarantined); ``launch.retrain.main`` with
+   ``--smoke`` and with ``CLI_RETRAIN_ARGS`` sync and async (every request
+   answered, none expired or rejected; the decision, agreement and
+   requests by version recorded); ``benchmarks/serve_bench_torch`` and
+   ``stream_bench_torch`` with ``--smoke`` and at their defaults (the
+   sync / async, planes, capacity and serial / batched rows); each
+   example's ``main`` (``CLI_EXAMPLE_DEPTH`` cuts the XOR quickstarts'
+   sequential epochs) and ``benchmarks/run_torch.py --fast``.
    Each path's launch counters are zeroed just before it and read just
    after: one launch per dispatch (plus one per probe read and canary
    shadow read on the live path, one ``tm_infer`` per probe commit, and
@@ -422,6 +442,33 @@ KWS_ACCURACY_FLOOR = 0.948
 # imbue-tm-mnist model.
 MC_DRAWS = 16
 MC_ROWS = 512
+# The cli path (phase 3 (i)): the entry points a user runs, at full width.
+# The serve CLI's tiers (--nominal, R = 4, ensemble, batch 128, 512
+# requests; then --no-packed and --backend analog-cuda-packed), and once
+# at its defaults, where CSA offset sends it to analog-torch with a counted
+# fallback; the chaos CLI at imbue-tm-mnist's width; the retrain CLI at the
+# KWS width; the examples, the sequential XOR quickstarts cut to
+# CLI_EXAMPLE_DEPTH (the port's sequential step is a host loop of ~2 ms an
+# example, so the reference's 80 / 30 epochs would take minutes).
+CLI_SERVE_ARGS = ("--nominal", "--replicas", "4", "--routing", "ensemble",
+                  "--batch", "128", "--requests", "512", "--json")
+CLI_SERVE_TIERS = (("planes", (), "analog-cuda-packed2",
+                    "imbue_infer_planes"),
+                   ("no-packed", ("--no-packed",), "analog-cuda",
+                    "imbue_infer"),
+                   ("dense-packed", ("--backend", "analog-cuda-packed"),
+                    "analog-cuda-packed", "imbue_infer_packed"))
+CLI_SERVE_DEFAULTS = ("--requests", "512", "--json")
+CLI_CHAOS_ARGS = ("--classes", "10", "--clauses", "200", "--features",
+                  "784", "--replicas", "4", "--requests", "512")
+CLI_RETRAIN_ARGS = ("--clauses", "300", "--replicas", "4", "--requests",
+                    "192")
+CLI_EXAMPLE_DEPTH = {"torch_quickstart": dict(EPOCHS=1),
+                     "torch_serve_quickstart": dict(EPOCHS=1)}
+CLI_KERNELS = ("imbue_infer_planes", "imbue_infer_packed", "imbue_infer",
+               "tm_infer_planes", "tm_infer", "clause_eval_packed",
+               "clause_eval")
+ANALOG_KERNELS = ("imbue_infer_planes",) + DENSE_KERNELS
 # Flash attention at the attention widths of three architectures the repo
 # registers (src/repro/configs/archs.py; the numbers are copied, the port
 # imports nothing of the reference), in the models' compute dtype (bf16),
@@ -2188,6 +2235,333 @@ def phase_stream(device, keep):
     return path_launches(drive, STREAM_KERNELS)
 
 
+# ------------------------------------------------------------ the cli path
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept in a buffer and every
+    warning recorded: ``(result, warnings)``."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(io.StringIO()):
+        warnings.simplefilter("always")
+        out = fn(*args)
+    return out, [str(w.message) for w in caught]
+
+
+def counted(kernels, fn, *args):
+    """``fn(*args)`` quietly, with the launches of each of ``kernels``
+    during it and its wall seconds: ``(result, warnings, launches,
+    wall)``."""
+    fns = {name: kernel_pair(name)[0] for name in kernels}
+    before = {name: f.launches for name, f in fns.items()}
+    t0 = time.perf_counter()
+    out, caught = quiet(fn, *args)
+    wall = time.perf_counter() - t0
+    return out, caught, {name: f.launches - before[name]
+                         for name, f in fns.items()}, wall
+
+
+def cli_engine_round(device, async_serve):
+    """(i) (a): ``launch.serve.build_engine`` on the serving phases'
+    imbue-tm-mnist model (``--routing ensemble --nominal --batch 128``,
+    R = 4): 512 requests equal to the digital TM, one
+    ``imbue_infer_planes`` launch a dispatch, 0 fallbacks."""
+    import argparse
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import tm
+    from repro_torch.launch import serve as cli
+    cfg = tm_config(MODEL)
+    ta, x, y = prototype_task(cfg, N_REQUESTS, SEED + 900)
+    args = argparse.Namespace(
+        nominal=True, batch=128, max_wait_ms=2.0, routing="ensemble",
+        backend=None, packed=True, max_in_flight=2, async_serve=async_serve,
+        replicas=REPLICAS, device=str(device))
+
+    def serve():
+        eng = cli.build_engine(args, cfg, torch.from_numpy(ta).to(device))
+        eng.submit_many(list(x))
+        eng.pump()
+        return eng, eng.drain()
+
+    (eng, out), _, launches, wall = counted(ANALOG_KERNELS, serve)
+    s = eng.summary()
+    digital = tm.forward(torch.from_numpy(ta).to(device),
+                         torch.from_numpy(x).to(device), cfg).cpu().numpy()
+    sums = np.stack([r.class_sums for r in out])
+    if len(out) != len(x) or not np.array_equal(sums, REPLICAS * digital):
+        raise AssertionError("cli engine: responses differ from the "
+                             "digital TM")
+    if eng.backend.name != "analog-cuda-packed2" or \
+            s["fallback_dispatches"] or \
+            launches != {"imbue_infer_planes": s["batches"],
+                         "imbue_infer_packed": 0, "imbue_infer": 0}:
+        raise AssertionError(f"cli engine: {eng.backend.name}, "
+                             f"{s['fallback_dispatches']} fallbacks, "
+                             f"launches {launches} for {s['batches']} "
+                             "dispatches")
+    emit({"phase": "cli", "round": "build_engine",
+          "engine": type(eng).__name__, "backend": eng.backend.name,
+          "requests": len(out), "dispatches": s["batches"],
+          "launches": launches["imbue_infer_planes"],
+          "equals_digital": True, "accuracy": float(np.mean(
+              np.array([r.pred for r in out]) == y)),
+          "requests_per_s": len(out) / wall})
+
+
+def cli_serve_row(label, argv, s, launches, wall):
+    return {"phase": "cli", "round": "serve", "run": label, "argv": argv,
+            "backend": s["backend"], "requests": s["requests"],
+            "dispatches": s["batches"], "requests_per_s": s["throughput_rps"],
+            "p50_ms": s["p50_ms"], "p95_ms": s["p95_ms"],
+            "p99_ms": s["p99_ms"], "mean_batch": s["mean_batch"],
+            "padding_overhead": s["padding_overhead"],
+            "analog_accuracy": s["analog_accuracy"],
+            "fallback_dispatches": s["fallback_dispatches"],
+            "launches": launches, "wall_s": wall}
+
+
+def cli_serve_runs():
+    """(i) (b): ``launch.serve.main`` on each analog tier
+    (``CLI_SERVE_ARGS``), each tier's kernel launched once a dispatch and
+    no other; then at its defaults, where it must warn, count every
+    dispatch as a fallback and launch no analog kernel."""
+    from repro_torch.launch import serve as cli
+    for label, extra, backend, kernel in CLI_SERVE_TIERS:
+        argv = [*CLI_SERVE_ARGS, *extra]
+        s, _, launches, wall = counted(ANALOG_KERNELS, cli.main, argv)
+        want = {k: (s["batches"] if k == kernel else 0)
+                for k in ANALOG_KERNELS}
+        if s["backend"] != backend or s["fallback_dispatches"] or \
+                launches != want or \
+                s["requests"] != int(argv[argv.index("--requests") + 1]):
+            raise AssertionError(f"serve CLI {label}: {s['backend']}, "
+                                 f"{s['fallback_dispatches']} fallbacks, "
+                                 f"launches {launches}, want {want}")
+        emit(cli_serve_row(label, argv, s, launches, wall))
+    argv = list(CLI_SERVE_DEFAULTS)
+    s, caught, launches, wall = counted(ANALOG_KERNELS, cli.main, argv)
+    if not any("serve backend fallback" in w for w in caught) or \
+            s["backend"] != "analog-torch" or not s["forward_fallbacks"] or \
+            s["fallback_dispatches"] != s["batches"] or s["batches"] == 0 or \
+            any(launches.values()):
+        raise AssertionError(f"serve CLI defaults: the CSA-offset fallback "
+                             f"was not loud and counted: {s['backend']}, "
+                             f"{s['fallback_dispatches']} of {s['batches']}"
+                             f", launches {launches}, warnings {caught}")
+    emit({**cli_serve_row("defaults", argv, s, launches, wall),
+          "warned": True, "fallback_reason": s["forward_fallbacks"][0]})
+
+
+def cli_chaos_runs():
+    """(i) (c): ``launch.chaos.main(["--smoke"])`` to ``smoke_ok`` (the
+    injure, quarantine and repair loop), then at imbue-tm-mnist's width
+    (``CLI_CHAOS_ARGS``) sync and async.  The full-width runs check
+    serving and oracle equality only: 0 oracle mismatches, none expired
+    or rejected, ``tm_infer`` launched (the probe commits), and what the
+    reference CLI reads at these flags (no chip quarantined, every health
+    1.0; its model's clauses never fire, so the injury changes no
+    answer).  The fault loop is covered by ``--smoke``."""
+    from repro_torch.launch import chaos
+    rep, _, launches, wall = counted(("tm_infer",), chaos.main, ["--smoke"])
+    if not rep.get("smoke_ok") or not launches["tm_infer"]:
+        raise AssertionError(f"chaos smoke: {rep}")
+    emit({"phase": "cli", "round": "chaos", "run": "smoke", "smoke_ok": True,
+          "served": rep["served"], "launches": launches, "wall_s": wall})
+    for extra in ((), ("--async-serve",)):
+        argv = [*CLI_CHAOS_ARGS, *extra]
+        rep, _, launches, wall = counted(("tm_infer", "imbue_infer_planes"),
+                                         chaos.main, argv)
+        rnd = rep["rounds"][0]
+        if rep["oracle_mismatches"] or rep["expired"] or rep["rejected"] \
+                or not launches["tm_infer"] or rep["served"] != 3 * int(
+                    argv[argv.index("--requests") + 1]):
+            raise AssertionError(f"chaos {argv}: {rep}")
+        # What the reference CLI holds at these flags (JAX on the CPU):
+        # every chip reads 1.0 before and after the injury and none is
+        # quarantined.  At L = 1568 a 10 % include draw puts x_i and its
+        # complement into nearly every clause (0.99 ** 784 of them escape),
+        # so no clause fires, every class sum is 0 and the injury changes
+        # no answer: the width hides it (ROADMAP queue 3).
+        healths = [*rep["baseline_health"].values(),
+                   *rnd["injured_health"].values()]
+        if rnd["quarantined"] or any(h != 1.0 for h in healths):
+            raise AssertionError(f"chaos {argv}: not what the reference "
+                                 f"reads at this width: {rnd}")
+        emit({"phase": "cli", "round": "chaos", "argv": argv,
+              "served": rep["served"], "oracle_mismatches": 0,
+              "expired": 0, "rejected": 0,
+              "baseline_health": rep["baseline_health"],
+              "injured_health": rnd["injured_health"],
+              "quarantined": rnd["quarantined"], "repairs": rnd["repairs"],
+              "launches": launches, "wall_s": wall})
+
+
+def cli_retrain_runs():
+    """(i) (d): ``launch.retrain.main(["--smoke"])``, then at the KWS width
+    (``CLI_RETRAIN_ARGS``) sync and async: the decision, agreement and
+    requests by version; by the engine's own counters, every request
+    served was served by a pool version, none expired or rejected."""
+    from repro_torch.launch import retrain
+    kernels = ("clause_eval_packed", "imbue_infer_planes")
+    rep, _, launches, wall = counted(kernels, retrain.main, ["--smoke"])
+    if not rep.get("smoke_ok"):
+        raise AssertionError(f"retrain smoke: {rep}")
+    emit({"phase": "cli", "round": "retrain", "run": "smoke",
+          "smoke_ok": True, "cycles": rep["cycles"], "launches": launches,
+          "wall_s": wall})
+    for extra in ((), ("--async-serve",)):
+        argv = [*CLI_RETRAIN_ARGS, *extra]
+        rep, _, launches, wall = counted(kernels, retrain.main, argv)
+        s = rep["summary"]
+        by_version = s["requests_by_version"]
+        # One refit cycle: a pre-swap and a post-settle phase of
+        # --requests each, and the canary's traffic between them.
+        least = 2 * int(argv[argv.index("--requests") + 1])
+        if s["expired"] or s["rejected"] or s["requests"] < least or \
+                s["requests"] != sum(by_version.values()) or \
+                not all(launches.values()):
+            raise AssertionError(f"retrain {argv}: {rep}, launches "
+                                 f"{launches}")
+        emit({"phase": "cli", "round": "retrain", "argv": argv,
+              "cycles": rep["cycles"], "requests": s["requests"],
+              "requests_by_version": by_version, "dropped": 0,
+              "backend": s["backend"], "launches": launches,
+              "wall_s": wall})
+
+
+def bench_module(name):
+    """``benchmarks/<name>.py``, imported from the checkout's root."""
+    import importlib
+    root = str(Path(__file__).resolve().parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module(f"benchmarks.{name}")
+
+
+def pair_row(a, b, key="wall_throughput_rps"):
+    return {"first": a.get("backend"), "second": b.get("backend"),
+            key: [a[key], b[key]], "ratio": b[key] / a[key]}
+
+
+def cli_bench_runs():
+    """(i) (e): the serve and stream benches' smokes (their bit-exact and
+    clean-backend checks) and one default run of each; the headline
+    rows, beside each bench model's ``model_activity`` (the reference's
+    sparse random models, whose clauses hardly ever fire: mechanism
+    readings, not a model whose clauses fire)."""
+    serve_bench = bench_module("serve_bench_torch")
+    stream_bench = bench_module("stream_bench_torch")
+    for mod, label in ((serve_bench, "serve_bench"),
+                       (stream_bench, "stream_bench")):
+        rep, _, launches, wall = counted(CLI_KERNELS, mod.main, ["--smoke"])
+        if not rep["smoke_ok"]:
+            raise AssertionError(f"{label} smoke failed: {rep}")
+        emit({"phase": "cli", "round": label, "run": "smoke",
+              "smoke_ok": True, "launches": launches, "wall_s": wall})
+    rep, _, launches, wall = counted(CLI_KERNELS, serve_bench.main, [])
+    sync, asy = rep["sync_r4_b64_paired"], rep["async_r4_b64"]
+    before, after = rep["planes_before_r4_b64"], rep["planes_after_r4_b64"]
+    emit({"phase": "cli", "round": "serve_bench", "run": "default",
+          "device": rep["device"], "model_activity": rep["model_activity"],
+          "serial_rps": rep["serial_baseline"]["wall_throughput_rps"],
+          "batched": [{k: r[k] for k in ("n_replicas", "max_batch",
+                                         "wall_throughput_rps", "p99_ms",
+                                         "speedup_vs_serial", "backend")}
+                      for r in rep["sweep"]],
+          "sync_async": pair_row(sync, asy),
+          "overlap_fraction": [sync["overlap_fraction"],
+                               asy["overlap_fraction"]],
+          "planes": {**pair_row(before, after),
+                     "resident_bytes_per_dispatch": [
+                         before["resident_bytes_per_dispatch"],
+                         after["resident_bytes_per_dispatch"]]},
+          "capacity": {**pair_row(rep["capacity_analog_r4_b64"],
+                                  rep["capacity_coalesced_b64"]),
+                       "n_ta_total": [
+                           rep["capacity_analog_r4_b64"]["n_ta_total"],
+                           rep["capacity_coalesced_b64"]["n_ta_total"]]},
+          "before_unpacked_static_rps":
+              rep["before_unpacked_static"]["wall_throughput_rps"],
+          "launches": launches, "wall_s": wall})
+    rep, _, launches, wall = counted(CLI_KERNELS, stream_bench.main, [])
+    emit({"phase": "cli", "round": "stream_bench", "run": "default",
+          "device": rep["device"], "model_activity": rep["model_activity"],
+          "lazy_tuning": rep["lazy_tuning"],
+          "sweep": [{k: r[k] for k in ("sessions", "hop",
+                                       "decisions_per_s_wall", "mean_batch",
+                                       "padding_overhead")}
+                    for r in rep["sweep"]],
+          "sync_async": pair_row(rep["sync_s8_h4"], rep["async_s8_h4"],
+                                 "decisions_per_s_wall"),
+          "mixed_qos": rep["mixed_qos"]["qos"],
+          "anomaly_decisions_per_s": rep["anomaly"]["decisions_per_s_wall"],
+          "launches": launches, "wall_s": wall})
+
+
+def example_module(name):
+    """``examples/<name>.py`` as a module, with ``CLI_EXAMPLE_DEPTH``'s
+    cuts applied."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for k, v in CLI_EXAMPLE_DEPTH.get(name, {}).items():
+        setattr(mod, k, v)
+    return mod
+
+
+def cli_example_runs():
+    """(i) (f): each example's ``main`` on the card (``image_imbue`` with
+    ``--quick``), then ``benchmarks/run_torch.py --fast`` (every check
+    must pass)."""
+    for name, argv in (("torch_quickstart", []),
+                       ("torch_serve_quickstart", []),
+                       ("torch_stream_quickstart", []),
+                       ("torch_swap_quickstart", []),
+                       ("torch_image_imbue", ["--quick"])):
+        out, caught, launches, wall = counted(CLI_KERNELS,
+                                              example_module(name).main,
+                                              argv)
+        keep = {k: v for k, v in out.items()
+                if isinstance(v, (int, float, str, bool))}
+        if name == "torch_serve_quickstart" and not (
+                out["fallback_dispatches"] == out["batches"] > 0
+                and any("serve backend fallback" in w for w in caught)):
+            raise AssertionError(f"{name}: the fallback was not counted")
+        emit({"phase": "cli", "round": "example", "example": name,
+              "depth": CLI_EXAMPLE_DEPTH.get(name, {}), **keep,
+              "launches": {k: n for k, n in launches.items() if n},
+              "wall_s": wall})
+    run, _, launches, wall = counted(CLI_KERNELS,
+                                     bench_module("run_torch").main,
+                                     ["--fast"])
+    if not all(ok for _, ok, _ in run["checks"]):
+        raise AssertionError(f"run_torch --fast: {run['checks']}")
+    emit({"phase": "cli", "round": "run_torch", "checks": len(run["checks"]),
+          "all_pass": True, "device": run["device"],
+          "bench_us": {k: v["us"] for k, v in run["benches"].items()},
+          "kernels": run["benches"]["kernels"]["rows"],
+          "launches": {k: n for k, n in launches.items() if n},
+          "wall_s": wall})
+
+
+def phase_cli(device):
+    """Phase 3 (i), the cli path; returns its launches per kernel."""
+    def drive():
+        t0 = time.perf_counter()
+        for async_serve in (False, True):
+            cli_engine_round(device, async_serve)
+        cli_serve_runs()
+        cli_chaos_runs()
+        cli_retrain_runs()
+        cli_bench_runs()
+        cli_example_runs()
+        emit({"phase": "cli", "round": "total",
+              "wall_s": time.perf_counter() - t0})
+    return path_launches(drive, CLI_KERNELS)
+
+
 def clause_case(inc, x, device):
     """Operands of the two clause-bit kernels for one shape, keyed by
     kernel, and the share of (row, clause) pairs that fire, over all
@@ -3635,7 +4009,8 @@ def main() -> int:
                "coalesced": phase_coalesced_serving(device),
                "digital": phase_digital_fused(device),
                "live": phase_live(device),
-               "stream": phase_stream(device, stream_keep)}
+               "stream": phase_stream(device, stream_keep),
+               "cli": phase_cli(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

@@ -29,3 +29,11 @@ TM_ZOO: Dict[str, TMConfig] = {
 
 def tm_config(name: str) -> TMConfig:
     return TM_ZOO[name]
+
+
+def paper_cells_check():
+    """TA-cell counts must reproduce Table IV exactly."""
+    expect = {"imbue-tm-xor": 576, "imbue-tm-mnist": 3_136_000,
+              "imbue-tm-kws6": 1_357_200, "imbue-tm-kmnist": 7_840_000,
+              "imbue-tm-fmnist": 7_840_000}
+    return {k: (TM_ZOO[k].n_ta, expect[k]) for k in expect}

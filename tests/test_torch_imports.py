@@ -1,6 +1,7 @@
 """The port stands alone and never falls back to the host quietly.
 
-* An AST scan of ``src/repro_torch/**`` and ``chip_smoke.py`` finds no
+* An AST scan of ``src/repro_torch/**``, ``chip_smoke.py``, the
+  ``benchmarks/*_torch.py`` and the ``examples/torch_*.py`` finds no
   import of ``jax`` or of the reference package ``repro``.
 * Entry points called with no ``device`` on a machine without CUDA raise
   (CUDA is hidden with monkeypatch, so this holds on any machine).
@@ -8,7 +9,10 @@
   in a directory that holds nothing else of the repository.
 """
 
+import argparse
 import ast
+import importlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -35,8 +39,10 @@ from repro_torch.launch import stream as stream_cli  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "benchmarks" / "kernel_bench_torch.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "benchmarks").glob("*_torch.py"))
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 CFG = tm.TMConfig(n_classes=2, clauses_per_class=4, n_features=5)
 
 
@@ -64,7 +70,12 @@ def test_scan_covers_the_port():
             "coalesced.py", "tm_train.py", "online.py", "checkpoint.py",
             "tm_datasets.py", "flash_attention.py", "booleanize.py",
             "stream.py", "chip_smoke.py", "autotune.py", "registry.py",
-            "doctable.py", "kernel_bench_torch.py"} <= names
+            "doctable.py", "kernel_bench_torch.py", "serve.py", "chaos.py",
+            "retrain.py", "ref.py", "serve_bench_torch.py",
+            "stream_bench_torch.py", "paper_tables_torch.py",
+            "ablations_torch.py", "run_torch.py", "torch_quickstart.py",
+            "torch_serve_quickstart.py", "torch_stream_quickstart.py",
+            "torch_swap_quickstart.py", "torch_image_imbue.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
@@ -265,6 +276,58 @@ def test_tuning_entry_points_raise_without_device_and_cuda(no_cuda):
     finally:
         api.restore_tuning(snap)
     assert doctable.render().startswith("# Backend registry")
+
+
+def _script(path: Path):
+    """A script of the repository (a bench or an example) as a module."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CLI_MAINS = {
+    "launch/serve": ["--epochs", "1", "--requests", "8"],
+    "launch/chaos": ["--smoke"],
+    "launch/retrain": ["--smoke"],
+    "benchmarks/serve_bench_torch": ["--smoke"],
+    "benchmarks/stream_bench_torch": ["--smoke"],
+    "benchmarks/run_torch": ["--fast"],
+    "examples/torch_quickstart": [],
+    "examples/torch_serve_quickstart": [],
+    "examples/torch_stream_quickstart": [],
+    "examples/torch_swap_quickstart": [],
+    "examples/torch_image_imbue": ["--quick"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_MAINS))
+def test_cli_bench_and_example_mains_raise_without_device_and_cuda(
+        no_cuda, name):
+    """Each CLI, bench and example runs on the card unless it is given
+    ``--device``: without CUDA it raises before any work."""
+    where, stem = name.split("/")
+    if where == "launch":
+        mod = importlib.import_module(f"repro_torch.launch.{stem}")
+    else:
+        mod = _script(ROOT / where / f"{stem}.py")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(CLI_MAINS[name])
+
+
+def test_serve_build_engine_raises_without_device_and_cuda(no_cuda):
+    from repro_torch.launch import serve as serve_cli
+    args = argparse.Namespace(
+        nominal=True, batch=8, max_wait_ms=2.0, routing="round_robin",
+        backend=None, packed=True, max_in_flight=2, async_serve=False,
+        replicas=1, device=None)
+    ta = torch.ones(CFG.n_clauses, CFG.n_literals, dtype=torch.int16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.build_engine(args, CFG, ta)
+    args.device = "cpu"
+    assert serve_cli.build_engine(args, CFG, ta).device.type == "cpu"
 
 
 def test_flash_wrappers_take_only_cpu_or_cuda_tensors():
