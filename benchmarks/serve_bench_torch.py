@@ -20,7 +20,16 @@ serial path (one dispatch per request).  The rows:
 * **before_unpacked_static** — the dense uint8 wire on the static ladder
   with the kernels' own tiles;
 * **degraded** (``--smoke``) — the ensemble with one chip injured,
-  quarantined, served around and repaired.
+  quarantined, served around and repaired;
+* **sharded** (with more than one rank: ``--host-devices N``, or under
+  ``torch.distributed.run``) — the pool's ``[R, C, L]`` stack split over
+  a ``replica`` mesh of all the ranks (``make_replica_mesh``), R in {4, 8}
+  where the ranks divide it, sync and async, routed and ensemble, on the
+  kernel ladder (each rank launches on its own replicas).  The ranks
+  share the host (and, on the card, the card), so with more than one
+  rank the bench runs these rows alone: a single-device row measured
+  beside the other ranks' work would read their contention.  Every rank
+  runs every row, and rank 0 reports.
 
 The model is the reference's: training-free, 10 % random includes over
 the 2F literals.  Its clauses hardly ever fire on the requests (a clause
@@ -44,6 +53,8 @@ with ``--out`` (``--smoke-out`` for the smoke's).
   PYTHONPATH=src python -m benchmarks.serve_bench_torch
   PYTHONPATH=src python -m benchmarks.serve_bench_torch --smoke
   PYTHONPATH=src python -m benchmarks.serve_bench_torch --smoke --device cpu
+  PYTHONPATH=src python -m benchmarks.serve_bench_torch --device cpu \\
+      --host-devices 4                       # + the sharded rows
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -62,7 +74,10 @@ from repro_torch.core import tm
 from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import FaultConfig, VariationConfig
+from repro_torch.distributed.sharding import mesh_shape, world_size
+from repro_torch.launch import hostdev
 from repro_torch.launch.chaos import sparse_ta
+from repro_torch.launch.mesh import make_replica_mesh
 from repro_torch.launch.stream import ANALOG_BACKENDS
 from repro_torch.serve import (AsyncServeEngine, BatcherConfig, EngineConfig,
                                HealthConfig, RepairConfig, RepairPolicy,
@@ -122,7 +137,7 @@ def warm(eng, xs, max_batch: int) -> None:
 def make_engine(cfg, ta, device, *, max_batch, n_replicas,
                 routing="round_robin", backend=None, packed=True,
                 pack_planes=True, static_buckets=False,
-                engine_cls=ServeEngine):
+                engine_cls=ServeEngine, mesh=None):
     # CSA offset off so serving stays on the fused kernels (capability
     # selection would send a CSA-offset read to analog-torch).
     if static_buckets:
@@ -137,7 +152,7 @@ def make_engine(cfg, ta, device, *, max_batch, n_replicas,
         ecfg=EngineConfig(batcher=batcher, routing=routing,
                           backend=backend, packed=packed,
                           pack_planes=pack_planes),
-        device=device)
+        device=device, mesh=mesh)
 
 
 def _row(summary, wall, n, max_batch):
@@ -165,14 +180,14 @@ def run_interleaved(engines, xs, max_batch, repeats):
 
 def run_batched(cfg, ta, xs, device, *, max_batch, n_replicas, routing,
                 backend=None, packed=True, static_buckets=False,
-                repeats=3, engine_cls=ServeEngine):
+                repeats=3, engine_cls=ServeEngine, mesh=None):
     """Submit everything, then drain: batches cut at ``max_batch``.  Best
     of ``repeats`` timed runs on one warmed engine."""
     engine = make_engine(cfg, ta, device, max_batch=max_batch,
                          n_replicas=n_replicas, routing=routing,
                          backend=backend, packed=packed,
                          static_buckets=static_buckets,
-                         engine_cls=engine_cls)
+                         engine_cls=engine_cls, mesh=mesh)
     warm(engine, xs, max_batch)
     out = run_interleaved({0: engine}, xs, max_batch, repeats)[0]
     out["async"] = engine_cls is AsyncServeEngine
@@ -345,12 +360,80 @@ def run_degraded(cfg, ta, xs, device, *, max_batch, n_replicas=4,
 
 
 def write_report(report, path):
+    if not hostdev.is_rank0():
+        return
     with open(path, "w") as f:
         json.dump(report, f, indent=2, default=str)
     print(f"wrote {path}")
 
 
+def run_sharded(cfg, ta, xs, device, *, repeats=3, backend=None,
+                packed=True):
+    """The sharded rows on a ``replica`` mesh of every rank: R in {4, 8}
+    where the ranks divide it (none with one rank)."""
+    ranks = world_size()
+    if ranks == 1:
+        return []
+    mesh = make_replica_mesh(ranks, 1, device_type=device.type)
+    rows = []
+    for n_replicas, use_async, routing in (
+            (4, False, "round_robin"), (4, True, "round_robin"),
+            (8, True, "round_robin"), (8, False, "ensemble")):
+        if n_replicas % ranks:
+            continue
+        row = run_batched(cfg, ta, xs, device, max_batch=64,
+                          n_replicas=n_replicas, routing=routing,
+                          backend=backend, packed=packed, repeats=repeats,
+                          mesh=mesh,
+                          engine_cls=(AsyncServeEngine if use_async
+                                      else ServeEngine))
+        row["mesh"] = mesh_shape(mesh)
+        rows.append(row)
+    return rows
+
+
+def sharded_only(args, cfg, ta, xs, device, where, activity):
+    """The bench on several ranks: the sharded rows alone (module
+    docstring); the smoke passes when every row served without a
+    fallback."""
+    print = hostdev.rank0_print
+    rows = run_sharded(cfg, ta, xs, device, repeats=args.repeats,
+                       backend=args.backend, packed=args.packed)
+    for row in rows:
+        print(f"[serve_bench_torch]   sharded R={row['n_replicas']} "
+              f"batch=64 ({row['routing']}"
+              f"{', async' if row['async'] else ''}): "
+              f"{row['wall_throughput_rps']:.1f} req/s on {row['backend']}, "
+              f"mesh {row['mesh']}, overlap "
+              f"{100 * row['overlap_fraction']:.0f}%", flush=True)
+    ok = bool(rows) and all(r["forward_fallbacks"] == [] for r in rows)
+    report = {"smoke": args.smoke, "smoke_ok": ok, "device": where,
+              "torch": torch.__version__, "ranks": world_size(),
+              "model_activity": activity, "host_cpus": os.cpu_count(),
+              "requests": args.requests, "repeats": args.repeats,
+              "sharded": rows}
+    print(json.dumps(report, default=str), flush=True)
+    out = args.smoke_out if args.smoke else args.out
+    if out:
+        write_report(report, out)
+    if args.smoke and not ok:
+        raise SystemExit(1)
+    return report
+
+
 def main(argv=None):
+    """The bench; with ``--host-devices N``, on N spawned host ranks (the
+    exit code then)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    code = hostdev.run_main(main, argv)
+    if code is not None:
+        return code
+    with hostdev.launched_group():
+        return _bench(argv)
+
+
+def _bench(argv):
+    print = hostdev.rank0_print
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=192,
                     help="requests per batched configuration")
@@ -374,6 +457,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions on the host)")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run on N spawned host ranks (one gloo group), "
+                         "which adds the sharded rows")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     if args.smoke:
@@ -391,6 +477,8 @@ def main(argv=None):
     activity = model_activity(cfg, ta, xs)
     print(f"[serve_bench_torch] {activity_line('model', activity)}",
           flush=True)
+    if world_size() > 1:
+        return sharded_only(args, cfg, ta, xs, device, where, activity)
 
     serial = run_serial(cfg, ta, xs[:args.serial_requests], device,
                         backend=args.backend, packed=args.packed,
@@ -465,6 +553,11 @@ def main(argv=None):
           f"{cap_analog['wall_throughput_rps']:.1f} req/s on "
           f"{cap_analog['backend']} ({cap_analog['n_ta_total']} TA "
           f"cells) = {cap_ratio:.2f}x", flush=True)
+
+    if not args.smoke:
+        print("[serve_bench_torch]   sharded rows skipped: one rank (pass "
+              "--host-devices N, or run under torch.distributed.run)",
+              flush=True)
 
     common = {"device": where, "torch": torch.__version__,
               "model_activity": activity,

@@ -20,7 +20,16 @@ Rows:
   latency windows cut early; the full run asserts latency-class p99 (and
   queue p99) below bulk's;
 * **anomaly** — sensor streams in ``margin`` decision mode on the
-  latency class, on the same windowing and dispatch path.
+  latency class, on the same windowing and dispatch path;
+* **sharded** (with more than one rank: ``--host-devices N``, or under
+  ``torch.distributed.run``) — the 8-session cell with the replica pool
+  split over a ``replica`` mesh of all the ranks (R in {4, 8} where the
+  ranks divide it), each checked bit-exact first; the smoke is then the
+  mesh leg of the bit-exactness check.  The ranks share the host (and,
+  on the card, the card), so with more than one rank the bench runs
+  these alone: a single-device row measured beside the other ranks'
+  work would read their contention.  Every rank runs every row, and rank
+  0 reports.
 
 Bit-exactness is asserted before timing: the streamed per-window
 predictions equal offline ``api.predict`` over
@@ -45,6 +54,8 @@ for the smoke's).
   PYTHONPATH=src python -m benchmarks.stream_bench_torch
   PYTHONPATH=src python -m benchmarks.stream_bench_torch --smoke
   PYTHONPATH=src python -m benchmarks.stream_bench_torch --smoke --device cpu
+  PYTHONPATH=src python -m benchmarks.stream_bench_torch --smoke \\
+      --device cpu --host-devices 4          # + the mesh leg
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -65,7 +77,10 @@ from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import VariationConfig
 from repro_torch.data.tm_datasets import (synthetic_kws6,
                                           synthetic_sensor_anomaly)
+from repro_torch.distributed.sharding import mesh_shape, world_size
+from repro_torch.launch import hostdev
 from repro_torch.launch.chaos import sparse_ta
+from repro_torch.launch.mesh import make_replica_mesh
 from repro_torch.launch.stream import ANALOG_BACKENDS
 from repro_torch.serve import (QOS_BULK, QOS_LATENCY, AsyncServeEngine,
                                BatcherConfig, EngineConfig, ServeEngine,
@@ -149,7 +164,8 @@ def session_streams(n_sessions, n_frames, n_mels, seed=7):
 
 def make_engine(cfg, ta, device, *, engine_cls=ServeEngine, backend=None,
                 packed=True, max_batch=64, n_replicas=2,
-                routing="round_robin", nominal=False, batcher=None):
+                routing="round_robin", nominal=False, batcher=None,
+                mesh=None):
     # Timed cells run with the realistic noise model (C2C on); the
     # bit-exactness checks build their OWN engine at nominal(): the
     # streamed == offline invariant holds only without read noise.
@@ -162,7 +178,7 @@ def make_engine(cfg, ta, device, *, engine_cls=ServeEngine, backend=None,
                                        max_batch)),
                           routing=routing, backend=backend, packed=packed,
                           lazy_tune=True),
-        device=device)
+        device=device, mesh=mesh)
 
 
 def stream_once(engine, booleanizer, scfg, streams, tag):
@@ -330,11 +346,11 @@ def run_anomaly_cell(acfg, ata, booleanizer, geo, device, *, frames,
 
 def run_cell(cfg, ta, booleanizer, device, *, sessions, hop, window, vote=5,
              frames=96, repeats=3, engine_cls=ServeEngine, backend=None,
-             packed=True, n_replicas=2, routing="round_robin"):
+             packed=True, n_replicas=2, routing="round_robin", mesh=None):
     """One timed cell (best of ``repeats``, warmed engine)."""
     engine = make_engine(cfg, ta, device, engine_cls=engine_cls,
                          backend=backend, packed=packed,
-                         n_replicas=n_replicas, routing=routing)
+                         n_replicas=n_replicas, routing=routing, mesh=mesh)
     scfg = StreamConfig(window=window, hop=hop, vote=vote)
     streams = session_streams(sessions, frames, cfg_mels(booleanizer))
     stream_once(engine, booleanizer, scfg, streams, "warm")
@@ -400,7 +416,85 @@ def run_pair(cfg, ta, booleanizer, device, *, sessions, hop, window, frames,
     return rows[False], rows[True]
 
 
+def run_sharded(cfg, ta, booleanizer, device, scfg, streams, *, window,
+                frames, repeats, backend=None, packed=True):
+    """The sharded rows on a ``replica`` mesh of every rank, each checked
+    bit-exact first (none with one rank)."""
+    ranks = world_size()
+    if ranks == 1:
+        return []
+    mesh = make_replica_mesh(ranks, 1, device_type=device.type)
+    rows = []
+    for n_replicas, use_async, routing in ((4, False, "round_robin"),
+                                           (4, True, "round_robin"),
+                                           (8, False, "ensemble")):
+        if n_replicas % ranks:
+            continue
+        cls = AsyncServeEngine if use_async else ServeEngine
+        check_bit_exact(cfg, ta, booleanizer, scfg, streams, device,
+                        engine_cls=cls, mesh=mesh, n_replicas=n_replicas,
+                        routing=routing, packed=packed)
+        row, _ = run_cell(cfg, ta, booleanizer, device, sessions=8, hop=4,
+                          window=window, frames=frames, repeats=repeats,
+                          backend=backend, packed=packed, mesh=mesh,
+                          n_replicas=n_replicas, routing=routing,
+                          engine_cls=cls)
+        row["mesh"] = mesh_shape(mesh)
+        rows.append(row)
+    return rows
+
+
+def sharded_only(args, cfg, ta, booleanizer, device, geo, where):
+    """The bench on several ranks (module docstring): the smoke is the
+    mesh leg of the bit-exactness check, the full run the sharded rows."""
+    print = hostdev.rank0_print
+    ranks = world_size()
+    scfg = StreamConfig(window=geo["window"], hop=4, vote=5)
+    streams2 = session_streams(2, min(args.frames, 64), geo["n_mels"])
+    report = {"smoke": args.smoke, "device": where,
+              "torch": torch.__version__, "ranks": ranks}
+    if args.smoke:
+        check_bit_exact(cfg, ta, booleanizer, scfg, streams2, device,
+                        mesh=make_replica_mesh(ranks, 1,
+                                               device_type=device.type),
+                        n_replicas=ranks, routing="ensemble",
+                        packed=args.packed)
+        print(f"[stream_bench_torch] bit-exactness: streamed == offline "
+              f"(mesh R={ranks} ensemble)", flush=True)
+        report.update(smoke_ok=True, mesh_bit_exact_checked=True)
+    else:
+        rows = run_sharded(cfg, ta, booleanizer, device, scfg, streams2,
+                           window=geo["window"], frames=args.frames,
+                           repeats=args.repeats, backend=args.backend,
+                           packed=args.packed)
+        for row in rows:
+            print(f"[stream_bench_torch]   sharded R={row['n_replicas']} "
+                  f"({row['routing']}"
+                  f"{', async' if row['async_engine'] else ''}): "
+                  f"{row['decisions_per_s_wall']:.0f} decisions/s on "
+                  f"{row['backend']}, mesh {row['mesh']} (bit-exact)",
+                  flush=True)
+        report["sharded"] = rows
+    print(json.dumps(report, default=str), flush=True)
+    out = args.smoke_out if args.smoke else args.out
+    if out:
+        write_report(report, out)
+    return report
+
+
 def main(argv=None):
+    """The bench; with ``--host-devices N``, on N spawned host ranks (the
+    exit code then)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    code = hostdev.run_main(main, argv)
+    if code is not None:
+        return code
+    with hostdev.launched_group():
+        return _bench(argv)
+
+
+def _bench(argv):
+    print = hostdev.rank0_print
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=96,
                     help="frames streamed a session a cell")
@@ -422,6 +516,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions on the host)")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run on N spawned host ranks (one gloo group), "
+                         "which adds the mesh rows")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -437,6 +534,9 @@ def main(argv=None):
     print(f"[stream_bench_torch] KWS-6 model: C={cfg.n_clauses} "
           f"L={cfg.n_literals} (shape bucket {shape_key}) on {where}",
           flush=True)
+
+    if world_size() > 1:
+        return sharded_only(args, cfg, ta, booleanizer, device, geo, where)
 
     # Lazy shape-aware tuning: the first engine construction measures this
     # (backend, shape bucket) cell unless the table has it; the second
@@ -581,6 +681,10 @@ def main(argv=None):
           f"({sync_row['decisions_per_s_wall']:.0f}), overlap "
           f"{100 * async_row['overlap_fraction']:.0f}% vs "
           f"{100 * sync_row['overlap_fraction']:.0f}%", flush=True)
+
+    print("[stream_bench_torch]   sharded rows skipped: one rank (pass "
+          "--host-devices N, or run under torch.distributed.run)",
+          flush=True)
 
     # -------------------------------------------- mixed-QoS heavy traffic
     qos_row = run_mixed_qos_cell(cfg, ta, booleanizer, device,

@@ -160,7 +160,31 @@ is non-zero and no result line is printed):
    ``stream_bench_torch`` with ``--smoke`` and at their defaults (the
    sync / async, planes, capacity and serial / batched rows); each
    example's ``main`` (``CLI_EXAMPLE_DEPTH`` cuts the XOR quickstarts'
-   sequential epochs) and ``benchmarks/run_torch.py --fast``.
+   sequential epochs) and ``benchmarks/run_torch.py --fast``; (j) the
+   mesh path: (a) a one-rank gloo group and ``make_replica_mesh(1, 1)``:
+   imbue-tm-mnist at R = 4 under D2D + C2C and at nominal in both
+   routings, and the coalesced pool at ``COALESCED``, each equal to the
+   same engine without a mesh, on ``analog-cuda-packed2`` /
+   ``coalesced-cuda-packed2`` with 0 fallbacks (the engines without a
+   mesh serve first, outside the counted run); (b) ``MESH_RANKS`` = 4
+   spawned ranks sharing the card over gloo (NCCL refuses two ranks on
+   one GPU): imbue-tm-mnist at R = 4 on a ``2x2`` mesh, sync and async,
+   both routings, D2D + C2C and nominal, on ``analog-cuda-packed2``
+   (each rank launches ``imbue_infer_planes`` on its two replicas and
+   its half of the rows, 0 fallbacks; every rank's Responses equal, and
+   equal bit for bit to the single-device kernel engine; at nominal the
+   digital TM; one async issue under the sync debug mode; each rank's
+   host split of submit, issue, device wait, cut agreement and gather),
+   one ``tm_train_step`` at B = ``TRAIN_BATCH`` on a ``(data 2, model
+   2)`` mesh equal to the single-device step, and on 2 ranks the
+   coalesced pool class-parallel on ``2x1`` on ``coalesced-cuda-packed2``
+   (``tm_infer_planes`` on each rank's five class columns); every rank
+   reports its launches of the mesh engines and of the mesh training
+   step, and each must have launched its leg's kernels; (c)
+   ``launch.serve`` with ``MESH_CLI_ARGS`` under
+   ``torch.distributed.run``, rank 0's summary showing the mesh, the
+   plane-packed kernel and the accuracy of the same arguments without
+   one.
    Each path's launch counters are zeroed just before it and read just
    after: one launch per dispatch (plus one per probe read and canary
    shadow read on the live path, one ``tm_infer`` per probe commit, and
@@ -258,7 +282,7 @@ launches on its main path: the plane-packed analog path for
 ``imbue_infer_planes``, the lower analog tiers for ``imbue_infer_packed``
 and ``imbue_infer``, the coalesced path for the TM kernels, the training
 path for the clause-bit kernels, the trainable attention steps for the
-flash kernels; the stream path's counts are in the ``launches`` line),
+flash kernels; the stream and mesh paths' counts are in the ``launches`` line),
 the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``.  The
 serving phases' models are built with numpy from a seed, without
@@ -469,6 +493,14 @@ CLI_KERNELS = ("imbue_infer_planes", "imbue_infer_packed", "imbue_infer",
                "tm_infer_planes", "tm_infer", "clause_eval_packed",
                "clause_eval")
 ANALOG_KERNELS = ("imbue_infer_planes",) + DENSE_KERNELS
+# The mesh path, phase 3 (j): (a) a one-rank mesh in this process; (b)
+# MESH_RANKS spawned ranks sharing the card over gloo (NCCL refuses two
+# ranks on one GPU), each leg under MESH_TIMEOUT_S; (c) the serve CLI
+# under torch.distributed.run with MESH_CLI_ARGS, beside the unsharded run
+# with the same arguments.
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 600
+MESH_CLI_ARGS = ("--mesh", "2x2") + CLI_SERVE_ARGS
 # Flash attention at the attention widths of three architectures the repo
 # registers (src/repro/configs/archs.py; the numbers are copied, the port
 # imports nothing of the reference), in the models' compute dtype (bf16),
@@ -2562,6 +2594,416 @@ def phase_cli(device):
     return path_launches(drive, CLI_KERNELS)
 
 
+# ------------------------------------------------------------------ mesh
+
+def mesh_responses(out):
+    """``(preds [n], sums [n, M])`` of Responses."""
+    return (np.array([r.pred for r in out]),
+            np.stack([r.class_sums for r in out]))
+
+
+def mesh_one_rank(device):
+    """(j) (a): a one-rank gloo group and ``make_replica_mesh(1, 1)`` on
+    the card.  imbue-tm-mnist at R = 4 under D2D + C2C and at nominal in
+    both routings, and the coalesced pool at ``COALESCED``: the mesh
+    partitions nothing, so the kernel backends serve (0 fallbacks) and
+    every Response equals the engine's without a mesh, bit for bit.  The
+    engines without a mesh serve first; the launches returned are the
+    mesh engines' alone."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.serve import EngineConfig, ServeEngine
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+        rank=0, world_size=1)
+    try:
+        mesh = make_replica_mesh(1, 1, device_type=device.type)
+        cfg = tm_config(MODEL)
+        ta, x, _ = prototype_task(cfg, N_REQUESTS, SEED + 1000)
+        ccfg = coalesced_config()
+        cta, w, cx, _ = coalesced_task(ccfg, N_REQUESTS, SEED + 1100)
+        rounds = []
+        for vname, vcfg in (("d2d_c2c", VariationConfig(csa_offset=False)),
+                            ("nominal", VariationConfig.nominal())):
+            for routing in ("round_robin", "ensemble"):
+                rounds.append((
+                    f"analog {vname} {routing}", "analog-cuda-packed2",
+                    lambda m, vcfg=vcfg, routing=routing:
+                    ServeEngine.from_ta_state(
+                        torch.from_numpy(ta), cfg, n_replicas=REPLICAS,
+                        seed=SEED, vcfg=vcfg,
+                        ecfg=EngineConfig(routing=routing), device=device,
+                        mesh=m), x))
+        rounds.append(("coalesced", "coalesced-cuda-packed2",
+                       lambda m: ServeEngine.from_coalesced(
+                           torch.from_numpy(cta), torch.from_numpy(w), ccfg,
+                           device=device, mesh=m), cx))
+
+        def served(what, backend, eng, rows, want_mesh):
+            got = mesh_responses(serve_all(eng, rows))
+            s = eng.summary()
+            if (eng.backend.name != backend or s["sharded"]
+                    or s["mesh"] != want_mesh
+                    or s["fallback_dispatches"]):
+                raise AssertionError(
+                    f"mesh (a) {what}: {eng.backend.name}, sharded "
+                    f"{s['sharded']}, mesh {s['mesh']}, "
+                    f"{s['fallback_dispatches']} fallbacks")
+            return got
+
+        control = {what: served(what, backend, build(None), rows, None)
+                   for what, backend, build, rows in rounds}
+
+        def drive():
+            for what, backend, build, rows in rounds:
+                got = served(what, backend, build(mesh), rows,
+                             {"replica": 1, "batch": 1})
+                for a, b in zip(got, control[what]):
+                    if not np.array_equal(a, b):
+                        raise AssertionError(f"mesh (a) {what}: the one-rank "
+                                             "mesh changed a Response")
+        launches = path_launches(drive, ("imbue_infer_planes",
+                                         "tm_infer_planes"))
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "mesh", "leg": "one_rank", "rounds": len(rounds),
+          "requests": N_REQUESTS, "equal_to_no_mesh": True,
+          "launches": launches,
+          "wall_s": time.perf_counter() - t0, "card": nvidia_smi_line()})
+    return launches
+
+
+def rank_launches(kernels):
+    """Every rank's launch counts of ``kernels`` since they were last
+    zeroed, ``{rank: {kernel: n}}`` on every rank (one all-gather)."""
+    import torch.distributed as dist
+    mine = {name: kernel_pair(name)[0].launches for name in kernels}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return {str(r): c for r, c in enumerate(every)}
+
+
+def zero_launches(kernels):
+    for name in kernels:
+        kernel_pair(name)[0].launches = 0
+
+
+def mesh_split(eng, x):
+    """Serve ``x`` on ``eng`` (submit, then drain) and return ``(preds,
+    sums)`` with this rank's host split of the run: submitting, issuing
+    (the rows' copies and the launches), waiting for the device at
+    collect, agreeing on the cuts and gathering the blocks."""
+    t0 = time.perf_counter()
+    rids = eng.submit_many(list(x))
+    t_submit = time.perf_counter() - t0
+    eng.pump()
+    out = {r.rid: r for r in eng.drain()}
+    wall = time.perf_counter() - t0
+    s = eng.summary()
+    split = {"wall_s": wall, "submit_s": t_submit, "issue_s": s["issue_s"],
+             "device_wait_s": s["device_wait_s"], "agree_s": s["agree_s"],
+             "gather_s": s["gather_s"], "dispatches": s["batches"]}
+    return mesh_responses([out[i] for i in rids]), split
+
+
+def mesh_serving_rank(device_name, out_dir):
+    """(j) (b), one of ``MESH_RANKS`` ranks on the card: imbue-tm-mnist at
+    R = 4 on a ``2x2`` mesh, sync and async, routed and ensemble, under
+    D2D + C2C and at nominal, on the plane-packed kernel (each rank its
+    two replicas and its half of the rows), equal bit for bit to the
+    single-device engine; then ``tm_train_step`` at imbue-tm-mnist, B =
+    256, on a ``(data 2, model 2)`` mesh.  The counters are zeroed after
+    the single-device engines, and every rank's launches of the mesh
+    engines and of the mesh training step are reported.  Rank 0 writes
+    ``mesh_b.json``."""
+    import warnings
+
+    import torch.distributed as dist
+    from repro_torch.configs.imbue_tm import tm_config
+    from repro_torch.core import tm
+    from repro_torch.core import tm_distributed as tmd
+    from repro_torch.core.tm_train import train_step_batch
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh, make_replica_mesh
+    from repro_torch.serve import AsyncServeEngine, EngineConfig, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device_name)
+    rank = dist.get_rank()
+    mesh = make_replica_mesh(2, 2, device_type=device.type)
+    cfg = tm_config(MODEL)
+    ta, x, _ = prototype_task(cfg, N_REQUESTS, SEED + 1200)
+    ta_t = torch.from_numpy(ta)
+    digital = tm.forward(ta_t.to(device), torch.from_numpy(x).to(device),
+                         cfg).cpu().numpy()
+    report = {"rounds": []}
+
+    def engine(cls, vcfg, routing, mesh_=None):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = cls.from_ta_state(ta_t, cfg, n_replicas=REPLICAS,
+                                    seed=SEED, vcfg=vcfg, device=device,
+                                    ecfg=EngineConfig(routing=routing),
+                                    mesh=mesh_)
+        return eng, [str(w.message) for w in caught]
+
+    variations = (("d2d_c2c", VariationConfig(csa_offset=False)),
+                  ("nominal", VariationConfig.nominal()))
+    rounds = [(v, vcfg, routing) for v, vcfg in variations
+              for routing in ("round_robin", "ensemble")]
+    single = {}
+    for vname, vcfg, routing in rounds:
+        t0 = time.perf_counter()
+        eng, _ = engine(ServeEngine, vcfg, routing)
+        single[vname, routing] = mesh_responses(serve_all(eng, x))
+        single[vname, routing, "wall_s"] = time.perf_counter() - t0
+    serving = ("imbue_infer_planes",)
+    zero_launches(serving)
+    for vname, vcfg, routing in rounds:
+        want = single[vname, routing]
+        row = {"variation": vname, "routing": routing,
+               "single_device_wall_s": single[vname, routing, "wall_s"]}
+        for cls in (ServeEngine, AsyncServeEngine):
+            eng, caught = engine(cls, vcfg, routing, mesh)
+            got, split = mesh_split(eng, x)
+            s = eng.summary()
+            block = sharding.local_block(eng.state.r_stack)[0]
+            what = f"mesh (b) {vname} {routing} {cls.__name__}"
+            if not (s["sharded"] and s["plane_packed"]
+                    and eng.backend.name == "analog-cuda-packed2"
+                    and not eng.selection.fell_back and not caught
+                    and s["fallback_dispatches"] == 0 and s["batches"] > 0
+                    and block.device.type == device.type):
+                raise AssertionError(
+                    f"{what}: sharded {s['sharded']}, {eng.backend.name}, "
+                    f"{s['fallback_dispatches']} fallbacks of "
+                    f"{s['batches']}, block on {block.device}, "
+                    f"warnings {caught}")
+            for a, b in zip(got, want):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"{what}: differs from the "
+                                         "single-device kernel engine")
+            sums = torch.from_numpy(np.ascontiguousarray(got[1]))
+            every = [torch.empty_like(sums) for _ in
+                     range(dist.get_world_size())]
+            dist.all_gather(every, sums)
+            if not all(torch.equal(e, sums) for e in every):
+                raise AssertionError(f"{what}: ranks disagree")
+            if vname == "nominal":
+                scale = REPLICAS if routing == "ensemble" else 1
+                if not np.array_equal(got[1], scale * digital):
+                    raise AssertionError(f"{what}: nominal sums differ "
+                                         "from the digital TM")
+            splits = [None] * dist.get_world_size()
+            dist.all_gather_object(splits, split)
+            row[cls.__name__] = {
+                "wall_s": split["wall_s"],
+                "requests_per_s": len(x) / split["wall_s"],
+                "dispatches": s["batches"], "backend": eng.backend.name,
+                "fallback_dispatches": s["fallback_dispatches"],
+                "overlap_fraction": s["overlap_fraction"],
+                "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"],
+                "mesh": s["mesh"], "split_by_rank": splits}
+        report["rounds"].append(row)
+    # One more issue of the warm async mesh engine at nominal, under the
+    # sync debug mode that raises on a synchronizing CUDA operation: the
+    # block's copy, the gather and the vote all wait for the collect.
+    eng, _ = engine(AsyncServeEngine, VariationConfig.nominal(), "ensemble",
+                    mesh)
+    serve_all(eng, x[:128])
+    eng.submit_many(list(x[:128]))
+    batch = eng.batcher.cut(eng.clock(), force=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fl = eng._issue(batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng._collect(fl)
+    report["issue_syncs"] = 0
+    report["serving_launches_by_rank"] = rank_launches(serving)
+    # Training: clauses over model, rows over data.
+    xtr, ytr, _, _ = image_task(**IMAGE_TASK)
+    xtr, ytr = xtr[:TRAIN_BATCH], ytr[:TRAIN_BATCH]
+    xb = torch.from_numpy(xtr).to(device)
+    yb = torch.from_numpy(ytr).to(device)
+    gen = torch.Generator(device=device)
+    ta0 = tm.init_ta_state(gen.manual_seed(SEED), cfg, device)
+    train_step_batch(ta0, gen.manual_seed(SEED + 1), xb, yb, cfg)   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = train_step_batch(ta0, gen.manual_seed(SEED + 1), xb, yb, cfg)
+    torch.cuda.synchronize()
+    t_single = time.perf_counter() - t0
+    tmesh = make_debug_mesh(2, 2, device_type=device.type)
+    st_sh, x_sh, y_sh = tmd.tm_shardings(cfg, tmesh, TRAIN_BATCH)
+    placed = (st_sh.place(ta0), x_sh.place(xb), y_sh.place(yb))
+    zero_launches(CLAUSE_KERNELS)
+    tmd.tm_train_step(placed[0], gen.manual_seed(SEED + 1), *placed[1:],
+                      cfg)                                         # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tmd.tm_train_step(placed[0], gen.manual_seed(SEED + 1),
+                            *placed[1:], cfg)
+    torch.cuda.synchronize()
+    t_mesh = time.perf_counter() - t0
+    train_launches = rank_launches(CLAUSE_KERNELS)
+    if not (sharding.partitioned(got)
+            and torch.equal(sharding.gather(got), want)
+            and not torch.equal(want, ta0)):
+        raise AssertionError("mesh (b): tm_train_step differs from the "
+                             "single-device step")
+    report["training"] = {"batch": TRAIN_BATCH, "mesh": {"data": 2,
+                                                          "model": 2},
+                          "equal_to_single_device": True,
+                          "mesh_steps": 2, "launches_by_rank": train_launches,
+                          "mesh_step_s": t_mesh, "single_step_s": t_single}
+    if rank == 0:
+        with open(Path(out_dir) / "mesh_b.json", "w") as f:
+            json.dump(report, f)
+
+
+def mesh_coalesced_rank(device_name, out_dir):
+    """(j) (b), one of two ranks: the coalesced pool at ``COALESCED``
+    class-parallel on a ``2x1`` mesh (its M = 10 weight columns split in
+    two), sync and async, on the plane-packed kernel (each rank its five
+    class columns), equal to the single-device engine and to
+    ``core.coalesced.forward``.  Rank 0 writes ``mesh_coalesced.json``
+    with every rank's launches of the mesh engines."""
+    import torch.distributed as dist
+    from repro_torch.core.coalesced import forward as co_forward
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.serve import AsyncServeEngine, ServeEngine
+    device = torch.device(device_name)
+    mesh = make_replica_mesh(2, 1, device_type=device.type)
+    ccfg = coalesced_config()
+    ta, w, x, _ = coalesced_task(ccfg, N_REQUESTS, SEED + 1400)
+    ta_t, w_t = torch.from_numpy(ta), torch.from_numpy(w)
+    want = co_forward(ta_t.to(device), w_t.to(device),
+                      torch.from_numpy(x).to(device), ccfg).cpu().numpy()
+    single = mesh_responses(serve_all(ServeEngine.from_coalesced(
+        ta_t, w_t, ccfg, device=device), x))
+    report = {}
+    zero_launches(("tm_infer_planes",))
+    for cls in (ServeEngine, AsyncServeEngine):
+        eng = cls.from_coalesced(ta_t, w_t, ccfg, device=device, mesh=mesh)
+        got, split = mesh_split(eng, x)
+        s = eng.summary()
+        if not (s["sharded"] and eng.backend.name == "coalesced-cuda-packed2"
+                and not eng.selection.fell_back
+                and np.array_equal(got[1], want)
+                and all(np.array_equal(a, b) for a, b in zip(got, single))):
+            raise AssertionError(f"mesh (b) coalesced {cls.__name__}: "
+                                 f"{eng.backend.name}, sharded "
+                                 f"{s['sharded']}, or sums differ")
+        splits = [None] * dist.get_world_size()
+        dist.all_gather_object(splits, split)
+        report[cls.__name__] = {"wall_s": split["wall_s"],
+                                "requests_per_s": len(x) / split["wall_s"],
+                                "dispatches": s["batches"],
+                                "backend": eng.backend.name,
+                                "mesh": s["mesh"], "split_by_rank": splits}
+    report["launches_by_rank"] = rank_launches(("tm_infer_planes",))
+    if dist.get_rank() == 0:
+        with open(Path(out_dir) / "mesh_coalesced.json", "w") as f:
+            json.dump(report, f)
+
+
+def mesh_shared_card(device):
+    """(j) (b): ``mesh_serving_rank`` on ``MESH_RANKS`` spawned ranks and
+    ``mesh_coalesced_rank`` on two, each rank on the one card.  Fails if
+    a rank launched no kernel of its leg; returns the launches summed
+    over the ranks."""
+    import tempfile
+
+    from repro_torch.launch.hostdev import run_host_ranks
+    totals = {}
+    for fn, ranks, name in ((mesh_serving_rank, MESH_RANKS, "mesh_b.json"),
+                            (mesh_coalesced_rank, 2,
+                             "mesh_coalesced.json")):
+        out = tempfile.mkdtemp()
+        t0 = time.perf_counter()
+        run_host_ranks(fn, ranks, (str(device), out), rdzv_dir=out,
+                       timeout=MESH_TIMEOUT_S)
+        with open(Path(out) / name) as f:
+            report = json.load(f)
+        for key in ("serving_launches_by_rank", "launches_by_rank"):
+            for by_rank in (report.get(key), report.get("training", {})
+                            .get(key)):
+                for rank, counts in (by_rank or {}).items():
+                    for kernel, n in counts.items():
+                        if kernel in ("clause_eval",):
+                            continue      # the sequential step's kernel
+                        if n == 0:
+                            raise AssertionError(
+                                f"mesh (b) {name}: rank {rank} launched "
+                                f"no {kernel}")
+                        totals[kernel] = totals.get(kernel, 0) + n
+        emit({"phase": "mesh", "leg": name.split(".")[0], "ranks": ranks,
+              "transport": "gloo", **report,
+              "wall_s": time.perf_counter() - t0, "card": nvidia_smi_line()})
+    return totals
+
+
+def mesh_cli(device):
+    """(j) (c): ``launch.serve`` with ``MESH_CLI_ARGS`` under
+    ``torch.distributed.run`` (``MESH_RANKS`` ranks, gloo on the one card):
+    rank 0's summary shows the mesh and the plane-packed kernel, and its
+    accuracy equals the same arguments' run without a mesh in this
+    process."""
+    import os
+
+    from repro_torch.launch import serve as cli
+    args = list(MESH_CLI_ARGS)
+    if device.type != "cuda":
+        args += ["--device", str(device)]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(MESH_RANKS), "-m",
+         "repro_torch.launch.serve", *args], capture_output=True, text=True,
+        timeout=MESH_TIMEOUT_S,
+        env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                             / "src")})
+    wall = time.perf_counter() - t0
+    if run.returncode:
+        raise AssertionError(f"mesh (c): torch.distributed.run exited "
+                             f"{run.returncode}: {run.stderr[-3000:]}")
+    s = json.loads(run.stdout[run.stdout.index("\n{") + 1:])
+    whole, _ = quiet(cli.main, [a for a in args
+                                if a not in MESH_CLI_ARGS[:2]])
+    if not (s["sharded"] and s["mesh"] == {"replica": 2, "batch": 2}
+            and s["backend"] == whole["backend"] == "analog-cuda-packed2"
+            and s["analog_accuracy"] == whole["analog_accuracy"]):
+        raise AssertionError(f"mesh (c): mesh {s['mesh']}, sharded "
+                             f"{s['sharded']}, backend {s['backend']}, "
+                             f"accuracy "
+                             f"{s['analog_accuracy']} against "
+                             f"{whole['analog_accuracy']} unsharded")
+    emit({"phase": "mesh", "leg": "cli", "launcher": "torch.distributed.run",
+          "ranks": MESH_RANKS, "argv": args, "mesh": s["mesh"],
+          "backend": s["backend"], "analog_accuracy": s["analog_accuracy"],
+          "unsharded_accuracy": whole["analog_accuracy"],
+          "unsharded_backend": whole["backend"],
+          "requests_per_s": s["throughput_rps"], "p99_ms": s["p99_ms"],
+          "wall_s": wall, "card": nvidia_smi_line()})
+
+
+def phase_mesh(device):
+    """Phase 3 (j), the mesh path; returns the launches of its mesh
+    engines: leg (a)'s in this process and leg (b)'s summed over the
+    spawned ranks."""
+    launches = {"one_rank": mesh_one_rank(device),
+                "shared_card": mesh_shared_card(device)}
+    mesh_cli(device)
+    return launches
+
+
 def clause_case(inc, x, device):
     """Operands of the two clause-bit kernels for one shape, keyed by
     kernel, and the share of (row, clause) pairs that fire, over all
@@ -4010,7 +4452,8 @@ def main() -> int:
                "digital": phase_digital_fused(device),
                "live": phase_live(device),
                "stream": phase_stream(device, stream_keep),
-               "cli": phase_cli(device)}
+               "cli": phase_cli(device),
+               "mesh": phase_mesh(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

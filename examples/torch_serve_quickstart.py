@@ -4,6 +4,13 @@ ensemble voting (port of ``examples/serve_quickstart.py``).
 
   PYTHONPATH=src python examples/torch_serve_quickstart.py [--no-packed]
   PYTHONPATH=src python examples/torch_serve_quickstart.py --device cpu
+  PYTHONPATH=src python examples/torch_serve_quickstart.py --device cpu \
+      --host-devices 4 --mesh 4                  # sharded over 4 ranks
+
+``--mesh R[xB]`` shards the pool's programmed ``[R, C, L]`` stack over a
+``(replica, batch)`` mesh of ranks (``--host-devices N`` spawns N host
+ranks; on the card, ``torch.distributed.run``); the responses stay
+bit-identical to the single-device eager engine's.
 
 The pool reads with the full noise model, ``VariationConfig()``: no
 fused kernel models the per-column CSA offset, so capability selection
@@ -17,6 +24,7 @@ see ``repro_torch.launch.serve``.
 """
 
 import argparse
+import sys
 
 import numpy as np
 import torch
@@ -26,6 +34,9 @@ from repro_torch.core import tm, tm_train
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import VariationConfig
 from repro_torch.data.tm_datasets import noisy_xor
+from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.launch import hostdev
+from repro_torch.launch.mesh import parse_mesh_spec
 from repro_torch.serve import BatcherConfig, EngineConfig, ServeEngine
 
 N_TRAIN, N_TEST = 3000, 200
@@ -34,6 +45,16 @@ N_REQUESTS = 64
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    code = hostdev.run_main(main, argv)
+    if code is not None:
+        return code
+    with hostdev.launched_group():
+        return _quickstart(argv)
+
+
+def _quickstart(argv):
+    print = hostdev.rank0_print
     ap = argparse.ArgumentParser()
     ap.add_argument("--packed", action=argparse.BooleanOptionalAction,
                     default=True,
@@ -41,8 +62,15 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions)")
+    ap.add_argument("--mesh", default=None, metavar="RxB",
+                    help="shard the replica pool over a (replica, batch) "
+                         "mesh of ranks, e.g. '4' or '2x2'")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run on N spawned host ranks (one gloo group)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+    mesh = (parse_mesh_spec(args.mesh, device_type=device.type)
+            if args.mesh else None)
 
     cfg = TMConfig(n_classes=2, clauses_per_class=12, n_features=12,
                    n_states=100)
@@ -62,7 +90,7 @@ def main(argv=None):
         ecfg=EngineConfig(routing="ensemble", packed=args.packed,
                           batcher=BatcherConfig(max_batch=32,
                                                 bucket_sizes=(8, 16, 32))),
-        device=device)
+        device=device, mesh=mesh)
     bcfg = engine.batcher.cfg
     print(f"backend: {engine.backend.name} (packed_io={engine.packed_io}, "
           f"buckets={list(bcfg.bucket_sizes)}"
@@ -70,6 +98,8 @@ def main(argv=None):
           + ")"
           + (f" (fallback: {engine.selection.fallback_reason})"
              if engine.selection.fell_back else ""))
+    if mesh is not None:
+        print(f"pool sharded over mesh {mesh_shape(mesh)}")
 
     xs = xte.numpy().astype(np.uint8)
     engine.submit_many(list(xs[:N_REQUESTS]))

@@ -10,7 +10,8 @@ from repro_torch.api.registry import (CAP_ANALOG, CAP_COALESCED,
                                       CAP_MODELS_C2C,
                                       CAP_MODELS_CSA_OFFSET, CAP_PACKED_IO,
                                       CAP_PACKED_PLANES, CAP_REPLICA_VMAP,
-                                      KNOWN_CAPABILITIES, REF_SHAPE_KEY,
+                                      CAP_SHARDED, KNOWN_CAPABILITIES,
+                                      REF_SHAPE_KEY,
                                       Backend, Selection, clear_tuning,
                                       device_signature, get_backend,
                                       get_tuning, list_backends,
@@ -29,6 +30,6 @@ __all__ = [
     "device_signature", "REF_SHAPE_KEY", "KNOWN_CAPABILITIES", "CAP_ANALOG",
     "CAP_COALESCED", "CAP_DIGITAL", "CAP_FUSED_KERNEL", "CAP_MODELS_C2C",
     "CAP_MODELS_CSA_OFFSET", "CAP_PACKED_IO", "CAP_PACKED_PLANES",
-    "CAP_REPLICA_VMAP", "CoalescedState", "CrossbarState", "DigitalState",
-    "ReplicaStackState",
+    "CAP_REPLICA_VMAP", "CAP_SHARDED", "CoalescedState", "CrossbarState",
+    "DigitalState", "ReplicaStackState",
 ]

@@ -31,6 +31,7 @@ from repro_torch._device import DeviceLike, resolve_device
 
 from repro_torch.api.states import (CoalescedState, CrossbarState,
                                      DigitalState, ReplicaStackState)
+from repro_torch.distributed.sharding import tree_is_sharded
 
 CAP_DIGITAL = "digital"                     # Boolean-domain evaluation
 CAP_ANALOG = "analog"                       # current-domain crossbar model
@@ -40,12 +41,13 @@ CAP_MODELS_CSA_OFFSET = "models_csa_offset"  # per-column CSA input offset
 CAP_REPLICA_VMAP = "supports_replica_vmap"  # [R, C, L] in one dispatch
 CAP_COALESCED = "coalesced_weights"         # weighted digital tail
 CAP_PACKED_IO = "packed_io"                 # int32 bitplane literal wire
+CAP_SHARDED = "sharded_dispatch"            # reads a state split over a mesh
 CAP_PACKED_PLANES = "packed_planes"         # resident index+dev plane format
 
 KNOWN_CAPABILITIES = frozenset({
     CAP_DIGITAL, CAP_ANALOG, CAP_FUSED_KERNEL, CAP_MODELS_C2C,
     CAP_MODELS_CSA_OFFSET, CAP_REPLICA_VMAP, CAP_COALESCED, CAP_PACKED_IO,
-    CAP_PACKED_PLANES,
+    CAP_SHARDED, CAP_PACKED_PLANES,
 })
 
 
@@ -128,10 +130,15 @@ def required_capabilities(state, generator=None) -> FrozenSet[str]:
     read noisily against a ``VariationConfig`` with ``csa_offset`` needs a
     backend that models the per-column CSA offset — the kernels threshold
     against one scalar reference and do NOT — and one with ``c2c`` needs
-    C2C.  A coalesced pool needs the weighted digital tail.
+    C2C.  A coalesced pool needs the weighted digital tail.  A state
+    partitioned across ranks (``state.shard(mesh)``) needs a backend that
+    reads it block by block (every registered one does: a kernel launch
+    on the rank's own block, ``api.backends``).
     """
     noisy = generator is not None
     need = set()
+    if tree_is_sharded(state):
+        need.add(CAP_SHARDED)
     if isinstance(state, ReplicaStackState):
         need.add(CAP_REPLICA_VMAP)
     if isinstance(state, (CrossbarState, ReplicaStackState)):

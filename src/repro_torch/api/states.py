@@ -31,6 +31,18 @@ with the rows of empty clauses zeroed), built once when the state is
 made; ``pack()`` and ``pack_planes()`` keep it, and the fused backends
 hand it to the kernel wrappers instead of rebuilding it on every call.
 
+``shard(mesh)`` places a replica stack or a coalesced pool on a
+``DeviceMesh`` (``distributed.sharding.shard_tree`` with
+``replica_rules``): a stack's ``r_stack`` splits over ``replica`` and a
+coalesced pool's ``[C, M]`` weights split their class columns over it,
+as ``DTensor`` blocks; the shared include planes stay whole.
+Programming comes first, so every shard holds the same per-seed D2D
+draws.  ``is_sharded`` says whether some leaf is partitioned over more
+than one rank (a one-rank mesh, or an axis dropped because it does not
+divide its dimension, leaves the state whole): such a state needs
+``CAP_SHARDED``, which every backend declares, and packs its planes
+block by block, each rank its own replicas' deviation plane.
+
 ``inject_faults`` bakes a stuck-at / drift overlay into the programmed
 resistances (or, for the digital coalesced pool, the TA plane) and keeps
 the int8 ``fault_mask``; on a plane-packed state the index bitplane
@@ -52,6 +64,7 @@ from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
                                     program_replica_stack)
 from repro_torch.core.mapping import CrossbarMapping
 from repro_torch.core.tm import TMConfig, include_mask
+from repro_torch.distributed import sharding
 from repro_torch.kernels import bitpack, ops
 
 
@@ -76,6 +89,22 @@ class _PackedMixin:
             self, include_packed=bitpack.pack_bits(self.include))
 
 
+class Shardable:
+    """Placement on a mesh, shared by the states and pools that shard."""
+
+    @property
+    def is_sharded(self) -> bool:
+        """True when some leaf is partitioned across more than one rank
+        (which adds ``CAP_SHARDED`` to the required capability set)."""
+        return sharding.tree_is_sharded(self)
+
+    def shard(self, mesh, rules=None):
+        """This value placed onto ``mesh`` per ``rules`` (default
+        ``distributed.sharding.replica_rules(mesh)``): the leaves the
+        rules split become ``DTensor`` blocks, the others stay whole."""
+        return sharding.shard_tree(self, mesh, rules)
+
+
 def _deviation_plane(r: torch.Tensor, include: torch.Tensor
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(r_quantized, r - r_nom)`` as float32, the deviation ``None``
@@ -84,14 +113,25 @@ def _deviation_plane(r: torch.Tensor, include: torch.Tensor
     Same quantization as the reference: ``dev = fl(r - r_nom)`` and
     ``r_q = fl(r_nom + dev)``, so ``r_q == r_nom + dev`` holds bitwise
     (at most 0.5 ulp from the drawn resistance).  The elision check syncs
-    to the host once, at pack time, never on the dispatch path.
+    to the host once, at pack time, never on the dispatch path.  A stack
+    partitioned over a mesh (``r`` a ``DTensor``) is packed block by
+    block, and its ranks agree on the elision (a collective: every rank
+    packs).
     """
     r_nom = torch.where(include, var.LRS_MEAN_OHM,
                         var.HRS_MEAN_OHM).to(torch.float32)
-    dev = (r - r_nom).to(torch.float32)
-    if not bool((dev != 0.0).any()):
-        return r.to(torch.float32), None
-    return (r_nom + dev).to(torch.float32), dev
+
+    def deviation(block):
+        return (block - r_nom).to(torch.float32)
+
+    nominal = not bool((deviation(sharding.local_block(r)[0]) != 0.0).any())
+    if sharding.partitioned(r):
+        nominal = sharding.all_agree(nominal)
+    if nominal:
+        return sharding.map_blocks(lambda b: b.to(torch.float32), r), None
+    return (sharding.map_blocks(
+        lambda b: (r_nom + deviation(b)).to(torch.float32), r),
+        sharding.map_blocks(deviation, r))
 
 
 def stuck_ta(ta_state: torch.Tensor, mask: torch.Tensor,
@@ -249,7 +289,7 @@ class CrossbarState(_PackedMixin, _AnalogMixin):
 
 
 @dataclasses.dataclass(frozen=True)
-class ReplicaStackState(_PackedMixin, _AnalogMixin):
+class ReplicaStackState(_PackedMixin, _AnalogMixin, Shardable):
     """R independently programmed chips sharing one set of TA actions."""
 
     r_stack: torch.Tensor                    # [R, C, L] programmed Ω, f32
@@ -278,7 +318,8 @@ class ReplicaStackState(_PackedMixin, _AnalogMixin):
     def pack_planes(self) -> "ReplicaStackState":
         """The stack with its resident planes packed: ONE shared index
         bitplane plus the per-replica deviation plane (elided for a
-        nominal stack).  Implies :meth:`pack`."""
+        nominal stack).  Implies :meth:`pack`.  A partitioned stack's
+        deviation plane is split as its resistances are."""
         if self.plane_packed:
             return self
         packed = self.pack()
@@ -342,7 +383,7 @@ class ReplicaStackState(_PackedMixin, _AnalogMixin):
 
 
 @dataclasses.dataclass(frozen=True)
-class CoalescedState(_PackedMixin):
+class CoalescedState(_PackedMixin, Shardable):
     """Shared clause pool + per-class integer weights (coalesced TM)."""
 
     ta_state: torch.Tensor                   # [C, L] int TA states
@@ -355,9 +396,13 @@ class CoalescedState(_PackedMixin):
 
     def __post_init__(self):
         if self.combine is None:
-            object.__setattr__(self, "combine", ops.coalesced_combine(
-                self.weights.to(self.ta_state.device),
-                self.include.any(dim=-1)))
+            # Built on the weights' own block when they are partitioned:
+            # the combine matrix is split as the weights are.
+            nonempty = self.include.any(dim=-1)
+            object.__setattr__(self, "combine", sharding.map_blocks(
+                lambda w: ops.coalesced_combine(w.to(nonempty.device),
+                                                nonempty),
+                self.weights))
 
     def reprogram(self, ta_state: torch.Tensor,
                   weights: torch.Tensor) -> "CoalescedState":

@@ -87,12 +87,13 @@ def program_crossbar(include: torch.Tensor,
 
 def conductances(r_mem: torch.Tensor, include: torch.Tensor, cfg: IMBUEConfig,
                  generator: Optional[torch.Generator] = None,
-                 vcfg: var.VariationConfig = var.VariationConfig()):
+                 vcfg: var.VariationConfig = var.VariationConfig(),
+                 block: Optional[var.ReadBlock] = None):
     """Per-cell on-path conductance and leak current for one read cycle,
     ``[..., C, L]`` float32 each (same op order as the reference)."""
     r = r_mem
     if generator is not None:
-        r = var.apply_c2c(generator, r, include, vcfg)
+        r = var.apply_c2c(generator, r, include, vcfg, block)
     g_on = 1.0 / (cfg.series_factor * r)
     i_leak_nom = torch.where(include, var.I_LEAK_INCLUDE,
                              var.I_LEAK_EXCLUDE).to(torch.float32)
@@ -134,14 +135,14 @@ def column_currents(xbar: ProgrammedCrossbar, lits: torch.Tensor,
 
 def csa_sense(i_col: torch.Tensor, cfg: IMBUEConfig,
               generator: Optional[torch.Generator] = None,
-              vcfg: var.VariationConfig = var.VariationConfig()
-              ) -> torch.Tensor:
+              vcfg: var.VariationConfig = var.VariationConfig(),
+              block: Optional[var.ReadBlock] = None) -> torch.Tensor:
     """CSA compare: partial clause = 1 iff ``V_col < V_ref + offset``."""
     v_col = i_col * cfg.r_divider
     v_ref = cfg.reference_voltage()
     if generator is None:
         return (v_col < v_ref).to(torch.uint8)
-    off = var.csa_offset(generator, i_col.shape, vcfg, i_col.device)
+    off = var.csa_offset(generator, i_col.shape, vcfg, i_col.device, block)
     return (v_col < v_ref + off).to(torch.uint8)
 
 
@@ -153,16 +154,19 @@ def analog_clause_outputs_raw(
     cfg: IMBUEConfig,
     generator: Optional[torch.Generator] = None,
     vcfg: var.VariationConfig = var.VariationConfig(),
+    block: Optional[var.ReadBlock] = None,
 ) -> torch.Tensor:
     """Clause outputs ``[..., B, C]`` uint8 from raw device arrays: one
-    read, its generator split into a C2C and a CSA stream."""
+    read, its generator split into a C2C and a CSA stream (``block``: the
+    replicas and rows of a partitioned read that ``r_mem`` and ``lits``
+    are)."""
     if generator is not None:
         g_c2c, g_csa = var.split_generator(generator, 2)
     else:
         g_c2c = g_csa = None
-    g_on, i_leak = conductances(r_mem, include, cfg, g_c2c, vcfg)
+    g_on, i_leak = conductances(r_mem, include, cfg, g_c2c, vcfg, block)
     i_col = column_currents_raw(g_on, i_leak, lits, mapping, cfg)
-    partial = csa_sense(i_col, cfg, g_csa, vcfg)             # [..., B, C, K]
+    partial = csa_sense(i_col, cfg, g_csa, vcfg, block)      # [..., B, C, K]
     return partial.amin(dim=-1)                               # AND over cols
 
 
@@ -215,13 +219,16 @@ def stacked_clause_outputs(
     generator: Optional[torch.Generator] = None,
     vcfg: var.VariationConfig = var.VariationConfig(),
     cfg: IMBUEConfig = IMBUEConfig(),
+    block: Optional[var.ReadBlock] = None,
 ) -> torch.Tensor:
     """Clause outputs ``[R, B, C]``: every replica reads the batch with its
-    own fresh C2C and CSA noise (the R axis is written out)."""
+    own fresh C2C and CSA noise (the R axis is written out).  For a
+    partitioned read ``r_stack`` and ``lits`` are this rank's ``block``
+    and the result is its ``[R_local, B_local, C]``."""
     c, l = include.shape
     mapping = CrossbarMapping(n_clauses=c, n_literals=l, width=cfg.width)
     return analog_clause_outputs_raw(r_stack, include, lits, mapping, cfg,
-                                     generator, vcfg)
+                                     generator, vcfg, block)
 
 
 def stacked_class_sums(

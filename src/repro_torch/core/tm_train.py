@@ -123,14 +123,16 @@ def _type1_delta(cl1: torch.Tensor, lit1: torch.Tensor,
 def _ta_delta_apply(state: torch.Tensor, lits: torch.Tensor,
                     clauses: torch.Tensor, sums: torch.Tensor,
                     y: torch.Tensor, draws: FeedbackDraws,
-                    cfg: TMConfig) -> torch.Tensor:
+                    cfg: TMConfig, rows: slice = slice(None)) -> torch.Tensor:
     """int8 state deltas ``[k, C, L]`` of ``k`` examples (Type I + II)
     against one state ``[C, L]``: ``lits [k, L]``, ``clauses [k, C]``,
-    ``sums [k, M]``, ``y [k]`` and their draws."""
+    ``sums [k, M]``, ``y [k]`` and their draws.  ``rows`` names the
+    clauses a block of the state holds (``core.tm_distributed``: the
+    state, ``clauses`` and the clause draws are then that block's)."""
     p_tgt, p_neg = _feedback_probs(sums, y, draws.q, cfg)
-    clause_class = torch.arange(cfg.n_clauses, device=state.device) \
-        // cfg.clauses_per_class                                    # [C]
-    pos = polarity(cfg, state.device) > 0                           # [C]
+    clause_class = (torch.arange(cfg.n_clauses, device=state.device)
+                    // cfg.clauses_per_class)[rows]                 # [C]
+    pos = (polarity(cfg, state.device) > 0)[rows]                   # [C]
     sel_tgt = (clause_class == y[:, None]) & (draws.u < p_tgt[:, None])
     sel_neg = (clause_class == draws.q[:, None]) & (draws.u < p_neg[:, None])
     type1 = (sel_tgt & pos) | (sel_neg & ~pos)                      # [k, C]

@@ -16,6 +16,12 @@ bands (int8 codes), and ``apply_fault_overlay`` pins stuck cells at the
 nominal means and ages the healthy ones by the retention drift, in the
 reference's op order, so the same resistances and mask give the same
 float32 bits.
+
+A read of a stack partitioned over a mesh computes one block of replicas
+and request rows on each rank (``ReadBlock``); its per-read draws are
+made at the whole read's shape from the same generator and cut to the
+block, so every rank draws the numbers a single-device read draws for its
+cells, at the cost of a whole-size draw a rank.
 """
 
 from __future__ import annotations
@@ -92,6 +98,34 @@ class VariationConfig:
         return VariationConfig(d2d=False, c2c=False, csa_offset=False)
 
 
+@dataclasses.dataclass(frozen=True)
+class ReadBlock:
+    """The block of one stacked read that a rank computes: replicas
+    ``[replica0, replica0 + R_local)`` of ``n_replicas`` and request rows
+    ``[row0, row0 + B_local)`` of ``n_rows``."""
+
+    n_replicas: int
+    replica0: int
+    n_rows: int
+    row0: int
+
+    def cut(self, full: torch.Tensor, local_shape) -> torch.Tensor:
+        """This block of ``full``, a draw at the whole read's shape: its
+        leading dimensions (replicas, then rows when present) cut to
+        ``local_shape``."""
+        idx = [slice(self.replica0, self.replica0 + local_shape[0])]
+        if full.ndim > 3:                       # [R, B, C, K]: rows too
+            idx.append(slice(self.row0, self.row0 + local_shape[1]))
+        return full[tuple(idx)]
+
+    def whole(self, local_shape) -> tuple:
+        """The whole read's shape of a draw whose block is
+        ``local_shape``."""
+        if len(local_shape) > 3:
+            return (self.n_replicas, self.n_rows, *local_shape[2:])
+        return (self.n_replicas, *local_shape[1:])
+
+
 # Lognormal sigma such that the published [min, max] range sits at ~3 sigma.
 _HRS_LOG_SIGMA = (math.log(HRS_MAX_OHM / HRS_MEAN_OHM)
                   + math.log(HRS_MEAN_OHM / HRS_MIN_OHM)) / 6.0
@@ -143,25 +177,39 @@ def sample_device_resistance(generator: Optional[torch.Generator],
     return torch.where(include, lrs, hrs)
 
 
+def _block_draw(draw, shape, block: Optional[ReadBlock]) -> torch.Tensor:
+    """``draw(shape)``, or for a ``block`` the whole read's draw cut to
+    it."""
+    if block is None:
+        return draw(tuple(shape))
+    return block.cut(draw(block.whole(tuple(shape))), tuple(shape))
+
+
 def apply_c2c(generator: torch.Generator, r_mem: torch.Tensor,
-              include: torch.Tensor, cfg: VariationConfig) -> torch.Tensor:
+              include: torch.Tensor, cfg: VariationConfig,
+              block: Optional[ReadBlock] = None) -> torch.Tensor:
     """Per-read multiplicative C2C excursion ``r * (1 + frac * u)`` with
-    ``u ~ U[-1, 1)``."""
+    ``u ~ U[-1, 1)`` (``r_mem`` the ``block`` of a partitioned read)."""
     if not cfg.c2c:
         return r_mem
     frac = torch.where(include, cfg.c2c_lrs_frac,
                        cfg.c2c_hrs_frac).to(torch.float32)
-    u = torch.rand(r_mem.shape, generator=generator, device=r_mem.device,
-                   dtype=torch.float32) * 2.0 - 1.0
+    u = _block_draw(lambda s: torch.rand(s, generator=generator,
+                                         device=r_mem.device,
+                                         dtype=torch.float32),
+                    r_mem.shape, block) * 2.0 - 1.0
     return r_mem * (1.0 + frac * u)
 
 
 def csa_offset(generator: torch.Generator, shape, cfg: VariationConfig,
-               device=None) -> torch.Tensor:
-    """Input-referred CSA offset voltage draw (V, float32)."""
+               device=None, block: Optional[ReadBlock] = None
+               ) -> torch.Tensor:
+    """Input-referred CSA offset voltage draw (V, float32), of ``shape``
+    or of the ``block`` of a partitioned read that ``shape`` is."""
     if not cfg.csa_offset:
         return torch.zeros(shape, dtype=torch.float32, device=device)
-    return cfg.csa_sigma_v * _normal(generator, shape, device)
+    return cfg.csa_sigma_v * _block_draw(
+        lambda s: _normal(generator, s, device), shape, block)
 
 
 def sample_fault_mask(generator: torch.Generator, shape, fcfg: FaultConfig,

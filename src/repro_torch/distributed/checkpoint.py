@@ -1,5 +1,5 @@
-"""Checkpoints with atomic commit and a content digest (port of the
-single-device part of ``repro.distributed.checkpoint``).
+"""Checkpoints with atomic commit, a content digest and elastic restore
+(port of ``repro.distributed.checkpoint``).
 
 Format, byte-compatible with the reference: one ``leaves.npz`` per save
 holding every leaf of a tree of dicts / lists / tuples under its path
@@ -16,8 +16,15 @@ and ``restore`` recomputes and verifies it, raising a typed error for a
 missing file, an unreadable manifest or a digest mismatch.  Checkpoints
 without a digest still restore.
 
-Leaves restore as tensors on ``device`` (default ``cuda``).  Re-sharding
-onto a mesh is not ported.
+Leaves are saved whole, keyed by path and never by mesh coordinate, so a
+checkpoint written on N ranks restores on M.  Saving a tree with
+``DTensor`` leaves gathers them (a collective: every rank calls ``save``),
+and in a process group of more than one rank only rank 0 writes, the
+others waiting at a barrier until the save is committed.  Leaves restore
+as tensors on ``device`` (default ``cuda``), or with ``shardings`` (a
+tree of ``sharding.NamedSharding`` matching ``like``, e.g.
+``sharding.tree_shardings``) as ``DTensor``s of this rank's blocks on
+their meshes.
 """
 
 from __future__ import annotations
@@ -30,8 +37,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 
 DIGEST_KEY = "content_digest"
 
@@ -103,8 +112,18 @@ def _unflatten_into(tree, flat: dict):
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        return sharding.gather(leaf.detach()).cpu().numpy()
     return np.asarray(leaf)
+
+
+def _place(tree, shardings):
+    """``tree``'s leaves placed per the matching ``shardings`` leaves (a
+    ``None`` sharding leaves its leaf as it is)."""
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, s) for v, s in zip(tree, shardings))
+    return tree if shardings is None else shardings.place(tree)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: dict = None,
@@ -112,13 +131,23 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: dict = None,
     """Atomic checkpoint save of ``tree`` (tensors, arrays or scalars as
     leaves); returns the committed directory.  Keeps the newest ``keep``
     steps."""
+    final = os.path.join(ckpt_dir, f"step-{step:09d}")
+    arrays = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    ranks = sharding.world_size()
+    if ranks == 1 or dist.get_rank() == 0:
+        _write(ckpt_dir, step, final, arrays, extra, keep)
+    if ranks > 1:
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir: str, step: int, final: str, arrays: dict,
+           extra: Optional[dict], keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"tmp-{step}")
-    final = os.path.join(ckpt_dir, f"step-{step:09d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
     np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
     extra = dict(extra or {})
     extra[DIGEST_KEY] = content_digest(arrays)
@@ -130,7 +159,6 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: dict = None,
         shutil.rmtree(final)
     os.rename(tmp, final)                       # atomic commit
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int):
@@ -148,9 +176,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: int, like: Any,
-            device: DeviceLike = None) -> Tuple[Any, dict]:
+            device: DeviceLike = None,
+            shardings: Any = None) -> Tuple[Any, dict]:
     """``(tree, manifest)``: the leaves of step ``step`` in the structure
-    of ``like``, as tensors on ``device``, after the digest check."""
+    of ``like``, as tensors on ``device``, after the digest check; with
+    ``shardings`` placed on their meshes (the elastic path: any mesh
+    works)."""
     device = resolve_device(device)
     path = os.path.join(ckpt_dir, f"step-{step:09d}")
     leaves_path = os.path.join(path, "leaves.npz")
@@ -184,13 +215,17 @@ def restore(ckpt_dir: str, step: int, like: Any,
                 "restore it")
     tensors = {k: torch.from_numpy(np.array(v)).to(device)
                for k, v in flat.items()}
-    return _unflatten_into(like, tensors), manifest
+    tree = _unflatten_into(like, tensors)
+    if shardings is not None:
+        tree = _place(tree, shardings)
+    return tree, manifest
 
 
-def restore_latest(ckpt_dir: str, like: Any, device: DeviceLike = None):
+def restore_latest(ckpt_dir: str, like: Any, device: DeviceLike = None,
+                   shardings: Any = None):
     """``(step, tree, manifest)`` of the newest committed save, or None."""
     step = latest_step(ckpt_dir)
     if step is None:
         return None
-    tree, manifest = restore(ckpt_dir, step, like, device)
+    tree, manifest = restore(ckpt_dir, step, like, device, shardings)
     return step, tree, manifest

@@ -38,8 +38,13 @@ reference draws it in jnp: the deviation plane becomes
 tiers read the programmed resistances: the conductance and leak planes
 ``[R, C, L]`` (with the read's C2C draw, when a generator is given) are
 built here in the reference's op order (``core.imbue.conductances``)
-before the one launch.  The CSA offset is not modelled (scalar
-reference); capability selection routes such reads to ``analog-torch``.
+before the one launch.  For a stack partitioned over a mesh the stack
+wrappers take this rank's replicas and ``block``
+(``variations.ReadBlock``): the C2C draw is made at the whole read's
+shape and cut to those replicas, so each rank's launch computes the
+single-device read's rows for its replicas, bit for bit.  The CSA
+offset is not modelled (scalar reference); capability selection routes
+such reads to ``analog-torch``.
 
 No tile padding is needed: the CUDA kernel masks the ragged batch and
 clause edges itself, and the word padding past ``l_valid`` is masked by
@@ -116,15 +121,17 @@ def plane_scalars(icfg: IMBUEConfig, l_valid: int) -> PlaneScalars:
 
 def c2c_deviation(generator: torch.Generator, plane_index: torch.Tensor,
                   plane_dev: Optional[torch.Tensor], n_replicas: int,
-                  vcfg: var.VariationConfig, l_valid: int) -> torch.Tensor:
+                  vcfg: var.VariationConfig, l_valid: int,
+                  block: Optional[var.ReadBlock] = None) -> torch.Tensor:
     """One read's deviation plane ``[R, C, L]`` with a fresh C2C draw per
-    cell of every replica: ``apply_c2c(r_nom + dev) - r_nom``."""
+    cell of every replica: ``apply_c2c(r_nom + dev) - r_nom`` (the
+    ``block`` of a partitioned read: ``n_replicas`` are its own)."""
     include = bitpack.unpack_bits(plane_index, l_valid).to(torch.bool)
     r_nom = torch.where(include, var.LRS_MEAN_OHM,
                         var.HRS_MEAN_OHM).to(torch.float32)
     r = r_nom if plane_dev is None else r_nom + plane_dev
     r = r.expand(n_replicas, *include.shape)
-    return var.apply_c2c(generator, r, include, vcfg) - r_nom
+    return var.apply_c2c(generator, r, include, vcfg, block) - r_nom
 
 
 def imbue_class_sums_stack_planes(
@@ -140,6 +147,7 @@ def imbue_class_sums_stack_planes(
     n_replicas: int,
     device: DeviceLike = None,
     tiles: Tiles = None,
+    block: Optional[var.ReadBlock] = None,
 ) -> torch.Tensor:
     """Plane-packed replica-stack inference -> ``[R, B, M]`` int32.
 
@@ -147,7 +155,8 @@ def imbue_class_sums_stack_planes(
     nominal stack with no C2C read is ONE launch for a single replica,
     expanded over R — replicas are identical by construction.  A C2C
     read (``generator`` given and ``vcfg.c2c``) draws fresh noise for
-    every replica before the launch.
+    every replica before the launch (``block``: this rank's part of a
+    partitioned read, module docstring).
     """
     vcfg = vcfg or var.VariationConfig.nominal()
     device = resolve_device(device)
@@ -160,7 +169,7 @@ def imbue_class_sums_stack_planes(
                          f"expected {n_replicas}")
     if generator is not None and vcfg.c2c:
         dev = c2c_deviation(generator, plane_index, dev, n_replicas, vcfg,
-                            l_valid)
+                            l_valid, block)
     pol = polarity_matrix(cfg, device=device)
     pol = pol * _nonempty_from_packed(plane_index)[:, None].to(torch.int32)
     out = imbue_infer_planes(
@@ -282,11 +291,12 @@ def _stack_sums(kernel, lits: torch.Tensor, r_stack: torch.Tensor,
                 include: torch.Tensor, icfg: IMBUEConfig, cfg: TMConfig,
                 generator: Optional[torch.Generator],
                 vcfg: Optional[var.VariationConfig],
-                tiles: Tiles) -> torch.Tensor:
+                tiles: Tiles,
+                block: Optional[var.ReadBlock]) -> torch.Tensor:
     vcfg = vcfg or var.VariationConfig.nominal()
     include = include.to(device=lits.device, dtype=torch.bool)
     g_on, i_leak = conductances(r_stack.to(lits.device), include, icfg,
-                                generator, vcfg)           # [R, C, L] each
+                                generator, vcfg, block)    # [R, C, L] each
     return _dense_class_sums(kernel, lits, g_on, i_leak, include,
                              icfg.v_read, icfg.r_divider,
                              icfg.reference_voltage(), cfg, icfg.width,
@@ -304,13 +314,15 @@ def imbue_class_sums_stack(
     vcfg: Optional[var.VariationConfig] = None,
     device: DeviceLike = None,
     tiles: Tiles = None,
+    block: Optional[var.ReadBlock] = None,
 ) -> torch.Tensor:
     """Replica-stack inference -> ``[R, B, M]`` int32 in ONE launch (R is
     a grid axis of ``imbue_infer``).  The conductance planes are built
     eagerly in ``[R, C, L]`` first; a C2C read (``generator`` given and
-    ``vcfg.c2c``) draws fresh noise for every cell of every replica."""
+    ``vcfg.c2c``) draws fresh noise for every cell of every replica
+    (``block``: this rank's part of a partitioned read)."""
     return _stack_sums(imbue_infer, _lits(lits, device), r_stack, include,
-                       icfg, cfg, generator, vcfg, tiles)
+                       icfg, cfg, generator, vcfg, tiles, block)
 
 
 def imbue_class_sums_stack_packed(
@@ -324,12 +336,13 @@ def imbue_class_sums_stack_packed(
     vcfg: Optional[var.VariationConfig] = None,
     device: DeviceLike = None,
     tiles: Tiles = None,
+    block: Optional[var.ReadBlock] = None,
 ) -> torch.Tensor:
     """Packed-literal replica-stack inference -> ``[R, B, M]`` int32 in
     ONE launch of ``imbue_infer_packed``; noise as
     :func:`imbue_class_sums_stack`."""
     return _stack_sums(imbue_infer_packed, _litw(litw, device), r_stack,
-                       include, icfg, cfg, generator, vcfg, tiles)
+                       include, icfg, cfg, generator, vcfg, tiles, block)
 
 
 # ------------------------------------------- digital / coalesced, fused

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 import torch
@@ -47,6 +48,7 @@ from repro_torch.core import tm
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import (FaultConfig, VariationConfig,
                                          split_generator)
+from repro_torch.launch import hostdev
 from repro_torch.serve import (AsyncServeEngine, BatcherConfig, EngineConfig,
                                HealthConfig, RepairConfig, RepairPolicy,
                                ServeEngine)
@@ -75,6 +77,18 @@ def sparse_ta(cfg, generator: torch.Generator) -> torch.Tensor:
 
 
 def main(argv=None):
+    """The CLI; with ``--host-devices N``, on N spawned host ranks (the
+    exit code then)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    code = hostdev.run_main(main, argv)
+    if code is not None:
+        return code
+    with hostdev.launched_group():
+        return _chaos(argv)
+
+
+def _chaos(argv):
+    print = hostdev.rank0_print
     ap = argparse.ArgumentParser()
     ap.add_argument("--classes", type=int, default=6)
     ap.add_argument("--clauses", type=int, default=10,
@@ -95,6 +109,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain versions)")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run on N spawned host ranks (one gloo group), "
+                         "each the whole program on the same seeds")
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke: tiny model, one full injure -> "

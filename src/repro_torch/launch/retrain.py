@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import tempfile
+import sys
 
 import numpy as np
 import torch
@@ -44,6 +44,7 @@ from repro_torch.core.booleanize import StreamingBooleanizer, fit_quantile
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import VariationConfig
 from repro_torch.data.tm_datasets import kws6_windows, synthetic_kws6
+from repro_torch.launch import hostdev
 from repro_torch.serve import (AsyncServeEngine, BatcherConfig, EngineConfig,
                                HotSwapper, ServeEngine, SwapConfig)
 from repro_torch.train.online import OnlineTrainer, OnlineTrainerConfig
@@ -65,6 +66,18 @@ def _pump_traffic(engine, xs, rng, n):
 
 
 def main(argv=None):
+    """The CLI; with ``--host-devices N``, on N spawned host ranks (the
+    exit code then)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    code = hostdev.run_main(main, argv)
+    if code is not None:
+        return code
+    with hostdev.launched_group():
+        return _retrain(argv)
+
+
+def _retrain(argv):
+    print = hostdev.rank0_print
     ap = argparse.ArgumentParser()
     ap.add_argument("--mels", type=int, default=12)
     ap.add_argument("--bits", type=int, default=4)
@@ -88,6 +101,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device for training and serving (default: "
                          "the CUDA card; 'cpu' runs the plain versions)")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run on N spawned host ranks (one gloo group), "
+                         "each the whole program on the same seeds")
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke: tiny model, one live "
@@ -107,7 +123,8 @@ def main(argv=None):
         args.min_agreement = 0.3
     device = resolve_device(args.device)
 
-    ckpt_dir = args.checkpoint_dir or tempfile.mkdtemp(prefix="imbue-swap-")
+    ckpt_dir = (args.checkpoint_dir
+                or hostdev.shared_tempdir(prefix="imbue-swap-"))
 
     # ------------------------------------------------ data + first model
     n_feat = args.window * args.mels * args.bits

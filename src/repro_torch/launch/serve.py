@@ -19,12 +19,24 @@ so the engine falls back, loudly, to the eager ``analog-torch`` backend;
       --nominal --batch 128
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --epochs 1 --requests 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --host-devices 4 --mesh 2x2 --replicas 4 --async-serve  # sharded
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.serve --mesh 2x2 \\
+      --replicas 4 --nominal          # four ranks on the card, over gloo
+
+``--mesh RxB`` shards the pool over a ``(replica, batch)`` mesh of R x B
+ranks: ``--host-devices N`` spawns N host ranks here, and under
+``torch.distributed.run`` the launcher's ranks join a gloo group.  Every
+rank trains and serves the same model on the same requests; rank 0
+prints.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 import torch
@@ -34,6 +46,9 @@ from repro_torch.core import tm, tm_train
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import VariationConfig
 from repro_torch.data.tm_datasets import synthetic_image_dataset
+from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.launch import hostdev
+from repro_torch.launch.mesh import parse_mesh_spec
 from repro_torch.launch.stream import ANALOG_BACKENDS
 from repro_torch.serve import (AsyncServeEngine, BatcherConfig, EngineConfig,
                                ServeEngine)
@@ -51,13 +66,27 @@ def build_engine(args, cfg: TMConfig, ta: torch.Tensor) -> ServeEngine:
         backend=args.backend,
         packed=args.packed,
         max_in_flight=args.max_in_flight)
+    device = resolve_device(args.device)
+    spec = getattr(args, "mesh", None)
+    mesh = parse_mesh_spec(spec, device_type=device.type) if spec else None
     cls = AsyncServeEngine if args.async_serve else ServeEngine
     return cls.from_ta_state(ta, cfg, n_replicas=args.replicas, seed=3,
-                             vcfg=vcfg, ecfg=ecfg,
-                             device=resolve_device(args.device))
+                             vcfg=vcfg, ecfg=ecfg, device=device, mesh=mesh)
 
 
 def main(argv=None):
+    """The CLI; with ``--host-devices N``, on N spawned host ranks (the
+    exit code then)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    code = hostdev.run_main(main, argv)
+    if code is not None:
+        return code
+    with hostdev.launched_group():
+        return _serve(argv)
+
+
+def _serve(argv):
+    print = hostdev.rank0_print
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--batch", type=int, default=64,
@@ -72,6 +101,13 @@ def main(argv=None):
                     default=True,
                     help="32-bit packed literal wire format (default on; "
                          "--no-packed forces the dense uint8 datapath)")
+    ap.add_argument("--mesh", default=None, metavar="RxB",
+                    help="shard the replica pool over a (replica, batch) "
+                         "mesh of R x B ranks, e.g. '4' or '2x2'; the "
+                         "[R, C, L] stack splits over 'replica'")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run on N spawned host ranks (one gloo group) so "
+                         "that --mesh runs without a launcher")
     ap.add_argument("--async-serve", action="store_true",
                     help="AsyncServeEngine: keep dispatches in flight so "
                          "host batching overlaps device compute")
@@ -125,6 +161,10 @@ def main(argv=None):
         from repro_torch.serve import snapshot_pool
         path = snapshot_pool(engine.pool, args.checkpoint_dir)
         print(f"[serve] pool v{engine.version} snapshot -> {path}")
+    if engine.mesh is not None:
+        print(f"[serve] pool sharded over mesh {mesh_shape(engine.mesh)} "
+              f"({engine.mesh.size()} ranks); "
+              f"async={'on' if args.async_serve else 'off'}")
     print(f"[serve] buckets {list(bcfg.bucket_sizes)} "
           f"({'tuned for ' + bcfg.tuned_for if bcfg.tuned_for else 'static'}"
           f"), kernel tiles "

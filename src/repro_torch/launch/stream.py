@@ -28,12 +28,17 @@ tuning table has no entry for the model's shape bucket on this device
       --latency-sessions 4
   PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \\
       --sessions 2 --frames 32 --epochs 1
+  PYTHONPATH=src python -m repro_torch.launch.stream --device cpu \\
+      --async-serve --host-devices 4 --mesh 4   # sharded + overlapped
+
+``--mesh`` and ``--host-devices`` work as in ``launch.serve``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import numpy as np
 import torch
@@ -47,6 +52,9 @@ from repro_torch.data.tm_datasets import (kws6_windows,
                                           sensor_anomaly_windows,
                                           synthetic_kws6,
                                           synthetic_sensor_anomaly)
+from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.launch import hostdev
+from repro_torch.launch.mesh import parse_mesh_spec
 from repro_torch.serve import (QOS_LATENCY, AsyncServeEngine, BatcherConfig,
                                EngineConfig, ServeEngine, StreamConfig,
                                StreamServer)
@@ -71,6 +79,18 @@ def _frames(anomaly: bool, seed: int, n: int, n_frames: int, n_ch: int):
 
 
 def main(argv=None):
+    """The CLI; with ``--host-devices N``, on N spawned host ranks (the
+    exit code then)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    code = hostdev.run_main(main, argv)
+    if code is not None:
+        return code
+    with hostdev.launched_group():
+        return _stream(argv)
+
+
+def _stream(argv):
+    print = hostdev.rank0_print
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="kws",
                     choices=("kws", "anomaly"),
@@ -110,6 +130,11 @@ def main(argv=None):
                     help="measure kernel tiles and a bucket ladder on first "
                          "sight of this model's shape bucket on this device "
                          "(default on)")
+    ap.add_argument("--mesh", default=None, metavar="RxB",
+                    help="shard the replica pool over a (replica, batch) "
+                         "mesh of R x B ranks")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="run on N spawned host ranks (one gloo group)")
     ap.add_argument("--async-serve", action="store_true")
     ap.add_argument("--max-in-flight", type=int, default=2)
     ap.add_argument("--checkpoint-dir", default=None,
@@ -161,9 +186,12 @@ def main(argv=None):
         batcher=BatcherConfig.for_max_batch(args.batch),
         routing=args.routing, backend=args.backend, packed=args.packed,
         max_in_flight=args.max_in_flight, lazy_tune=args.lazy_tune)
+    mesh = (parse_mesh_spec(args.mesh, device_type=device.type)
+            if args.mesh else None)
     cls = AsyncServeEngine if args.async_serve else ServeEngine
     engine = cls.from_ta_state(ta, cfg, n_replicas=args.replicas, seed=4,
-                               vcfg=vcfg, ecfg=ecfg, device=device)
+                               vcfg=vcfg, ecfg=ecfg, device=device,
+                               mesh=mesh)
     tuning = engine.tuning or {}
     print(f"[stream] pool of {args.replicas} crossbars "
           f"(pool version {engine.version}), routing={args.routing}, "
@@ -177,6 +205,9 @@ def main(argv=None):
     if engine.selection.fell_back:
         print(f"[stream] BACKEND FALLBACK: "
               f"{engine.selection.fallback_reason}")
+    if engine.mesh is not None:
+        print(f"[stream] pool sharded over mesh {mesh_shape(engine.mesh)} "
+              f"({engine.mesh.size()} ranks)")
 
     # ------------------------------------------------- streaming sessions
     scfg = StreamConfig(window=args.window, hop=args.hop, vote=args.vote,

@@ -66,11 +66,37 @@ Live operations, between dispatches:
   quarantined from routing and the ensemble vote, never the last healthy
   one, and readmitted after repair (``serve/swap.py``'s ``RepairPolicy``).
 * ``inject_faults`` — the chaos surface: hurt the serving pool in place.
+
+On a mesh (``mesh=``, ``launch.mesh.make_replica_mesh``) the pool is
+placed with ``pool.shard(mesh)`` (``sharding.replica_rules``) before
+anything reads it: a replica stack's ``[R, C, L]`` resistances split
+over ``replica``, a coalesced pool's weight columns too.  There is one
+process a rank, and every rank builds the same engine from the same seed
+and submits the same requests.  A partitioned state is plane-packed
+block by block and served by the same kernel ladder as on one device
+(``CAP_SHARDED``): each rank launches the kernel on its own replicas
+(or class columns) and on its request rows, which split over ``batch``
+where the bucket divides (``_place_lits``).  The ``[R_local, B_local,
+M]`` block comes to the host like any result; ``_collect`` gathers the
+blocks over the mesh and only then votes or takes the argmax, so an
+issue makes no collective and no synchronization.  With more than one
+rank, the cut decisions are rank 0's: at every cut, one broadcast
+carries rank 0's clock reading and the enqueue stamps (and batching and
+request deadlines) of the requests submitted since the last cut, and
+every rank reaps and cuts on those numbers; the async engine collects
+early only the dispatches that are ready on every rank (one all-reduce a
+pump).  So all ranks cut the same batches and call their collectives in
+one order.  Every other clock reading is the rank's own; rank 0's
+metrics are the ones its entry points report.  ``summary()`` splits a
+rank's host time on the mesh into ``agree_s`` (the cut broadcasts and
+readiness all-reduces) and ``gather_s`` (the gathers at collect), beside
+``issue_s`` (the host time of every issue).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import warnings
 from collections import deque
@@ -82,13 +108,14 @@ import torch
 from repro_torch import api
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.api.registry import (CAP_FUSED_KERNEL, CAP_PACKED_IO,
-                                      CAP_PACKED_PLANES)
+                                      CAP_PACKED_PLANES, CAP_SHARDED)
 from repro_torch.core import tm
 from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import (FaultConfig, VariationConfig,
                                          split_generator)
+from repro_torch.distributed import sharding
 from repro_torch.kernels.autotune import ensure_tuning, tiles_fit
 from repro_torch.serve.batching import (QOS_BULK, Batch, BatcherConfig,
                                         DynamicBatcher, QueueFull,
@@ -233,8 +260,11 @@ class InFlight:
     accounting needs."""
 
     batch: Batch
-    sums: torch.Tensor               # [bucket, M] int32, host
-    preds: torch.Tensor              # [bucket] host
+    # [bucket, M] int32 on the host; for a partitioned read this rank's
+    # block of the backend's sums, rows first, gathered and reduced at
+    # collect (preds None until then).
+    sums: torch.Tensor
+    preds: Optional[torch.Tensor]    # [bucket] host
     replica: int                     # serving chip, ENSEMBLE or CANARY
     t_dispatch: float                # clock at dispatch start
     t_issue: float                   # clock right after the launches
@@ -255,6 +285,10 @@ class InFlight:
     event: Optional[object] = None
     device_tensors: Tuple[torch.Tensor, ...] = ()
     slot: Optional[_HostSlot] = None
+    # A partitioned read only: (mesh, placements, the block's row
+    # dimension) of its sums, and the vote mask on the host.
+    layout: Optional[tuple] = None
+    mask: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -280,9 +314,13 @@ class ServeEngine:
         generator: Optional[torch.Generator] = None,
         clock: Callable[[], float] = time.monotonic,
         device: DeviceLike = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
-        pool = pool.to(self.device)
+        self.mesh = mesh
+        # Ranks must agree on every batch cut and on when to collect.
+        self._multi_rank = mesh is not None and sharding.world_size() > 1
+        pool = self._place(pool.to(self.device))
         self.tm_cfg = tm_cfg     # a CoalescedConfig for a coalesced pool
         self.ecfg = ecfg
         self.clock = clock
@@ -316,7 +354,10 @@ class ServeEngine:
         fused = CAP_FUSED_KERNEL in self.backend.capabilities
         self.tuning: Optional[dict] = api.get_tuning(
             self.backend.name, shape_key=self.shape_key, device=self.device)
-        if self.tuning is None and ecfg.lazy_tune and fused:
+        # Not on a mesh of several ranks: each would time its own sweep,
+        # and ranks that pick different ladders cut different batches.
+        if self.tuning is None and ecfg.lazy_tune and fused and \
+                not self._multi_rank:
             self.tuning = ensure_tuning(self.backend, tm_cfg,
                                         device=self.device)
         tiles = dict((self.tuning or {}).get("tiles") or {})
@@ -337,15 +378,23 @@ class ServeEngine:
                                            self.backend.name)
         self.batcher = DynamicBatcher(bcfg, packed=self.packed_io)
         self._set_pool(pool, state)
-        self._mask_one = torch.ones(1, dtype=torch.bool, device=self.device)
-        self._healthy_mask = torch.ones(pool.n_replicas, dtype=torch.bool,
-                                        device=self.device)
+        self._mask_one_host = torch.ones(1, dtype=torch.bool)
+        self._mask_one = self._mask_one_host.to(self.device)
+        self._healthy_mask_host = torch.ones(pool.n_replicas,
+                                             dtype=torch.bool)
+        self._healthy_mask = self._healthy_mask_host.to(self.device)
         self._next_rid = 0
         self._submitted: List[int] = []
         self._results: Dict[int, Response] = {}
         self._taken: set = set()
         self._discard: set = set()
         self._blocked_s = 0.0            # cumulative blocked collect time
+        self._gather_s = 0.0             # host seconds gathering blocks
+        self._agree_s = 0.0              # host seconds agreeing on cuts
+        self._issue_s = 0.0              # host seconds issuing dispatches
+        # Several ranks: the requests submitted since the last cut, whose
+        # stamps the next cut's broadcast replaces with rank 0's.
+        self._unagreed: List = []
         self._free_slots: List[_HostSlot] = []   # CUDA host slots, idle
         self._n_slots = 0
         self._canary: Optional[_Canary] = None
@@ -371,17 +420,19 @@ class ServeEngine:
         ecfg: EngineConfig = EngineConfig(),
         clock: Callable[[], float] = time.monotonic,
         device: DeviceLike = None,
+        mesh=None,
     ) -> "ServeEngine":
         """Program a fresh pool from TA state and wrap an engine; ``seed``
         feeds one generator, split into a programming and a serving
-        stream."""
+        stream.  Programming comes before the placement on ``mesh``, so
+        every rank's shard holds the single-device draws."""
         device = resolve_device(device)
         gen = torch.Generator(device=device).manual_seed(int(seed))
         g_prog, g_serve = split_generator(gen, 2)
         include = tm.include_mask(ta_state.to(device), tm_cfg)
         pool = program_replica_pool(include, g_prog, n_replicas, vcfg, icfg)
         return cls(pool, tm_cfg, ecfg, generator=g_serve, clock=clock,
-                   device=device)
+                   device=device, mesh=mesh)
 
     @classmethod
     def from_coalesced(
@@ -394,24 +445,31 @@ class ServeEngine:
         generator: Optional[torch.Generator] = None,
         clock: Callable[[], float] = time.monotonic,
         device: DeviceLike = None,
+        mesh=None,
     ) -> "ServeEngine":
         """Serve a coalesced model: one shared clause pool, the weighted
         digital tail as the combine matrix.  The engine surface is
         unchanged; the pool behind it is a single-chip
-        :class:`~repro_torch.serve.replica.CoalescedPool`."""
+        :class:`~repro_torch.serve.replica.CoalescedPool`.  A ``mesh``
+        splits its weight columns over ``replica`` (class-parallel)."""
         device = resolve_device(device)
         pool = CoalescedPool(ta_state=torch.as_tensor(ta_state).to(device),
                              weights=torch.as_tensor(weights).to(device),
                              cfg=cfg)
         return cls(pool, cfg, ecfg, generator=generator, clock=clock,
-                   device=device)
+                   device=device, mesh=mesh)
+
+    def _place(self, pool):
+        """``pool`` placed on this engine's mesh (itself off a mesh)."""
+        return pool if self.mesh is None else pool.shard(self.mesh)
 
     def _state_of(self, pool):
         """The pool's backend state in this engine's wire format."""
         return self._wire_format(pool.state(self.tm_cfg))
 
     def _wire_format(self, state):
-        """``state`` packed as this engine's ``EngineConfig`` asks."""
+        """``state`` packed as this engine's ``EngineConfig`` asks (a
+        partitioned state block by block)."""
         if self.ecfg.packed:
             state = state.pack()
             if self.ecfg.pack_planes:
@@ -437,13 +495,24 @@ class ServeEngine:
         self._resident_slice = _resident_model_nbytes(self._slices[0],
                                                       self.backend)
 
+    def _read(self, state, lits: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The backend's sums of one batch: ``[R, B, M]`` or ``[B, M]``,
+        or this rank's block of them for a partitioned read."""
+        return self.backend.fn(state, lits, generator, **self._kernel_opts)
+
     def _forward(self, state, lits: torch.Tensor,
                  generator: Optional[torch.Generator], mask: torch.Tensor):
-        """Backend forward + prediction for one batch: ``[B, M]`` sums and
-        ``[B]`` predictions (summed/voted over the healthy chips in
-        ensemble mode)."""
-        sums = self.backend.fn(state, lits, generator,     # [R, B, M] or
-                               **self._kernel_opts)        # [B, M]
+        """Backend forward + prediction for one batch, gathered at once:
+        ``[B, M]`` sums and ``[B]`` predictions (summed/voted over the
+        healthy chips in ensemble mode)."""
+        return self._reduce(
+            sharding.gather(self._read(state, lits, generator)), mask)
+
+    def _reduce(self, sums: torch.Tensor, mask: torch.Tensor):
+        """``[R, B, M]`` or ``[B, M]`` sums -> ``([B, M] sums, [B]
+        predictions)``: the vote over the chips of ``mask`` in ensemble
+        mode, the one chip's argmax otherwise."""
         if sums.ndim == 3:                       # replica-stacked output
             if self.ecfg.routing == "ensemble":
                 preds = ensemble_vote(sums, self.ecfg.ensemble_mode,
@@ -470,6 +539,18 @@ class ServeEngine:
         else:
             x = x.to(self.device)
         return x if packed else tm.literals(x)
+
+    def _place_lits(self, lits: torch.Tensor) -> torch.Tensor:
+        """The batch operand on the mesh: rows split over the ``batch``
+        axis when the bucket divides and the backend reads partitioned
+        operands (data-parallel reads), whole otherwise.  No
+        communication."""
+        if self.mesh is None or CAP_SHARDED not in self.backend.capabilities:
+            return lits
+        batch = sharding.replica_rules(self.mesh).batch
+        sh = sharding.NamedSharding(self.mesh, sharding.fit_spec(
+            tuple(lits.shape), self.mesh, sharding.P(batch)))
+        return sh.place(lits) if sh.partitions else lits
 
     def _max_outstanding(self) -> int:
         """Dispatches this engine may have issued and not yet collected."""
@@ -520,8 +601,10 @@ class ServeEngine:
                 "raise the limit")
         rid = self._next_rid
         self._next_rid += 1
-        self.batcher.submit(rid, x, self.clock(), deadline_s=deadline_s,
-                            qos=qos)
+        req = self.batcher.submit(rid, x, self.clock(),
+                                  deadline_s=deadline_s, qos=qos)
+        if self._multi_rank:
+            self._unagreed.append(req)
         self._submitted.append(rid)
         return rid
 
@@ -554,13 +637,35 @@ class ServeEngine:
         self._prune_consumed()
         served = 0
         while True:
-            now = self.clock()
+            now = self._cut_clock()
             self._reap_expired(now)
             batch = self.batcher.cut(now, force=force)
             if batch is None:
                 return served
             self._dispatch(batch)
             served += batch.n_valid
+
+    def _cut_clock(self) -> float:
+        """The clock reading a cut decides on.  On several ranks it is rank
+        0's, broadcast in one collective with rank 0's stamps of the
+        requests submitted since the last cut (enqueue time, batching
+        deadline, expiry), which replace this rank's own: every rank then
+        reaps and cuts on the same numbers."""
+        now = self.clock()
+        if not self._multi_rank:
+            return now
+        t0 = time.perf_counter()
+        mine = [now]
+        for req in self._unagreed:
+            mine += [req.t_enqueue, req.deadline,
+                     math.nan if req.expiry is None else req.expiry]
+        agreed = sharding.broadcast_values(mine)
+        for i, req in enumerate(self._unagreed):
+            req.t_enqueue, req.deadline, expiry = agreed[1 + 3 * i:4 + 3 * i]
+            req.expiry = None if math.isnan(expiry) else expiry
+        self._unagreed.clear()
+        self._agree_s += time.perf_counter() - t0
+        return agreed[0]
 
     def drain(self) -> List[Response]:
         """Force-serve everything queued and collect everything in flight;
@@ -624,6 +729,7 @@ class ServeEngine:
     def _issue(self, batch: Batch) -> InFlight:
         """Launch one batch's forward without waiting for it."""
         t_dispatch = self.clock()
+        t0 = time.perf_counter()
         slot = self._take_slot()
         try:
             return self._launch(batch, slot, t_dispatch)
@@ -633,10 +739,13 @@ class ServeEngine:
                 # allocator keeps its memory until that copy is done).
                 self._n_slots -= 1
             raise
+        finally:
+            self._issue_s += time.perf_counter() - t0
 
     def _launch(self, batch: Batch, slot: Optional[_HostSlot],
                 t_dispatch: float) -> InFlight:
-        lits = self._device_lits(batch.x, batch.packed, slot)
+        lits = self._place_lits(self._device_lits(batch.x, batch.packed,
+                                                  slot))
         generator = self._read_generator()
         if self.selection.fell_back:
             self.metrics.note_forward_fallback(
@@ -667,12 +776,12 @@ class ServeEngine:
             resident = (_resident_model_nbytes(canary.state, self.backend)
                         + (self._resident_full if ensemble
                            else self._resident_slice))
-            return self._in_flight(batch, slot, sums, preds, CANARY,
-                                   t_dispatch, canary.version, resident,
-                                   shadow)
+            return self._in_flight(batch, slot, (sums, preds, None),
+                                   CANARY, t_dispatch, canary.version,
+                                   resident, shadow)
         if ensemble:
-            sums, preds = self._forward(self.state, lits, generator,
-                                        self._healthy_mask)
+            raw = self._read(self.state, lits, generator)
+            mask, mask_host = self._healthy_mask, self._healthy_mask_host
             replica = ENSEMBLE
             # Only voting chips count as load: a quarantined chip's sums
             # are computed but masked out of the vote.
@@ -681,37 +790,53 @@ class ServeEngine:
             resident = self._resident_full
         else:
             replica = self.router.pick(self.ecfg.routing)
-            sums, preds = self._forward(self._slices[replica], lits,
-                                        generator, self._mask_one)
+            raw = self._read(self._slices[replica], lits, generator)
+            mask, mask_host = self._mask_one, self._mask_one_host
             self.router.note_dispatch(replica, batch.bucket)
             resident = self._resident_slice
-        return self._in_flight(batch, slot, sums, preds, replica,
-                               t_dispatch, self.pool.version, resident)
+        if sharding.partitioned(raw):
+            # This rank's block, rows first; the gather and the vote wait
+            # for collect, so the issue makes no collective.
+            rows = raw.ndim - 2
+            results = (raw.to_local().movedim(rows, 0), None,
+                       (raw.device_mesh, raw.placements, rows))
+        else:
+            results = (*self._reduce(raw, mask), None)
+        return self._in_flight(batch, slot, results, replica, t_dispatch,
+                               self.pool.version, resident, mask=mask_host)
 
     def _in_flight(self, batch: Batch, slot: Optional[_HostSlot],
-                   sums: torch.Tensor, preds: torch.Tensor, replica: int,
-                   t_dispatch: float, version: int, resident: int,
-                   shadow: Optional[torch.Tensor] = None) -> InFlight:
-        """Package one issue.  On a CUDA device the results start their
-        way into ``slot`` without blocking, and an event is recorded
-        behind the copies on the current stream; on the CPU the tensors
-        are the results."""
-        dev = tuple(t for t in (sums, preds, shadow) if t is not None)
+                   results: tuple, replica: int, t_dispatch: float,
+                   version: int, resident: int,
+                   shadow: Optional[torch.Tensor] = None,
+                   mask: Optional[torch.Tensor] = None) -> InFlight:
+        """Package one issue: ``results`` is ``(sums, preds, layout)``,
+        ``layout`` set for a partitioned read's block (no preds yet).  On
+        a CUDA device the results start their way into ``slot`` without
+        blocking, and an event is recorded behind the copies on the
+        current stream; on the CPU the tensors are the results."""
+        sums, preds, layout = results
+        named = {"block" if layout else "sums": sums, "preds": preds,
+                 "shadow": shadow}
+        dev = {k: t for k, t in named.items() if t is not None}
         event = None
         if slot is not None:
-            hosts = [slot.buffer(name, t).copy_(t, non_blocking=True)
-                     for name, t in zip(("sums", "preds", "shadow"), dev)]
+            hosts = {k: slot.buffer(k, t).copy_(t, non_blocking=True)
+                     for k, t in dev.items()}
             event = slot.event
             event.record()
+            dev = tuple(dev.values())
         else:
-            hosts, dev = list(dev), ()
-        shadow_host = hosts[2] if shadow is not None else None
-        return InFlight(batch=batch, sums=hosts[0], preds=hosts[1],
+            hosts, dev = dev, ()
+        return InFlight(batch=batch, sums=hosts["block" if layout else "sums"],
+                        preds=hosts.get("preds"),
                         replica=replica, t_dispatch=t_dispatch,
                         t_issue=self.clock(),
                         blocked_snapshot=self._blocked_s, version=version,
-                        shadow_preds=shadow_host, resident_nbytes=resident,
-                        event=event, device_tensors=dev, slot=slot)
+                        shadow_preds=hosts.get("shadow"),
+                        resident_nbytes=resident, event=event,
+                        device_tensors=dev, slot=slot, layout=layout,
+                        mask=mask)
 
     def _take_canary_turn(self) -> Optional[_Canary]:
         """Deterministic traffic split: an accumulator hands ~fraction of
@@ -746,11 +871,20 @@ class ServeEngine:
         overlapped = max(0.0, (t_wait0 - fl.t_issue) - blocked_elsewhere)
         self._blocked_s += t_done - t_wait0
         batch = fl.batch
+        sums_t, preds_t = fl.sums, fl.preds
+        if fl.layout is not None:
+            # A partitioned read: gather every rank's block on the host,
+            # then vote.
+            mesh, pls, rows = fl.layout
+            t_gather = time.perf_counter()
+            whole = sharding.assemble(sums_t.movedim(0, rows), mesh, pls)
+            self._gather_s += time.perf_counter() - t_gather
+            sums_t, preds_t = self._reduce(whole, fl.mask)
         # Only the valid rows, copied out of the host slot: the slot is
         # reused, and no Response may hold page-locked memory.
         n = batch.n_valid
-        preds = fl.preds.numpy()[:n].copy()
-        sums = fl.sums.numpy()[:n].copy()
+        preds = preds_t.numpy()[:n].copy()
+        sums = sums_t.numpy()[:n].copy()
         if fl.shadow_preds is not None:       # canary batch: score the
             # stable pool's argmax on the valid rows
             agree = int((preds == fl.shadow_preds.numpy()[:n]).sum())
@@ -820,7 +954,7 @@ class ServeEngine:
                 f"{pool.n_replicas}); the router and the vote mask are "
                 "sized to the pool — build a new engine instead")
         old.check_compatible(pool)
-        pool = pool.to(self.device)
+        pool = self._place(pool.to(self.device))
         self.quiesce()
         self._set_pool(pool)
         self.disarm_canary()
@@ -884,7 +1018,7 @@ class ServeEngine:
         if pool is self.pool:
             return
         self.quiesce()
-        self._set_pool(pool)
+        self._set_pool(self._place(pool))
         self.metrics.note_fault_injection(
             None if replicas is None else sorted(int(r) for r in replicas))
 
@@ -964,6 +1098,7 @@ class ServeEngine:
                 mask[i] = False
         if not bool(mask.any()):          # same floor as RouterState
             mask[:] = True
+        self._healthy_mask_host = mask
         self._healthy_mask = mask.to(self.device)
 
     # ------------------------------------------------------------- metrics
@@ -981,6 +1116,12 @@ class ServeEngine:
         out["backend_preferred"] = self.selection.preferred
         out["packed_io"] = self.packed_io
         out["plane_packed"] = bool(self.state.plane_packed)
+        out["sharded"] = bool(self.state.is_sharded)
+        out["gather_s"] = self._gather_s
+        out["agree_s"] = self._agree_s
+        out["issue_s"] = self._issue_s
+        out["mesh"] = (sharding.mesh_shape(self.mesh)
+                       if self.mesh is not None else None)
         out["resident_nbytes_full"] = self._resident_full
         out["resident_nbytes_slice"] = self._resident_slice
         out["device"] = str(self.device)
@@ -1032,9 +1173,25 @@ class AsyncServeEngine(ServeEngine):
         # Collect the dispatches whose results already reached the host:
         # results land as early as the caller's loop allows, and idle time
         # between pumps is not counted as overlap.
-        while self._pending and self._is_ready(self._pending[0]):
+        for _ in range(self._ready_everywhere()):
             self._collect(self._pending.popleft())
         return served
+
+    def _ready_everywhere(self) -> int:
+        """How many of the oldest pending dispatches have their results on
+        the host, on every rank of a mesh of more than one (where a
+        collect gathers, all ranks must collect together: one all-reduce
+        agrees on the count)."""
+        ready = 0
+        while ready < len(self._pending) and \
+                self._is_ready(self._pending[ready]):
+            ready += 1
+        if not self._multi_rank:
+            return ready
+        t0 = time.perf_counter()
+        ready = sharding.all_min(ready)
+        self._agree_s += time.perf_counter() - t0
+        return ready
 
     def _collect_pending(self) -> None:
         while self._pending:

@@ -24,7 +24,15 @@ and ``default_backend(state)``), its routed single-chip states
 hurts the hardware and ``repair_replica`` re-programs one chip, neither
 changing ``version``.  A replica pool bakes faults into its resistances;
 the coalesced pool keeps its TA plane clean and applies the stored mask
-in ``state()``.  Sharding comes with a later slice.
+in ``state()``.
+
+``shard(mesh, rules)`` places a pool on a ``DeviceMesh`` as its state
+does (``api.states``): a replica pool's ``r_stack`` splits over
+``replica``, a coalesced pool's weight columns too.  The routed
+single-chip states of a partitioned replica pool are cut from its stack
+gathered whole, so a routed read is one chip's, as on one device; the
+injuring and repairing methods work on the gathered pool and return it
+whole, for the engine to place again.
 """
 
 from __future__ import annotations
@@ -35,14 +43,15 @@ from typing import Iterable, List, Optional, Set, Tuple
 import torch
 
 from repro_torch.api.states import (CoalescedState, DigitalState,
-                                    ReplicaStackState, check_geometry,
-                                    stuck_ta)
+                                    ReplicaStackState, Shardable,
+                                    check_geometry, stuck_ta)
 from repro_torch.core import variations as var
 from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
                                     program_replica_stack)
 from repro_torch.core.mapping import CrossbarMapping
 from repro_torch.core.tm import TMConfig, include_mask
+from repro_torch.distributed import sharding
 
 
 @dataclasses.dataclass
@@ -104,7 +113,7 @@ def _ladder_pick(ladder: Tuple[str, str, str], state) -> str:
 
 
 @dataclasses.dataclass(frozen=True)
-class ReplicaPool:
+class ReplicaPool(Shardable):
     """R programmed crossbars sharing one set of TA actions."""
 
     # The engine's default backends, the reference's analog ladder:
@@ -157,7 +166,9 @@ class ReplicaPool:
 
     def routes(self, state: ReplicaStackState) -> List[ReplicaStackState]:
         """The ``[1, C, L]`` single-chip views routed dispatch reads, one
-        per replica."""
+        per replica (of the stack gathered whole when it is
+        partitioned: every rank of the mesh must call this)."""
+        state = sharding.gather_tree(state)
         return [state.replica_slice(i) for i in range(self.n_replicas)]
 
     def check_compatible(self, other: "ReplicaPool") -> None:
@@ -231,9 +242,10 @@ class ReplicaPool:
         fcfg = fcfg if fcfg is not None else self.vcfg.fault
         if fcfg is None or fcfg.is_nominal:
             return self
+        whole = sharding.gather_tree(self)
         injured, mask = var.inject_stack_faults(
-            generator, self.r_stack, fcfg, replicas, self.fault_mask)
-        return dataclasses.replace(self, r_stack=injured, fault_mask=mask)
+            generator, whole.r_stack, fcfg, replicas, whole.fault_mask)
+        return dataclasses.replace(whole, r_stack=injured, fault_mask=mask)
 
     def repair_replica(self, i: int,
                        generator: Optional[torch.Generator]) -> "ReplicaPool":
@@ -244,20 +256,21 @@ class ReplicaPool:
         if not 0 <= i < self.n_replicas:
             raise IndexError(f"replica {i} out of range "
                              f"[0, {self.n_replicas})")
-        r_stack = self.r_stack.clone()
+        whole = sharding.gather_tree(self)
+        r_stack = whole.r_stack.clone()
         r_stack[i] = var.sample_device_resistance(generator, self.include,
                                                   self.vcfg)
-        fm = self.fault_mask
+        fm = whole.fault_mask
         if fm is not None:
             fm = fm.clone()
             fm[i] = 0
             if not bool(fm.any()):
                 fm = None
-        return dataclasses.replace(self, r_stack=r_stack, fault_mask=fm)
+        return dataclasses.replace(whole, r_stack=r_stack, fault_mask=fm)
 
 
 @dataclasses.dataclass(frozen=True)
-class CoalescedPool:
+class CoalescedPool(Shardable):
     """ONE shared coalesced clause pool behind the serving engine.
 
     Instead of R chips each holding M per-class clause banks, one

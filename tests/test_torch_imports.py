@@ -75,7 +75,9 @@ def test_scan_covers_the_port():
             "stream_bench_torch.py", "paper_tables_torch.py",
             "ablations_torch.py", "run_torch.py", "torch_quickstart.py",
             "torch_serve_quickstart.py", "torch_stream_quickstart.py",
-            "torch_swap_quickstart.py", "torch_image_imbue.py"} <= names
+            "torch_swap_quickstart.py", "torch_image_imbue.py",
+            "sharding.py", "mesh.py", "hostdev.py", "tm_distributed.py",
+            "torch_tm_scaleout.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
@@ -300,6 +302,7 @@ CLI_MAINS = {
     "examples/torch_stream_quickstart": [],
     "examples/torch_swap_quickstart": [],
     "examples/torch_image_imbue": ["--quick"],
+    "examples/torch_tm_scaleout": [],
 }
 
 

@@ -1,0 +1,497 @@
+"""Multi-rank cases of the port's mesh tests, run on gloo host ranks by
+``test_torch_serve_sharded.py`` and ``test_torch_distributed.py``
+(``repro_torch.launch.hostdev.run_host_ranks``, rendezvous under the
+test's ``tmp_path``).
+
+A rank imports torch and the port only, never jax.  Every rank runs every
+check of a case in the same order (they hold collectives); each check is
+recorded by name as "ok" or its traceback, so one failing check fails its
+own test.  Rank 0 writes the record (``results.json``) and the arrays the
+parent holds to the JAX reference (``arrays.npz``) into the output
+directory.  Models and requests are drawn with numpy from seeds, the same
+draws the parent makes.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import traceback
+import warnings
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+SERVE_CFG = dict(n_classes=4, clauses_per_class=8, n_features=32,
+                 n_states=100)
+COALESCED_CFG = dict(n_classes=8, n_clauses=32, n_features=32,
+                     n_states=100)
+N_REQUESTS = 48
+ROUTINGS = ("round_robin", "least_loaded", "ensemble")
+MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
+
+
+def serve_model():
+    """``(include [C, L] bool, requests [48, F] uint8)`` from numpy seeds
+    0 and 1 (the reference prologue's shapes and densities)."""
+    c = SERVE_CFG["n_classes"] * SERVE_CFG["clauses_per_class"]
+    rng = np.random.default_rng(0)
+    inc = rng.random((c, 2 * SERVE_CFG["n_features"])) < 0.1
+    xs = (np.random.default_rng(1).random(
+        (N_REQUESTS, SERVE_CFG["n_features"])) < 0.4).astype(np.uint8)
+    return inc, xs
+
+
+def coalesced_model():
+    """``(ta [C, L] int16, weights [C, M] int32)`` from numpy seed 4."""
+    cc = COALESCED_CFG
+    rng = np.random.default_rng(4)
+    inc = rng.random((cc["n_clauses"], 2 * cc["n_features"])) < 0.1
+    ta = np.where(inc, cc["n_states"] + 1, cc["n_states"]).astype(np.int16)
+    w = rng.integers(-7, 8, (cc["n_clauses"], cc["n_classes"])).astype(
+        np.int32)
+    return ta, w
+
+
+class Record:
+    """Per-check outcomes and arrays of one case, written by rank 0."""
+
+    def __init__(self):
+        self.status = {}
+        self.arrays = {}
+
+    def check(self, name, fn):
+        try:
+            fn()
+            self.status[name] = "ok"
+        except Exception:                       # recorded, reported by test
+            self.status[name] = traceback.format_exc()
+
+    def save(self, out_dir):
+        if dist.get_rank() == 0:
+            with open(os.path.join(out_dir, "results.json"), "w") as f:
+                json.dump(self.status, f)
+            np.savez(os.path.join(out_dir, "arrays.npz"), **self.arrays)
+
+
+def _served(eng, xs):
+    eng.submit_many(list(xs))
+    rs = eng.drain()
+    return (np.array([r.pred for r in rs]),
+            np.stack([r.class_sums for r in rs]))
+
+
+def _equal(a, b, what):
+    np.testing.assert_array_equal(a[0], b[0], err_msg=f"preds {what}")
+    np.testing.assert_array_equal(a[1], b[1], err_msg=f"sums {what}")
+
+
+def _all_ranks_equal(arr):
+    """``arr`` is the same on every rank."""
+    t = torch.as_tensor(np.ascontiguousarray(arr)).to(torch.float64)
+    got = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(got, t)
+    for g in got:
+        assert torch.equal(g, t), "ranks disagree"
+
+
+# ------------------------------------------------------------------ serve
+
+def serve_case(out_dir):
+    """The seven cases of the reference's ``tests/test_serve_sharded.py``
+    on 4 ranks, over a ``2x2`` and a ``4x1`` replica mesh, R = 8."""
+    from repro_torch import api
+    from repro_torch.core import imbue, tm
+    from repro_torch.core.coalesced import CoalescedConfig
+    from repro_torch.core.coalesced import forward as co_forward
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.serve import (AsyncServeEngine, BatcherConfig,
+                                   CoalescedPool, EngineConfig, ServeEngine,
+                                   program_replica_pool)
+
+    rec = Record()
+    cfg = tm.TMConfig(**SERVE_CFG)
+    inc_np, xs = serve_model()
+    inc = torch.from_numpy(inc_np)
+    ta = torch.where(inc, cfg.n_states + 1, cfg.n_states).to(cfg.state_dtype)
+    bcfg = BatcherConfig(max_batch=16, bucket_sizes=(8, 16))
+    meshes = {k: make_replica_mesh(*v, device_type="cpu")
+              for k, v in MESHES.items()}
+
+    def engine(n, mesh=None, cls=ServeEngine, vcfg=None, **ecfg):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return cls.from_ta_state(
+                ta, cfg, n_replicas=n, seed=3,
+                vcfg=VariationConfig.nominal() if vcfg is None else vcfg,
+                ecfg=EngineConfig(batcher=bcfg, **ecfg), device="cpu",
+                mesh=mesh)
+
+    def single(n, vcfg=None, **ecfg):
+        """The single-device engine a partitioned one must equal: the same
+        seed, state format and backend, without a mesh."""
+        return engine(n, vcfg=vcfg, **ecfg)
+
+    digital = tm.forward(ta, torch.from_numpy(xs), cfg).numpy()
+    # The backend each noise model selects: the plane-packed kernel, or,
+    # for a read with the CSA offset, which no kernel models, the eager one.
+    backends = {"nominal": "analog-cuda-packed2",
+                "c2c": "analog-cuda-packed2", "noisy": "analog-torch"}
+
+    def bitwise():
+        for name, mesh in meshes.items():
+            for vname, vcfg in (("nominal", None),
+                                ("c2c", VariationConfig(csa_offset=False)),
+                                ("noisy", VariationConfig())):
+                for routing in ROUTINGS:
+                    want = _served(single(8, vcfg, routing=routing), xs)
+                    for cls in (ServeEngine, AsyncServeEngine):
+                        e = engine(8, mesh, cls, vcfg, routing=routing)
+                        s = e.summary()
+                        assert s["sharded"] and s["plane_packed"]
+                        assert e.backend.name == backends[vname]
+                        assert e.selection.fell_back == (vname == "noisy")
+                        got = _served(e, xs)
+                        what = f"{name} {vname} {routing} {cls.__name__}"
+                        _equal(got, want, what)
+                        _all_ranks_equal(got[1])
+                        if vname == "nominal":
+                            np.testing.assert_array_equal(
+                                got[0], digital.argmax(-1), err_msg=what)
+                            rec.arrays[f"{name}_{routing}_{cls.__name__}"
+                                       "_sums"] = got[1]
+                            rec.arrays[f"{name}_{routing}_{cls.__name__}"
+                                       "_preds"] = got[0]
+
+    def pool_shard():
+        for name, mesh in meshes.items():
+            n_rep = MESHES[name][0]
+            pool = program_replica_pool(
+                inc, torch.Generator().manual_seed(2), 8,
+                VariationConfig.nominal())
+            sh = pool.shard(mesh, None)
+            assert sh.is_sharded and not pool.is_sharded
+            assert isinstance(sh.r_stack, sharding.DTensor)
+            assert sharding.placements(mesh, ("replica", None, None)) == \
+                list(sh.r_stack.placements)
+            block, offs, shape = sharding.local_block(sh.r_stack)
+            assert block.shape[0] == 8 // n_rep and shape == (
+                8, *inc.shape), (block.shape, shape)
+            # the shared TA actions stay whole on every rank
+            assert not isinstance(sh.include, sharding.DTensor)
+            # programming happened before placement: the same bits
+            assert torch.equal(block, pool.r_stack[offs[0]:offs[0] + 8
+                                                   // n_rep])
+            assert torch.equal(sharding.gather(sh.r_stack), pool.r_stack)
+            assert sh.n_replicas == 8 and sh.icfg == pool.icfg
+            # an axis that does not divide is dropped: the pool stays whole
+            odd = program_replica_pool(inc, torch.Generator().manual_seed(2),
+                                       3, VariationConfig.nominal())
+            assert not odd.shard(mesh).is_sharded
+
+    def loud_fallback():
+        mesh = meshes["4x1"]
+        pool = program_replica_pool(inc, torch.Generator().manual_seed(2),
+                                    8, VariationConfig.nominal())
+        state = pool.shard(mesh, None).state(cfg).pack()
+        need = api.required_capabilities(state)
+        assert api.CAP_SHARDED in need
+        # every backend reads a partitioned state: a kernel preference
+        # holds, and the ladder's top serves the plane-packed blocks
+        for prefer in ("analog-cuda-packed", "analog-cuda"):
+            sel = api.select_backend(state, prefer=prefer)
+            assert not sel.fell_back and sel.backend.name == prefer
+        assert api.select_backend(state.pack_planes()).backend.name == \
+            "analog-cuda-packed2"
+        # the unsharded twin needs no CAP_SHARDED
+        assert api.CAP_SHARDED not in api.required_capabilities(
+            pool.state(cfg))
+        # a partitioned read with the CSA offset, which no kernel
+        # models, falls back loudly, counted every dispatch
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            eng = ServeEngine.from_ta_state(
+                ta, cfg, n_replicas=8, seed=3, vcfg=VariationConfig(),
+                ecfg=EngineConfig(batcher=bcfg,
+                                  backend="analog-cuda-packed"),
+                device="cpu", mesh=mesh)
+        assert eng.selection.fell_back
+        assert any("fallback" in str(x.message) for x in w)
+        eng.submit_many(list(xs[:16]))
+        eng.drain()
+        s = eng.summary()
+        assert s["sharded"] is True and s["backend"] == "analog-torch"
+        assert s["fallback_dispatches"] == eng.metrics.batches > 0
+        assert any("models_csa_offset" in r
+                   for r in s["forward_fallbacks"])
+        assert s["mesh"] == {"replica": 4, "batch": 1}
+        # the mesh default is the kernel ladder's top: quiet
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            eng2 = engine(8, mesh)
+        assert not eng2.selection.fell_back
+        assert eng2.backend.name == "analog-cuda-packed2"
+
+    def fused_dispatch():
+        calls = []
+        for mod, attr in ((ops, "imbue_infer_planes"),
+                          (imbue, "stacked_clause_outputs")):
+            real = getattr(mod, attr)
+            setattr(mod, attr, lambda *a, real=real, **kw:
+                    calls.append(a) or real(*a, **kw))
+            try:
+                for mesh in meshes.values():
+                    # the kernel's launch on the D2D deviation plane, or
+                    # with the CSA offset the eager stacked read: one a
+                    # batch on this rank's replicas, not one a replica
+                    vcfg = (VariationConfig(c2c=False, csa_offset=False)
+                            if attr == "imbue_infer_planes"
+                            else VariationConfig())
+                    calls.clear()
+                    eng = engine(8, mesh, vcfg=vcfg, routing="ensemble")
+                    eng.submit_many(list(xs[:16]))
+                    eng.drain()
+                    assert len(calls) == 1, f"{len(calls)} stacked reads"
+                    local = 8 // mesh.size(0)
+                    if attr == "imbue_infer_planes":
+                        assert calls[0][2].shape[0] == local, \
+                            calls[0][2].shape
+                    eng.submit_many(list(xs[16:32]))
+                    eng.drain()
+                    assert len(calls) == 2, f"{len(calls)} stacked reads"
+            finally:
+                setattr(mod, attr, real)
+
+    def noise_stream():
+        for name, mesh in meshes.items():
+            runs = [_served(single(8, VariationConfig(), routing="ensemble"),
+                            xs)]
+            for _ in range(2):
+                runs.append(_served(engine(8, mesh, vcfg=VariationConfig(),
+                                           routing="ensemble"), xs))
+            _equal(runs[1], runs[0], f"{name} noisy vs single")
+            _equal(runs[2], runs[1], f"{name} run to run")
+            assert runs[0][1].any(), "no class sum fired"
+
+    def async_overlap():
+        for mesh in meshes.values():
+            eng = engine(8, mesh, AsyncServeEngine)
+            seen = []
+            orig = eng._issue
+
+            def spy(batch, eng=eng, orig=orig):
+                seen.append(eng.in_flight)
+                return orig(batch)
+            eng._issue = spy
+            rids = eng.submit_many(list(xs))
+            rs = eng.drain()
+            assert [r.rid for r in rs] == rids
+            assert eng.in_flight == 0
+            assert max(seen) >= 1, seen
+            s = eng.summary()
+            assert 0.0 <= s["overlap_fraction"] <= 1.0
+            assert s["device_wait_s"] >= 0 and s["host_pack_s"] > 0
+
+    def coalesced():
+        ccfg = CoalescedConfig(**COALESCED_CFG)
+        cta_np, w_np = coalesced_model()
+        cta, w = torch.from_numpy(cta_np), torch.from_numpy(w_np)
+        want = co_forward(cta, w, torch.from_numpy(xs), ccfg).numpy()
+        for name, mesh in meshes.items():
+            pool = CoalescedPool(ta_state=cta, weights=w, cfg=ccfg)
+            sh = pool.shard(mesh, None)
+            assert sh.is_sharded and not pool.is_sharded
+            # class-parallel: the M axis of [C, M] splits over replica
+            assert list(sh.weights.placements) == sharding.placements(
+                mesh, (None, "replica"))
+            assert not isinstance(sh.ta_state, sharding.DTensor)
+            state = sh.state()
+            assert api.CAP_SHARDED in api.required_capabilities(state)
+            sel = api.select_backend(state)
+            assert sel.backend.name == "coalesced-cuda" and not sel.fell_back
+            for routing in ("round_robin", "ensemble"):
+                single = ServeEngine.from_coalesced(
+                    cta, w, ccfg, device="cpu",
+                    ecfg=EngineConfig(batcher=bcfg, routing=routing))
+                e = ServeEngine.from_coalesced(
+                    cta, w, ccfg, device="cpu", mesh=mesh,
+                    ecfg=EngineConfig(batcher=bcfg, routing=routing))
+                assert e.state.is_sharded and e.summary()["sharded"]
+                assert e.backend.name == "coalesced-cuda-packed2"
+                assert not e.selection.fell_back
+                assert e.summary()["forward_fallbacks"] == []
+                got = _served(e, xs)
+                _equal(got, _served(single, xs), f"{name} {routing}")
+                np.testing.assert_array_equal(got[1], want)
+                rec.arrays[f"coalesced_{name}_{routing}_sums"] = got[1]
+
+    for name, fn in (("bitwise", bitwise), ("pool_shard", pool_shard),
+                     ("loud_fallback", loud_fallback),
+                     ("fused_dispatch", fused_dispatch),
+                     ("noise_stream", noise_stream),
+                     ("async_overlap", async_overlap),
+                     ("coalesced", coalesced)):
+        rec.check(name, fn)
+    rec.save(out_dir)
+
+
+# ------------------------------------------------------------ distributed
+
+TRAIN_CFG = dict(n_classes=2, clauses_per_class=8, n_features=12)
+PAD_CFG = dict(n_classes=3, clauses_per_class=2, n_features=12)
+
+
+def xor_data():
+    """The noisy-XOR arrays of the reference's sharded TM test's shapes
+    (256 train, 128 test rows), from the port's generator, seed 0."""
+    from repro_torch.data.tm_datasets import noisy_xor
+    return noisy_xor(torch.Generator().manual_seed(0), 256, 128,
+                     device="cpu")
+
+
+def distributed_case(out_dir, ckpt_dir):
+    """Sharded TM training and inference, checkpoint re-sharding and the
+    sharded stream, on 4 ranks."""
+    from repro_torch.core import tm
+    from repro_torch.core import tm_distributed as tmd
+    from repro_torch.core.tm import TMConfig
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    rec = Record()
+    xtr, ytr, xte, yte = xor_data()
+
+    def train(cfg, shape):
+        ta = tm.init_ta_state(torch.Generator().manual_seed(1), cfg, "cpu")
+        ref = tmd.tm_train_step(ta, torch.Generator().manual_seed(2), xtr,
+                                ytr, cfg)
+        mesh = make_debug_mesh(*shape, device_type="cpu")
+        st_sh, x_sh, y_sh = tmd.tm_shardings(cfg, mesh, 256)
+        got = tmd.tm_train_step(st_sh.place(ta),
+                                torch.Generator().manual_seed(2),
+                                x_sh.place(xtr), y_sh.place(ytr), cfg)
+        assert sharding.partitioned(got) == (
+            cfg.n_clauses % shape[1] == 0 and shape[1] > 1)
+        assert torch.equal(sharding.gather(got), ref)
+        return ref, got, mesh
+
+    def train_2x2():
+        cfg = TMConfig(**TRAIN_CFG)
+        ref, got, mesh = train(cfg, (2, 2))
+        start = tm.init_ta_state(torch.Generator().manual_seed(1), cfg, "cpu")
+        assert not torch.equal(ref, start), "the step moved nothing"
+        ref_pred = tmd.tm_infer_step(ref, xte, cfg)
+        got_pred = tmd.tm_infer_step(got, xte, cfg)
+        assert torch.equal(got_pred, ref_pred)
+        # rows over data as well
+        _, x_sh, _ = tmd.tm_shardings(cfg, mesh, 128)
+        assert torch.equal(tmd.tm_infer_step(got, x_sh.place(xte), cfg),
+                           ref_pred)
+        # digital fused inference == the TM's predict
+        assert torch.equal(got_pred, tm.predict(ref, xte, cfg))
+        rec.arrays["train_2x2"] = ref.numpy()
+
+    def train_padded():
+        cfg = TMConfig(**PAD_CFG)
+        mesh = make_debug_mesh(1, 4, device_type="cpu")
+        padded = tmd.pad_clauses_for_mesh(cfg, mesh)
+        assert padded.n_clauses % 4 == 0 and padded != cfg
+        assert not tmd.tm_shardings(cfg, mesh, 256)[0].partitions
+        train(padded, (1, 4))
+        train(cfg, (1, 4))                  # left whole: still the step
+
+    def checkpoint():
+        cfg = TMConfig(**TRAIN_CFG)
+        ta = tm.init_ta_state(torch.Generator().manual_seed(1), cfg, "cpu")
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        st_sh = tmd.tm_shardings(cfg, mesh, 256)[0]
+        like = {"ta": ta}
+        tree, _ = ckpt.restore(ckpt_dir, 1, like, device="cpu",
+                               shardings={"ta": st_sh})
+        assert sharding.partitioned(tree["ta"])
+        assert torch.equal(sharding.gather(tree["ta"]), ta)
+        ckpt.save(ckpt_dir, 2, tree)          # gathered; rank 0 writes
+        back, _ = ckpt.restore(ckpt_dir, 2, like, device="cpu")
+        assert torch.equal(back["ta"], ta)
+
+    def stream():
+        rec.arrays.update(_stream_on_mesh())
+
+    for name, fn in (("train_2x2", train_2x2),
+                     ("train_padded", train_padded),
+                     ("checkpoint", checkpoint), ("stream", stream)):
+        rec.check(name, fn)
+    rec.save(out_dir)
+
+
+STREAM = dict(mels=6, bits=2, window=4, hop=2)
+
+
+def _stream_on_mesh():
+    """The reference's sharded-stream case: streamed windows equal offline
+    ``api.predict`` on a sharded R = 8 pool, sync and async, on ``4x1``
+    and ``2x2``; and equal the single-device engine's offline answers."""
+    from repro_torch import api
+    from repro_torch.core.booleanize import StreamingBooleanizer, fit_quantile
+    from repro_torch.core.tm import TMConfig
+    from repro_torch.core.variations import VariationConfig
+    from repro_torch.data.tm_datasets import synthetic_kws6
+    from repro_torch.launch.mesh import make_replica_mesh
+    from repro_torch.serve import (AsyncServeEngine, BatcherConfig,
+                                   EngineConfig, ServeEngine, StreamConfig,
+                                   StreamServer)
+    s = STREAM
+    frames, _ = synthetic_kws6(torch.Generator().manual_seed(0),
+                               n_utterances=8, n_frames=24, n_mels=s["mels"],
+                               device="cpu")
+    frames = frames.numpy()
+    booleanizer = fit_quantile(frames.reshape(-1, s["mels"]), bits=s["bits"],
+                               device="cpu")
+    cfg = TMConfig(n_classes=6, clauses_per_class=6,
+                   n_features=s["window"] * s["mels"] * s["bits"],
+                   n_states=100)
+    inc = torch.from_numpy(np.random.default_rng(5).random(
+        (cfg.n_clauses, cfg.n_literals)) < 0.1)
+    ta = torch.where(inc, cfg.n_states + 1, cfg.n_states).to(cfg.state_dtype)
+    stream = frames.reshape(-1, s["mels"])[:48]
+    rows = StreamingBooleanizer(booleanizer, s["window"],
+                                s["hop"]).transform_offline(stream)
+    single = ServeEngine.from_ta_state(
+        ta, cfg, n_replicas=8, seed=3, vcfg=VariationConfig.nominal(),
+        ecfg=EngineConfig(routing="ensemble"), device="cpu")
+    offline_single = api.predict(single.state, torch.from_numpy(rows))
+    out = {"stream_offline_single": offline_single.numpy(),
+           "stream_rows": rows, "stream_ta": ta.numpy()}
+    for name, shape in (("4x1", (4, 1)), ("2x2", (2, 2))):
+        mesh = make_replica_mesh(*shape, device_type="cpu")
+        for cls in (ServeEngine, AsyncServeEngine):
+            eng = cls.from_ta_state(
+                ta, cfg, n_replicas=8, seed=3,
+                vcfg=VariationConfig.nominal(),
+                ecfg=EngineConfig(routing="ensemble",
+                                  batcher=BatcherConfig(
+                                      max_batch=16, bucket_sizes=(8, 16))),
+                device="cpu", mesh=mesh)
+            assert eng.state.is_sharded
+            server = StreamServer(eng, booleanizer,
+                                  StreamConfig(window=s["window"],
+                                               hop=s["hop"], vote=3))
+            for lo in range(0, len(stream), 5):
+                server.feed("u", stream[lo:lo + 5])
+                server.pump()
+            server.drain()
+            streamed = np.array(
+                [d.pred for d in server.sessions["u"].decisions])
+            offline = api.predict(eng.state, torch.from_numpy(rows))
+            what = f"{name} {cls.__name__}"
+            np.testing.assert_array_equal(streamed, offline.numpy(),
+                                          err_msg=what)
+            np.testing.assert_array_equal(streamed, offline_single.numpy(),
+                                          err_msg=what)
+            out[f"stream_{name}_{cls.__name__}"] = streamed
+    return out
