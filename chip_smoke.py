@@ -184,7 +184,22 @@ is non-zero and no result line is printed):
    ``launch.serve`` with ``MESH_CLI_ARGS`` under
    ``torch.distributed.run``, rank 0's summary showing the mesh, the
    plane-packed kernel and the accuracy of the same arguments without
-   one.
+   one; (k) the models path, the LM side path (``repro_torch.models``):
+   qwen2-0.5b, gemma2-2b, xlstm-125m, zamba2-1.2b, whisper-large-v3 and
+   deepseek-v2-lite-16b at their published widths (``MODEL_ARCHS``;
+   deepseek with bf16 weights, its one override, reported as
+   ``reduced``), weights from a seeded generator: ``decode_step`` over 64
+   positions against ``forward`` at float32 (``MODEL_DECODE_TOL``, MoE at
+   capacity E / K, whisper's cross caches from its encoder); qwen2 and
+   xlstm at float32 on the card against the same weights on the host
+   (``MODEL_HOST_TOL``, TF32 off; the TF32 gap and the rounding floor
+   read beside); qwen2 at S = 8192, ``_blocked_causal`` against
+   ``_sdpa``; qwen2's bf16 prefill (4 x 2048) and decode (B = 4, 2,048
+   slots) readings; every ``smoke()`` arch on the card against the host,
+   decode against forward for the reference's six; and the GPipe demo on
+   ``PIPELINE_RANKS`` ranks sharing the card under
+   ``torch.distributed.run``.  It launches none of the eleven kernels:
+   their counts, read around the path, must be 0.
    Each path's launch counters are zeroed just before it and read just
    after: one launch per dispatch (plus one per probe read and canary
    shadow read on the live path, one ``tm_infer`` per probe commit, and
@@ -501,6 +516,57 @@ ANALOG_KERNELS = ("imbue_infer_planes",) + DENSE_KERNELS
 MESH_RANKS = 4
 MESH_TIMEOUT_S = 600
 MESH_CLI_ARGS = ("--mesh", "2x2") + CLI_SERVE_ARGS
+# The models path, phase 3 (k): the LM side path's forward, loss and
+# decode (repro_torch.models) at the published widths of six archs
+# (repro_torch.configs.archs), weights drawn from a seeded generator.
+# Each runs at float32 compute (TF32 off) for its checks: decode
+# against forward over MODEL_DECODE = (batch, positions), whisper's cross
+# caches filled from its encoder first, MoE at capacity factor E / K (an
+# expert then has a slot for every token of a row, so the forward drops
+# none that decode keeps; the reference's test uses 8, which at
+# deepseek-v2-lite's 64 experts top-6 gives 48 slots for 64 tokens and
+# drops 2.6 % of them on these weights).
+MODEL_ARCHS = ("qwen2-0.5b", "gemma2-2b", "xlstm-125m", "zamba2-1.2b",
+               "whisper-large-v3", "deepseek-v2-lite-16b")
+# deepseek-v2-lite-16b's published param_dtype is float32: its 15.7 B
+# float32 weights leave no room on one 80 GB card, so its weights are
+# bf16 and every shape is as published (reported as "reduced").
+MODEL_OVERRIDES = {"deepseek-v2-lite-16b": {"param_dtype": "bfloat16"}}
+MODEL_DECODE = (2, 64)
+MODEL_DECODE_TOL = 2e-2      # the reference's bar (rtol = atol)
+# float32 on the card against float32 on the host, one weight set drawn
+# on the host and copied to the card, at (B, S) = MODEL_HOST_SHAPE, rtol =
+# atol = MODEL_HOST_TOL[arch] on the logits.  Beside the gap the phase
+# reads the gap with TF32 allowed and the model's rounding floor: how far
+# its logits move on the card when every weight is scaled by 1 + 1e-7 x a
+# normal draw.  xlstm-125m's stack amplifies rounding (on the host its
+# smoke logits move 3.6e-4 under such a nudge), hence its wider bound.
+MODEL_HOST_ARCHS = ("qwen2-0.5b", "xlstm-125m")
+MODEL_HOST_SHAPE = (1, 256)
+MODEL_HOST_TOL = {"qwen2-0.5b": 1e-3, "xlstm-125m": 1e-2}
+MODEL_NUDGE = 1e-7
+# qwen2-0.5b at its published blocked_attn_threshold (8192): the blocked
+# online-softmax path against the SDPA path (threshold raised) on the
+# same float32 input, the final hidden states within MODEL_BLOCKED_TOL.
+MODEL_BLOCKED_SHAPE = (1, 8192)
+MODEL_BLOCKED_TOL = 1e-3
+# bf16 readings of qwen2-0.5b at its published compute dtype (not
+# claims): prefill of B x S with last_only, and decode steps at B against
+# a cache of `cache` slots, CUDA events, median of `reps`.
+MODEL_BF16 = dict(arch="qwen2-0.5b", batch=4, prefill=2048, cache=2048,
+                  warmup_steps=4, steps=32, reps=3)
+# Every arch's smoke() on the card against the host (float32), and
+# decode against forward at MODEL_SMOKE_DECODE for the reference's six
+# (tests/test_models_smoke.py); B = 2, S = 64 for the forward.
+MODEL_SMOKE_TOL = 1e-3
+MODEL_SMOKE_DECODE = (2, 32)
+MODEL_SMOKE_DECODE_ARCHS = ("qwen2-0.5b", "gemma2-2b", "xlstm-125m",
+                            "zamba2-1.2b", "deepseek-v2-lite-16b",
+                            "whisper-large-v3")
+# The GPipe demo (repro_torch.distributed.pipeline) on PIPELINE_RANKS
+# ranks sharing the card over gloo, under torch.distributed.run: the
+# pipelined forward against sequential_apply within its 2e-5.
+PIPELINE_RANKS = 4
 # Flash attention at the attention widths of three architectures the repo
 # registers (src/repro/configs/archs.py; the numbers are copied, the port
 # imports nothing of the reference), in the models' compute dtype (bf16),
@@ -4429,6 +4495,348 @@ def phase_flash_timing(device):
     return rows
 
 
+# ---------------------------------------------------------------- models
+
+def model_batch(cfg, b, s, seed, device):
+    """Tokens (+ the VLM / audio stubs' inputs) drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (b, s)))}
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.vision_tokens, cfg.vision_dim)).astype(np.float32))
+    if cfg.is_encoder_decoder:
+        batch["audio_frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def float32_config(cfg):
+    """``cfg`` at float32 compute, MoE at capacity factor E / K (a whole
+    sequence then drops no token that decode keeps)."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    return cfg
+
+
+def held(got, want, tol, what):
+    """``max |got - want|``; fails unless every value is finite and within
+    rtol = atol = ``tol``."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max())
+    if not (bool(torch.isfinite(got).all())
+            and torch.allclose(got, want, rtol=tol, atol=tol)):
+        raise AssertionError(f"models {what}: max |err| {err} past {tol}")
+    return err
+
+
+def decode_against_forward(model, cfg, b, s, seed, device):
+    """``(decode logits [b, s, V], forward logits)``: token-by-token
+    ``decode_step`` from an empty cache (whisper's cross caches filled
+    from its encoder first) beside one forward, and the seconds of each."""
+    from repro_torch.models import transformer as tf
+    batch = model_batch(cfg, b, s, seed, device)
+    t0 = time.perf_counter()
+    want, aux = tf.forward(model, batch, cfg, return_aux=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if float(aux.get("moe_drop_frac", 0.0)):
+        raise AssertionError(f"models {cfg.name}: the forward dropped "
+                             f"{float(aux['moe_drop_frac'])} of its slots")
+    state = tf.init_decode_state(cfg, b, s, dtype=torch.float32,
+                                 device=device)
+    if cfg.is_encoder_decoder:
+        state = tf.fill_cross_cache(model, state, batch, cfg)
+    outs = []
+    for t in range(s):
+        logits, state = tf.decode_step(model, state,
+                                       batch["tokens"][:, t:t + 1], t, cfg)
+        outs.append(logits[:, 0])
+    got = torch.stack(outs, 1)
+    torch.cuda.synchronize()
+    return got, want, t1 - t0, time.perf_counter() - t1
+
+
+def release_card():
+    """Return the memory of the tensors just dropped to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def events_ms(fn, reps):
+    """Median ms of ``fn`` over ``reps`` runs after one warm-up, CUDA
+    events around each run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def models_card_vs_host(arch, host, card, cfg, device):
+    """float32 forward on the card against the same weights on the host at
+    ``MODEL_HOST_SHAPE``; the gap with TF32 allowed and the rounding floor
+    (``MODEL_NUDGE``) are read beside it (not held)."""
+    import copy
+
+    from repro_torch.models import transformer as tf
+    b, s = MODEL_HOST_SHAPE
+    batch = model_batch(cfg, b, s, SEED + 7, "cpu")
+    t0 = time.perf_counter()
+    want = tf.forward(host, batch, cfg)
+    host_s = time.perf_counter() - t0
+    on_card = {k: v.to(device) for k, v in batch.items()}
+    got = tf.forward(card, on_card, cfg)
+    tol = MODEL_HOST_TOL[arch]
+    err = held(got, want, tol, f"{arch} card vs host")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = tf.forward(card, on_card, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    nudged = copy.deepcopy(card)
+    gen = torch.Generator(device).manual_seed(SEED)
+    with torch.no_grad():
+        for p in nudged.parameters():
+            p.mul_(1 + MODEL_NUDGE * torch.randn(
+                p.shape, generator=gen, device=device, dtype=p.dtype))
+    floor = float((tf.forward(nudged, on_card, cfg) - got).abs().max())
+    emit({"phase": "models", "check": "card_vs_host", "arch": arch,
+          "shape": [b, s], "dtype": "float32", "max_abs_err": err,
+          "max_abs_logit": float(want.abs().max()), "tol": tol,
+          "tf32_max_abs_err": float((tf32.cpu() - want).abs().max()),
+          "rounding_floor": floor, "nudge": MODEL_NUDGE,
+          "host_forward_s": host_s, "card": nvidia_smi_line()})
+
+
+def models_blocked(model, cfg, device):
+    """qwen2-0.5b at S = 8192: ``_blocked_causal`` (its published
+    threshold) against ``_sdpa`` (threshold raised) on one float32
+    input, the final hidden states and the last position's logits."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+    assert cfg.blocked_attn_threshold <= MODEL_BLOCKED_SHAPE[1]
+    plain = dataclasses.replace(cfg, blocked_attn_threshold=1 << 30)
+    batch = model_batch(cfg, *MODEL_BLOCKED_SHAPE, SEED + 8, device)
+    out = {}
+    for name, c in (("blocked", cfg), ("sdpa", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            hidden, _ = tf.forward_hidden(model, batch, c)
+            logits = tf.forward(model, batch, c, last_only=True)
+        torch.cuda.synchronize()
+        out[name] = (hidden, logits, time.perf_counter() - t0)
+    err = held(out["blocked"][0], out["sdpa"][0], MODEL_BLOCKED_TOL,
+               "blocked vs sdpa hidden")
+    lerr = held(out["blocked"][1], out["sdpa"][1], MODEL_BLOCKED_TOL,
+                "blocked vs sdpa logits")
+    emit({"phase": "models", "check": "blocked_attention",
+          "arch": MODEL_BF16["arch"], "shape": list(MODEL_BLOCKED_SHAPE),
+          "dtype": "float32", "chunks": [cfg.attn_chunk_q, cfg.attn_chunk_k],
+          "hidden_max_abs_err": err, "logits_max_abs_err": lerr,
+          "tol": MODEL_BLOCKED_TOL, "blocked_s": out["blocked"][2],
+          "sdpa_s": out["sdpa"][2], "card": nvidia_smi_line()})
+
+
+def models_bf16(model, cfg, device):
+    """Readings at the published compute dtype (bf16): prefill tokens/s
+    and decode ms a step, CUDA events (recorded, not claimed)."""
+    from repro_torch.models import transformer as tf
+    r = MODEL_BF16
+    b = r["batch"]
+    batch = model_batch(cfg, b, r["prefill"], SEED + 9, device)
+    prefill_ms = events_ms(
+        lambda: tf.forward(model, batch, cfg, last_only=True), r["reps"])
+    state = tf.init_decode_state(cfg, b, r["cache"], dtype=torch.bfloat16,
+                                 device=device)
+    tokens = batch["tokens"]
+    pos = 0
+
+    def steps(n):
+        nonlocal state, pos
+        for _ in range(n):
+            _, state = tf.decode_step(model, state,
+                                      tokens[:, pos:pos + 1], pos, cfg)
+            pos += 1
+
+    steps(r["warmup_steps"])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    steps(r["steps"])
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / r["steps"]
+    emit({"phase": "models", "check": "bf16_readings", "arch": r["arch"],
+          "compute_dtype": cfg.compute_dtype,
+          "param_dtype": cfg.param_dtype,
+          "prefill": {"batch": b, "seq": r["prefill"], "last_only": True,
+                      "ms": prefill_ms,
+                      "tokens_per_s": b * r["prefill"] / prefill_ms * 1e3},
+          "decode": {"batch": b, "cache_slots": r["cache"],
+                     "steps": r["steps"], "ms_per_step": step_ms,
+                     "tokens_per_s": b / step_ms * 1e3},
+          "card": nvidia_smi_line()})
+
+
+def models_full_width(device):
+    """The six archs at their published widths on the card."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    for arch in MODEL_ARCHS:
+        t0 = time.perf_counter()
+        reduced = MODEL_OVERRIDES.get(arch)
+        published = get_config(arch)
+        cfg = dataclasses.replace(published, **(reduced or {}))
+        f32 = float32_config(cfg)
+        if arch in MODEL_HOST_ARCHS:
+            host = tf.init_params(torch.Generator().manual_seed(SEED), cfg,
+                                  "cpu")
+            model = copy.deepcopy(host).to(device)
+            models_card_vs_host(arch, host, model, f32, device)
+            del host
+        else:
+            model = tf.init_params(
+                torch.Generator(device).manual_seed(SEED), cfg, device)
+        n_params = sum(p.numel() for p in model.parameters())
+        got, want, fwd_s, dec_s = decode_against_forward(
+            model, f32, *MODEL_DECODE, SEED + 10, device)
+        err = held(got, want, MODEL_DECODE_TOL, f"{arch} decode vs forward")
+        emit({"phase": "models", "check": "decode_vs_forward", "arch": arch,
+              "params": n_params, "param_dtype": cfg.param_dtype,
+              "compute_dtype": f32.compute_dtype,
+              "reduced": ({"published": {k: getattr(published, k)
+                                         for k in reduced},
+                           "run": reduced} if reduced else None),
+              "batch": MODEL_DECODE[0], "positions": MODEL_DECODE[1],
+              "max_abs_err": err, "max_abs_logit": float(want.abs().max()),
+              "tol": MODEL_DECODE_TOL, "forward_s": fwd_s,
+              "decode_s": dec_s,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "wall_s": time.perf_counter() - t0, "card": nvidia_smi_line()})
+        del got, want
+        release_card()
+        if arch == MODEL_BF16["arch"]:
+            models_blocked(model, f32, device)
+            release_card()
+            models_bf16(model, cfg, device)
+        del model
+        release_card()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def models_smoke(device):
+    """Every arch's ``smoke()`` on the card against the host (the same
+    weights), decode against forward for the reference's six."""
+    import copy
+
+    from repro_torch.configs import get_config, list_archs, smoke
+    from repro_torch.models import transformer as tf
+    rows = []
+    for arch in list_archs():
+        cfg = smoke(get_config(arch))
+        host = tf.init_params(torch.Generator().manual_seed(SEED), cfg,
+                              "cpu")
+        card = copy.deepcopy(host).to(device)
+        batch = model_batch(cfg, 2, 64, SEED + 11, "cpu")
+        # One intra-op thread: these host ops are tiny, and more threads
+        # only add wake-up cost.
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            want, want_aux = tf.forward(host, batch, cfg, return_aux=True)
+        finally:
+            torch.set_num_threads(threads)
+        got, aux = tf.forward(card, {k: v.to(device)
+                                     for k, v in batch.items()}, cfg,
+                              return_aux=True)
+        if tuple(got.shape) != (2, 64, cfg.vocab_size):
+            raise AssertionError(f"models smoke {arch}: {tuple(got.shape)}")
+        row = {"arch": arch, "card_vs_host": held(
+            got, want, MODEL_SMOKE_TOL, f"smoke {arch} card vs host")}
+        for k in want_aux:
+            held(aux[k].reshape(1), want_aux[k].reshape(1), MODEL_SMOKE_TOL,
+                 f"smoke {arch} {k}")
+        if arch in MODEL_SMOKE_DECODE_ARCHS:
+            d, f, _, _ = decode_against_forward(
+                card, float32_config(cfg), *MODEL_SMOKE_DECODE, SEED + 12,
+                device)
+            row["decode_vs_forward"] = held(d, f, MODEL_SMOKE_TOL,
+                                            f"smoke {arch} decode")
+        rows.append(row)
+        del card, host
+        release_card()
+    emit({"phase": "models", "check": "smoke", "archs": len(rows),
+          "tol": MODEL_SMOKE_TOL, "rows": rows, "card": nvidia_smi_line()})
+
+
+def models_pipeline(device):
+    """The GPipe demo on ``PIPELINE_RANKS`` ranks sharing the card over
+    gloo, under ``torch.distributed.run``: pipelined equal to
+    sequential."""
+    import os
+    args = [] if device.type == "cuda" else ["--device", str(device)]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(PIPELINE_RANKS), "-m",
+         "repro_torch.distributed.pipeline", *args], capture_output=True,
+        text=True, timeout=MESH_TIMEOUT_S,
+        env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                             / "src")})
+    if run.returncode:
+        errors = [ln for ln in run.stderr.splitlines() if "Error" in ln]
+        raise AssertionError(f"models pipeline: exited {run.returncode}: "
+                             + "\n".join(errors[:20]) + "\n"
+                             + run.stderr[-2000:])
+    line = json.loads([ln for ln in run.stdout.splitlines()
+                       if ln.startswith("{")][-1])
+    if not line["equal_to_sequential"] or line["stages"] != PIPELINE_RANKS:
+        raise AssertionError(f"models pipeline: {line}")
+    emit({"phase": "models", "check": "pipeline",
+          "launcher": "torch.distributed.run", "transport": "gloo",
+          **line, "launch_wall_s": time.perf_counter() - t0,
+          "card": nvidia_smi_line()})
+
+
+def phase_models(device):
+    """Phase 3 (k), the models path: the full-width archs, the smoke
+    reductions and the GPipe demo.  It launches none of the hand-written
+    kernels (the models' products are plain matrix products, as the
+    reference's); returns their counts, read around the path, which must
+    all be 0."""
+    fns = {name: kernel_pair(name)[0] for name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    models_full_width(device)
+    models_smoke(device)
+    models_pipeline(device)
+    counts = {name: fn.launches for name, fn in fns.items()}
+    if any(counts.values()):
+        raise AssertionError(f"models path launched kernels: {counts}")
+    emit({"phase": "models", "round": "total",
+          "wall_s": time.perf_counter() - t0})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4453,7 +4861,8 @@ def main() -> int:
                "live": phase_live(device),
                "stream": phase_stream(device, stream_keep),
                "cli": phase_cli(device),
-               "mesh": phase_mesh(device)}
+               "mesh": phase_mesh(device),
+               "models": phase_models(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

@@ -11,7 +11,7 @@ reference: it takes numpy arrays.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,6 +23,8 @@ from repro_torch.core.coalesced import CoalescedConfig
 from repro_torch.core.imbue import IMBUEConfig
 from repro_torch.core.tm import TMConfig
 from repro_torch.core.variations import VariationConfig
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
 from repro_torch.serve.replica import CoalescedPool, ReplicaPool
 
 
@@ -115,3 +117,79 @@ def booleanizer_from_numpy(thresholds: np.ndarray,
         raise ValueError(f"thresholds must be [F, K], got {thr.shape}")
     return Booleanizer(thresholds=torch.from_numpy(thr.copy()).to(
         resolve_device(device)))
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """``{dot-joined path: array}`` of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+# Subtrees the reference stacks over superblocks on axis 0.
+_STACKED = ("blocks.", "encoder.blocks.")
+
+
+def _reference_leaf(path: str):
+    """``(reference path, superblock index or None)`` of a port parameter
+    path: ``blocks.<i>.<rest>`` is row ``i`` of the reference's stacked
+    ``blocks.<rest>`` (``encoder.blocks`` alike); every other name is the
+    reference's own."""
+    for pre in _STACKED:
+        if path.startswith(pre):
+            i, rest = path[len(pre):].split(".", 1)
+            return pre + rest, int(i)
+    return path, None
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device: DeviceLike = None):
+    """A port ``Transformer`` of ``cfg`` on ``device`` holding the
+    reference's parameter pytree ``tree`` (nested dicts / lists of numpy
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``): ``blocks`` and
+    ``encoder.blocks`` are unstacked on axis 0 into the per-superblock
+    modules, every other leaf keeps its name.  Values are cast to each
+    port parameter's dtype.  Raises on a missing or extra leaf, or a shape
+    that does not match."""
+    device = resolve_device(device)
+    leaves = _flatten(tree)
+    model = transformer.init_params(torch.Generator(device).manual_seed(0),
+                                    cfg, device)
+    used = set()
+    with torch.no_grad():
+        for path, prm in model.named_parameters():
+            ref, row = _reference_leaf(path)
+            if ref not in leaves:
+                raise ValueError(f"the reference tree has no leaf {ref!r} "
+                                 f"for the port's {path!r}")
+            arr = np.asarray(leaves[ref])
+            if row is not None:
+                arr = arr[row]
+            if tuple(arr.shape) != tuple(prm.shape):
+                raise ValueError(f"{ref!r}: shape {arr.shape} does not "
+                                 f"match the port's {tuple(prm.shape)}")
+            prm.copy_(torch.from_numpy(
+                np.ascontiguousarray(arr.astype(np.float32))))
+            used.add(ref)
+    extra = sorted(set(leaves) - used)
+    if extra:
+        raise ValueError(f"leaves of the reference tree the port has no "
+                         f"parameter for: {extra}")
+    return model
+
+
+def pipeline_params_from_numpy(tree, device: DeviceLike = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The pipeline demo's stacked stage weights (``{"w1": [S, d, 4d],
+    "w2": [S, 4d, d]}``) as float32 tensors on ``device``."""
+    device = resolve_device(device)
+    if set(tree) != {"w1", "w2"}:
+        raise ValueError(f"pipeline params need w1 and w2, got {sorted(tree)}")
+    return {k: torch.from_numpy(np.asarray(v, dtype=np.float32).copy()).to(
+        device) for k, v in tree.items()}

@@ -4,7 +4,8 @@
 Models never mention mesh axes.  They call ``constrain(x, *logical_axes)``
 with *logical* names ("batch", "seq", "heads", ...); the launcher
 activates a :class:`ShardingRules` mapping logical -> mesh axes for the
-current mesh.  With no active rules every call is a no-op.
+current mesh.  With no active rules every call is a no-op, and it never
+moves a plain tensor (see :func:`constrain`).
 
 A spec is a tuple with one entry per tensor dimension: a mesh-axis name,
 a tuple of names (the dimension splits over their product, the first
@@ -133,15 +134,16 @@ def active() -> Optional[ActiveSharding]:
 
 def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """Place ``x`` per the active rules (a no-op without them): a
-    ``DTensor`` is redistributed, a plain (whole) tensor is cut to this
-    rank's block."""
+    ``DTensor`` is redistributed.  A plain tensor passes as it is: the
+    models compute every activation whole on each rank (their parameters
+    may be stored as blocks, :func:`shard_module`, and are gathered at
+    use), so the sites where the reference hints a layout to its
+    partitioner place nothing in eager code."""
     act = _ACTIVE.get()
-    if act is None:
+    if act is None or not isinstance(x, DTensor):
         return x
     spec = P(*(act.rules.resolve(a) for a in logical_axes))
-    if isinstance(x, DTensor):
-        return x.redistribute(act.mesh, placements(act.mesh, spec))
-    return distribute(x, act.mesh, spec)
+    return x.redistribute(act.mesh, placements(act.mesh, spec))
 
 
 # ------------------------------------------------------- parameter specs
@@ -468,6 +470,27 @@ def shard_tree(tree, mesh, rules: Optional[ShardingRules] = None):
                                              mesh))
         return distribute(leaf, mesh, sh.spec) if sh.partitions else leaf
     return tree_map_with_path(place, tree)
+
+
+def shard_module(module: torch.nn.Module, mesh,
+                 rules: ShardingRules) -> torch.nn.Module:
+    """Store ``module``'s parameters on ``mesh`` per ``rules`` (in place):
+    each parameter whose spec (:func:`param_pspec` of its dot-joined
+    ``named_parameters`` path) partitions it becomes a ``DTensor``
+    parameter holding this rank's block; the others stay whole.  The
+    models read a parameter through ``models.layers.full``, which gathers
+    a block at its use."""
+    for path, prm in list(module.named_parameters()):
+        sh = NamedSharding(mesh, param_pspec(path, tuple(prm.shape), rules,
+                                             mesh))
+        if not sh.partitions:
+            continue
+        owner, _, name = path.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        setattr(sub, name, torch.nn.Parameter(
+            distribute(prm.detach(), mesh, sh.spec),
+            requires_grad=prm.requires_grad))
+    return module
 
 
 def local_block(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...],

@@ -6,19 +6,23 @@ group, one process a rank, so making one needs a group of exactly its
 size: ``--host-devices N`` on the CLIs spawns N host ranks
 (``launch.hostdev``), and on the card ``python -m torch.distributed.run
 --standalone --nproc-per-node N ...`` starts them (gloo where ranks share
-one card, which NCCL refuses).  ``rules_for`` and
-``make_production_mesh`` need the LM configs and come with the models.
+one card, which NCCL refuses).  ``rules_for`` adapts the LM sharding
+rules to an arch, a mesh and a workload; ``make_production_mesh`` is the
+reference's pod mesh, which needs a group of 256 (or 512) ranks.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch._device import resolve_device
-from repro_torch.distributed.sharding import mesh_shape
+from repro_torch.distributed.sharding import ShardingRules, mesh_shape
+from repro_torch.models.config import ModelConfig
 
 
 def _mesh(shape, names, device_type: Optional[str]) -> DeviceMesh:
@@ -37,7 +41,23 @@ def _mesh(shape, names, device_type: Optional[str]) -> DeviceMesh:
             f"a mesh of shape {tuple(shape)} needs {n} ranks but the "
             f"process group has {dist.get_world_size()}")
     device_type = device_type or resolve_device(None).type
+    if device_type == "cuda" and not torch.cuda.is_initialized():
+        # DeviceMesh would select card LOCAL_RANK, which a machine whose
+        # ranks share fewer cards lacks: select it modulo the cards.
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+        torch.cuda.init()
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None) -> DeviceMesh:
+    """Single pod: 16x16 = 256 ranks (data, model).  Multi-pod: 2 pods of
+    256 = 512 ranks (pod, data, model).  Raises unless the process group
+    has exactly that many ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes, device_type)
 
 
 def make_debug_mesh(n_data: int = 2, n_model: int = 2, *,
@@ -84,3 +104,49 @@ def parse_mesh_spec(spec: str, *,
 
 def batch_axes(mesh):
     return tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+
+
+def _batch_ranks(sizes, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def rules_for(cfg: ModelConfig, mesh, *, global_batch: Optional[int] = None,
+              pure_dp: bool = False) -> ShardingRules:
+    """Sharding rules adapted to arch + mesh + workload (the reference's,
+    rule for rule).
+
+    - batch shards over (pod, data) — dropped entirely if the global batch
+      doesn't divide;
+    - tensor/expert axes stay on "model";
+    - sequence parallelism is declared when ``cfg.seq_parallel``;
+    - ``pure_dp``: sub-1B archs fold "model" into the batch axes and keep
+      parameters FSDP over "data".
+    """
+    sizes = mesh_shape(mesh)
+    if pure_dp and "model" in sizes:
+        b_axes = tuple(a for a in ("data", "model") if a in sizes)
+        n = _batch_ranks(sizes, b_axes)
+        if global_batch is None or global_batch % n == 0:
+            return ShardingRules(
+                batch=b_axes, seq=None, embed=None, heads=None,
+                kv_seq=None, expert=None, vocab=None, mlp=None,
+                fsdp="data", tensor=None)
+    b_axes = batch_axes(mesh)
+    if global_batch is not None and \
+            global_batch % _batch_ranks(sizes, b_axes):
+        b_axes = ()
+    return ShardingRules(
+        batch=b_axes if b_axes else None,
+        seq="model" if cfg.seq_parallel else None,
+        embed=None,
+        heads="model",
+        kv_seq="model",
+        expert="model",
+        vocab="model",
+        mlp="model",
+        fsdp="data" if "data" in sizes else None,
+        tensor="model" if "model" in sizes else None,
+    )

@@ -77,7 +77,9 @@ def test_scan_covers_the_port():
             "torch_serve_quickstart.py", "torch_stream_quickstart.py",
             "torch_swap_quickstart.py", "torch_image_imbue.py",
             "sharding.py", "mesh.py", "hostdev.py", "tm_distributed.py",
-            "torch_tm_scaleout.py"} <= names
+            "torch_tm_scaleout.py", "config.py", "layers.py",
+            "attention.py", "moe.py", "ssm.py", "transformer.py",
+            "pipeline.py", "archs.py", "base.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
@@ -278,6 +280,35 @@ def test_tuning_entry_points_raise_without_device_and_cuda(no_cuda):
     finally:
         api.restore_tuning(snap)
     assert doctable.render().startswith("# Backend registry")
+
+
+def test_model_and_pipeline_entry_points_raise_without_device_and_cuda(
+        no_cuda):
+    """The LM models and the pipeline demo run on the card unless the
+    caller names the host."""
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed import pipeline
+    from repro_torch.models import transformer
+    cfg = smoke(get_config("qwen2-0.5b"))
+    gen = torch.Generator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(gen, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_decode_state(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_params_from_numpy({}, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.init_pipeline_params(gen, 2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.pipeline_params_from_numpy(
+            {"w1": np.zeros((2, 8, 32)), "w2": np.zeros((2, 32, 8))})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pipeline.main([])
+    # With device="cpu" they run on the host.
+    assert next(transformer.init_params(gen, cfg, "cpu").parameters()
+                ).device.type == "cpu"
+    assert pipeline.init_pipeline_params(gen, 2, 8, "cpu")["w1"].shape == (
+        2, 8, 32)
 
 
 def _script(path: Path):

@@ -495,3 +495,94 @@ def _stream_on_mesh():
                                           err_msg=what)
             out[f"stream_{name}_{cls.__name__}"] = streamed
     return out
+
+
+# -------------------------------------------------------- pipeline, LM
+
+PIPE = dict(stages=4, d=32, batch=8, seq=16, microbatches=4)
+PIPE_TOL = 2e-5          # the reference's bar (tests/test_distributed.py)
+LM_BATCH = 4
+
+
+def pipeline_params():
+    """The demo's stage weights ``{"w1": [4, 32, 128], "w2": [4, 128,
+    32]}`` and input ``[8, 16, 32]``, drawn with numpy seeds 0 and 1."""
+    rng = np.random.default_rng(0)
+    d, s = PIPE["d"], PIPE["stages"]
+    params = {"w1": (rng.standard_normal((s, d, 4 * d)) / d ** 0.5
+                     ).astype(np.float32),
+              "w2": (rng.standard_normal((s, 4 * d, d)) / (4 * d) ** 0.5
+                     ).astype(np.float32)}
+    x = np.random.default_rng(1).standard_normal(
+        (PIPE["batch"], PIPE["seq"], d)).astype(np.float32)
+    return params, x
+
+
+def lm_tokens(vocab):
+    return np.random.default_rng(2).integers(0, vocab, (LM_BATCH, 64))
+
+
+def pipeline_case(out_dir):
+    """On 4 ranks: the GPipe demo (``pipeline_apply`` on a ``(pipe 4,)``
+    mesh) against ``sequential_apply``, with the stage weights whole on
+    every rank and partitioned over ``pipe``; then ``rules_for`` on a
+    ``(data 2, model 2)`` debug mesh: the qwen2 ``smoke()`` model's
+    parameters stored as blocks (``shard_module``) give the forward of
+    the whole model."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed import pipeline, sharding
+    from repro_torch.launch.mesh import (make_debug_mesh, make_pipeline_mesh,
+                                         rules_for)
+    from repro_torch.models import transformer as tf
+
+    rec = Record()
+    params_np, x_np = pipeline_params()
+    params = convert.pipeline_params_from_numpy(params_np, "cpu")
+    x = torch.from_numpy(x_np)
+
+    def gpipe():
+        mesh = make_pipeline_mesh(PIPE["stages"], device_type="cpu")
+        ref = pipeline.sequential_apply(params, x)
+        got = pipeline.pipeline_apply(params, x, mesh,
+                                      microbatches=PIPE["microbatches"])
+        torch.testing.assert_close(got, ref, rtol=PIPE_TOL, atol=PIPE_TOL)
+        _all_ranks_equal(got.numpy())
+        blocks = {k: sharding.distribute(v, mesh, sharding.P("pipe"))
+                  for k, v in params.items()}
+        assert all(sharding.partitioned(v) for v in blocks.values())
+        again = pipeline.pipeline_apply(blocks, x, mesh,
+                                        microbatches=PIPE["microbatches"])
+        assert torch.equal(again, got)
+        # two microbatches: a longer bubble, the same answer
+        two = pipeline.pipeline_apply(params, x, mesh, microbatches=2)
+        torch.testing.assert_close(two, ref, rtol=PIPE_TOL, atol=PIPE_TOL)
+        rec.arrays["pipeline"] = got.numpy()
+
+    def sharded_lm():
+        cfg = smoke(get_config("qwen2-0.5b"))
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        rules = rules_for(cfg, mesh, global_batch=LM_BATCH)
+        assert rules.batch == ("data",) and rules.tensor == "model"
+        model = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        batch = {"tokens": torch.from_numpy(lm_tokens(cfg.vocab_size))}
+        want = tf.forward(model, batch, cfg)
+        sharding.shard_module(model, mesh, rules)
+        split = [n for n, p in model.named_parameters()
+                 if sharding.partitioned(p)]
+        assert "embeddings.embed" in split and \
+            "blocks.0.0.mix.w_q" in split, split
+        for n, p in model.named_parameters():
+            want_spec = sharding.param_pspec(n, tuple(p.shape), rules, mesh)
+            if n in split:
+                assert list(p.placements) == sharding.placements(
+                    mesh, want_spec), n
+        with sharding.use_sharding(mesh, rules):
+            got = tf.forward(model, batch, cfg)
+        assert not isinstance(got, sharding.DTensor)
+        assert torch.equal(got, want)
+        rec.arrays["lm_sharded_logits"] = got.numpy()
+
+    for name, fn in (("gpipe", gpipe), ("sharded_lm", sharded_lm)):
+        rec.check(name, fn)
+    rec.save(out_dir)
