@@ -199,7 +199,29 @@ is non-zero and no result line is printed):
    decode against forward for the reference's six; and the GPipe demo on
    ``PIPELINE_RANKS`` ranks sharing the card under
    ``torch.distributed.run``.  It launches none of the eleven kernels:
-   their counts, read around the path, must be 0.
+   their counts, read around the path, must be 0; (l) the lm_train path,
+   LM training (``repro_torch.optim``, ``train.train_step``,
+   ``data.pipeline``, ``launch.train``): one float32 AdamW step of
+   qwen2-0.5b at its published widths and depth on the card against the
+   same weights on the host (loss, every gradient leaf, the updated
+   parameters; ``LM_HOST_TOL``), remat against none at 8 x 256 (equal
+   gradients, each one's peak memory); ``python -m
+   repro_torch.launch.train --full`` in this process on qwen2-0.5b,
+   zamba2-1.2b (2 microbatches) and whisper-large-v3 (``LM_TRAIN_RUNS``:
+   finite losses, the last below the first, ms a step and tokens/s from
+   CUDA events, peak memory; one more qwen2 step under ``torch.profiler``)
+   and xlstm-125m's resume cycle (8 steps with checkpoints every 4, a
+   restart to 12 that prints ``resumed from step 8``, its losses against
+   an uninterrupted run within ``LM_RESUME_TOL``); the ten ``smoke()``
+   archs, 8 steps each on the card and the host (the loss falls, every
+   parameter moves, the first loss within ``LM_SMOKE_TOL``); and
+   ``LM_RANKS`` = 4 ranks sharing the card over gloo: the data-parallel
+   step of smoke qwen2 and deepseek on ``(2, 2)`` and ``(4, 1)`` against
+   one rank (the reference's bars), ``compressed_psum_grads`` (0.05 of
+   max |g|, 2 bytes an element on the wire), and the trainer's ``--mesh
+   debug`` resume cycle under ``torch.distributed.run``.  Like the models
+   it launches none of the eleven kernels (counts read around the path
+   and on every rank, all 0).
    Each path's launch counters are zeroed just before it and read just
    after: one launch per dispatch (plus one per probe read and canary
    shadow read on the live path, one ``tm_infer`` per probe commit, and
@@ -567,6 +589,79 @@ MODEL_SMOKE_DECODE_ARCHS = ("qwen2-0.5b", "gemma2-2b", "xlstm-125m",
 # ranks sharing the card over gloo, under torch.distributed.run: the
 # pipelined forward against sequential_apply within its 2e-5.
 PIPELINE_RANKS = 4
+# The lm_train path, phase 3 (l): LM training (repro_torch.optim,
+# train.train_step, data.pipeline, launch.train).  Like the models it
+# launches none of the eleven kernels.  (a) One AdamW step of qwen2-0.5b
+# at its published widths and depth, float32 (float32_config, remat on as
+# published), B x S = LM_HOST_SHAPE, from one weight set drawn on the host
+# and copied to the card: the loss within rtol LM_HOST_TOL["loss"], every
+# gradient leaf within LM_HOST_TOL["grad"] x max |g| (PR 27's float32
+# forward gap at this arch was 6.7e-6 on logits of max 2.86; the backward
+# sums over the batch in another order on each side), and the updated
+# parameters within 2 x LM_HOST_LR: AdamW's first step moves a parameter
+# by lr x g / (|g| + eps), so a gradient whose sign the two sides round
+# differently (one near 0) moves it by at most 2 lr; the count of
+# parameters past 1e-6 is read beside.  Then remat on against off on the
+# card at LM_REMAT_SHAPE: the gradients within LM_REMAT_TOL x max |g| (the
+# recomputation is the same arithmetic; the backward's atomics may add in
+# another order) and each one's peak memory.
+LM_HOST_ARCH = "qwen2-0.5b"
+LM_HOST_SHAPE = (2, 64)
+LM_HOST_LR = 1e-3
+LM_HOST_TOL = {"loss": 1e-5, "grad": 1e-4}
+LM_REMAT_SHAPE = (8, 256)
+LM_REMAT_TOL = 1e-5
+# (b) The trainer at full width, `python -m repro_torch.launch.train
+# --full` in this process (bf16 compute, float32 parameters and AdamW
+# state, the config's remat), one model at a time: each run's losses
+# finite and the last below the first; ms a step and tokens/s from CUDA
+# events around each step (the median after the first), the peak memory.
+# xlstm-125m (the launcher's default arch) runs the resume cycle: 8 steps
+# with checkpoints every 4, a restart to 12 that resumes from step 8, and
+# one uninterrupted 12-step run, whose steps 8-11 the resumed ones equal
+# within LM_RESUME_TOL (absolute; the CE's gather backward adds with
+# atomics on the card, so equality is read, not assumed).  The warm-up is
+# 20 steps, so a run of 8 and one of 12 share the schedule up to step 12;
+# the runs take --lr LM_TRAIN_LR (10x the launcher's default), so that
+# the warm-up's first 6-12 steps move the loss past the noise between
+# batches.
+LM_TRAIN_LR = "3e-3"
+LM_TRAIN_RUNS = (
+    ("qwen2-0.5b", ("--arch", "qwen2-0.5b", "--batch", "8", "--seq", "256",
+                    "--steps", "12")),
+    ("zamba2-1.2b", ("--arch", "zamba2-1.2b", "--batch", "8", "--seq", "256",
+                     "--microbatches", "2", "--steps", "6")),
+    ("whisper-large-v3", ("--arch", "whisper-large-v3", "--batch", "8",
+                          "--seq", "256", "--steps", "6")),
+)
+LM_RESUME = dict(arch="xlstm-125m", first=8, total=12, every=4)
+LM_RESUME_TOL = 1e-3
+# One more step of this run under torch.profiler: where the eager step's
+# time goes (host against device, launches, the heaviest kernels).
+LM_PROFILE_RUN = "qwen2-0.5b"
+# (c) Every smoke() arch: LM_SMOKE["steps"] AdamW steps at lr 3e-3 on one
+# fixed batch (the reference's test_smoke_loss_decreases), on the card and
+# on the host from the same weights: the CE falls, the first step moves
+# every parameter, and the first step's loss on the card equals the
+# host's within LM_SMOKE_TOL (PR 27's smoke forwards: under 5e-6 on
+# logits, xlstm 7.1e-4).
+LM_SMOKE = dict(steps=8, lr=3e-3, batch=2, seq=64)
+LM_SMOKE_TOL = {"xlstm-125m": 2e-3}
+LM_SMOKE_TOL_DEFAULT = 1e-4
+# (d) LM_RANKS ranks sharing the card over gloo: one data-parallel AdamW
+# step (lr 1e-2, B = 4 x 64) of smoke qwen2-0.5b and smoke
+# deepseek-v2-lite-16b (d_model 64) on make_debug_mesh(2, 2) and (4, 1)
+# against one rank on the whole batch, at the reference's bars (loss rtol
+# 2e-4, parameters 3e-3; tests/test_distributed.py:40-81);
+# compressed_psum_grads on a data mesh of 4 within 0.05 of max |g|, 2
+# bytes an element on the wire; then the trainer with LM_MESH_CLI_ARGS
+# under torch.distributed.run: 8 steps, a restart to 12 from step 8.
+LM_RANKS = 4
+LM_DP = dict(d_model=64, batch=4, seq=64, lr=1e-2, loss_rtol=2e-4,
+             param_tol=3e-3)
+LM_MESH_CLI_ARGS = ("--mesh", "debug", "--arch", "qwen2-0.5b", "--batch",
+                    "8", "--seq", "64", "--ckpt-every", "4", "--log-every",
+                    "1")
 # Flash attention at the attention widths of three architectures the repo
 # registers (src/repro/configs/archs.py; the numbers are copied, the port
 # imports nothing of the reference), in the models' compute dtype (bf16),
@@ -4837,6 +4932,482 @@ def phase_models(device):
     return counts
 
 
+# -------------------------------------------------------------- lm_train
+
+def lm_grads(model, batch, cfg):
+    """``(loss, {name: gradient})`` of ``loss_fn`` by autograd."""
+    from repro_torch.models import transformer as tf
+    loss, _ = tf.loss_fn(model, batch, cfg)
+    named = list(model.named_parameters())
+    gs = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
+    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                           for (n, p), g in zip(named, gs)}
+
+
+def grad_gap(got, want):
+    """``(max |got - want| over every leaf, max |want|)``, on the host."""
+    err = max(float((got[n].float().cpu() - want[n].float().cpu()).abs()
+                    .max()) for n in want)
+    return err, max(float(want[n].abs().max()) for n in want)
+
+
+def lm_card_vs_host(device):
+    """(a): one AdamW step of ``LM_HOST_ARCH`` at full width, float32, on
+    the card against the host from the same weights; then remat on
+    against off on the card with each one's peak memory."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+    cfg = float32_config(get_config(LM_HOST_ARCH))
+    host = tf.init_params(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    card = copy.deepcopy(host).to(device)
+    batch = model_batch(cfg, *LM_HOST_SHAPE, SEED + 20, "cpu")
+    t0 = time.perf_counter()
+    want_loss, want = lm_grads(host, batch, cfg)
+    host_s = time.perf_counter() - t0
+    got_loss, got = lm_grads(card, {k: v.to(device) for k, v in
+                                    batch.items()}, cfg)
+    err, g_max = grad_gap(got, want)
+    loss_err = abs(float(got_loss) - float(want_loss))
+    for model, grads in ((host, want), (card, got)):
+        make_optimizer(model, OptimizerConfig(lr=LM_HOST_LR)).step(0, grads)
+    del got, want
+    p_err, past = 0.0, 0
+    card_p = dict(card.named_parameters())
+    for n, p in host.named_parameters():
+        d = (card_p[n].detach().cpu() - p.detach()).abs()
+        p_err = max(p_err, float(d.max()))
+        past += int((d > 1e-6).sum())
+    n_params = sum(p.numel() for p in host.parameters())
+    ok = (loss_err <= LM_HOST_TOL["loss"] * abs(float(want_loss))
+          and err <= LM_HOST_TOL["grad"] * g_max
+          and p_err <= 2 * LM_HOST_LR)
+    row = {"phase": "lm_train", "check": "card_vs_host",
+           "arch": LM_HOST_ARCH, "shape": list(LM_HOST_SHAPE),
+           "dtype": "float32", "remat": cfg.remat, "params": n_params,
+           "loss": float(want_loss), "loss_abs_err": loss_err,
+           "grad_max_abs_err": err, "grad_max_abs": g_max,
+           "grad_rel_err": err / g_max, "tol": LM_HOST_TOL,
+           "lr": LM_HOST_LR, "param_max_abs_err": p_err,
+           "param_bound": 2 * LM_HOST_LR, "params_past_1e-6": past,
+           "host_fwd_bwd_s": host_s, "card": nvidia_smi_line()}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"lm_train card vs host: {row}")
+    del host
+    release_card()
+    # remat on against off, on the card, at LM_REMAT_SHAPE
+    batch = model_batch(cfg, *LM_REMAT_SHAPE, SEED + 21, device)
+    out = {}
+    for remat in (True, False):
+        # peaks are read over what the card holds before each pass (the
+        # weights, and after the first pass its gradients)
+        c = dataclasses.replace(cfg, remat=remat)
+        release_card()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = lm_grads(card, batch, c)
+        torch.cuda.synchronize()
+        out[remat] = (loss, grads, time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated(),
+                      torch.cuda.max_memory_allocated() - base)
+    err, g_max = grad_gap(out[True][1], out[False][1])
+    row = {"phase": "lm_train", "check": "remat", "arch": LM_HOST_ARCH,
+           "shape": list(LM_REMAT_SHAPE), "dtype": "float32",
+           "loss_equal": bool(torch.equal(out[True][0], out[False][0])),
+           "grad_max_abs_err": err, "grad_max_abs": g_max,
+           "tol": LM_REMAT_TOL,
+           "peak_gib": {"remat": out[True][3] / 2 ** 30,
+                        "no_remat": out[False][3] / 2 ** 30},
+           "peak_over_weights_gib": {"remat": out[True][4] / 2 ** 30,
+                                     "no_remat": out[False][4] / 2 ** 30},
+           "fwd_bwd_s": {"remat": out[True][2], "no_remat": out[False][2]},
+           "card": nvidia_smi_line()}
+    emit(row)
+    if err > LM_REMAT_TOL * g_max or not out[True][4] < out[False][4]:
+        raise AssertionError(f"lm_train remat: {row}")
+    del out, card
+    release_card()
+
+
+def lm_trainer(argv, device):
+    """``launch.train.main(argv)`` on ``device`` in this process, its
+    standard output kept: ``(TrainRun, log, peak bytes)``."""
+    from repro_torch.launch import train as train_cli
+    release_card()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = train_cli.main(list(argv) + ["--device", device.type])
+    peak = torch.cuda.max_memory_allocated()
+    return run, buf.getvalue(), peak
+
+
+def lm_run_row(label, argv, run, log, peak):
+    """A run's JSON line; fails unless every loss is finite and the last
+    is below the first."""
+    steps = sorted(run.losses)
+    losses = [run.losses[s] for s in steps]
+    later = [run.step_s[s] for s in steps[1:]] or [run.step_s[steps[0]]]
+    ms = statistics.median(later) * 1e3
+    row = {"phase": "lm_train", "check": "trainer", "run": label,
+           "argv": list(argv), "params": sum(
+               p.numel() for p in run.model.parameters()),
+           "compute_dtype": run.cfg.compute_dtype,
+           "param_dtype": run.cfg.param_dtype, "remat": run.cfg.remat,
+           "start_step": run.start_step, "losses": losses,
+           "first_step_ms": run.step_s[steps[0]] * 1e3, "ms_per_step": ms,
+           "tokens_per_s": run.tokens_per_step / ms * 1e3,
+           "peak_gib": peak / 2 ** 30,
+           "log_lines": sum(ln.startswith("[train] step")
+                            for ln in log.splitlines()),
+           "card": nvidia_smi_line()}
+    emit(row)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"lm_train {label}: losses {losses}")
+    return row
+
+
+def lm_step_profile(run, label, device):
+    """One more train step of a finished ``TrainRun`` (its next synthetic
+    batch) under ``torch.profiler``: host ms, device ms (the kernels'
+    time), the device's idle share, kernel launches and the five kernels
+    that take the most device time (recorded, not held)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.train.train_step import make_train_step
+    step_idx = max(run.losses) + 1
+    args = run.batch_shape
+    batch = {k: torch.from_numpy(v.astype(np.int64) if k == "tokens"
+                                 else v).to(device)
+             for k, v in synth_batch(run.cfg, DataConfig(), step_idx,
+                                     *args).items()}
+    step = make_train_step(run.cfg, run.optimizer)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(run.model, step_idx, batch)["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    # A named range (the optimizer's step) also shows on the device's
+    # timeline as a span over its kernels: read it apart, not as work.
+    spans = [e for e in cuda if getattr(e, "is_user_annotation", False)
+             or e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    kernels = [e for e in cuda if e not in spans]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    emit({"phase": "lm_train", "check": "step_profile", "run": label,
+          "batch": list(args), "host_ms": wall * 1e3,
+          "device_ms": device_ms,
+          "device_idle_share": 1.0 - device_ms / (wall * 1e3),
+          "kernel_launches": sum(e.count for e in kernels),
+          "spans_ms": {e.key: e.device_time_total / 1e3 for e in spans},
+          "top_kernels_ms": [[e.key[:80], e.self_device_time_total / 1e3]
+                             for e in top],
+          "card": nvidia_smi_line()})
+
+
+def lm_full_width(device):
+    """(b): the trainer at full width; xlstm-125m's resume cycle."""
+    import shutil
+    import tempfile
+    for label, args in LM_TRAIN_RUNS:
+        argv = ("--full", "--log-every", "1", "--lr", LM_TRAIN_LR) + args
+        run, log, peak = lm_trainer(argv, device)
+        lm_run_row(label, argv, run, log, peak)
+        if label == LM_PROFILE_RUN:
+            lm_step_profile(run, label, device)
+        del run
+    r = LM_RESUME
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_resume-")
+    try:
+        base = ("--full", "--arch", r["arch"], "--lr", LM_TRAIN_LR,
+                "--ckpt-dir", ckpt_dir, "--ckpt-every", str(r["every"]),
+                "--log-every", "1")
+        t0 = time.perf_counter()
+        first, log1, peak1 = lm_trainer(base + ("--steps", str(r["first"])),
+                                        device)
+        lm_run_row(f"{r['arch']} steps 0-{r['first'] - 1}",
+                   base + ("--steps", str(r["first"])), first, log1, peak1)
+        del first
+        again, log2, peak2 = lm_trainer(base + ("--steps", str(r["total"])),
+                                        device)
+        lm_run_row(f"{r['arch']} resumed", base + ("--steps",
+                                                   str(r["total"])),
+                   again, log2, peak2)
+        cycle_s = time.perf_counter() - t0
+        argv = ("--full", "--arch", r["arch"], "--lr", LM_TRAIN_LR,
+                "--log-every", "1", "--steps", str(r["total"]))
+        straight, log3, peak3 = lm_trainer(argv, device)
+        lm_run_row(f"{r['arch']} uninterrupted", argv, straight, log3, peak3)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps = range(r["first"], r["total"])
+    gaps = [abs(again.losses[s] - straight.losses[s]) for s in steps]
+    row = {"phase": "lm_train", "check": "resume", "arch": r["arch"],
+           "resumed_line": f"[train] resumed from step {r['first']}" in log2,
+           "start_step": again.start_step,
+           "resumed_losses": [again.losses[s] for s in steps],
+           "uninterrupted_losses": [straight.losses[s] for s in steps],
+           "max_abs_gap": max(gaps), "tol": LM_RESUME_TOL,
+           "bitwise_equal": all(g == 0.0 for g in gaps),
+           "cycle_wall_s": cycle_s, "card": nvidia_smi_line()}
+    emit(row)
+    if not (row["resumed_line"] and again.start_step == r["first"]
+            and max(gaps) <= LM_RESUME_TOL):
+        raise AssertionError(f"lm_train resume: {row}")
+    del again, straight
+    release_card()
+
+
+def lm_smoke(device):
+    """(c): every ``smoke()`` arch trains on the card; its first loss
+    equals the host's from the same weights."""
+    import copy
+
+    from repro_torch.configs import get_config, list_archs, smoke
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    r = LM_SMOKE
+    rows = []
+    for arch in list_archs():
+        cfg = smoke(get_config(arch))
+        host = tf.init_params(torch.Generator().manual_seed(SEED), cfg,
+                              "cpu")
+        card = copy.deepcopy(host).to(device)
+        start = {n: p.detach().clone() for n, p in card.named_parameters()}
+        batch = model_batch(cfg, r["batch"], r["seq"], SEED + 22, "cpu")
+        out = {}
+        t0 = time.perf_counter()
+        for side, model, b in (("card", card, {k: v.to(device) for k, v in
+                                                batch.items()}),
+                               ("host", host, batch)):
+            threads = torch.get_num_threads()
+            if side == "host":
+                torch.set_num_threads(1)
+            try:
+                opt = make_optimizer(model, OptimizerConfig(lr=r["lr"]))
+                step = make_train_step(cfg, opt)
+                losses = []
+                for i in range(r["steps"]):
+                    losses.append(float(step(model, i, b)["ce_loss"]))
+                    if i == 0 and side == "card":
+                        moved = min(float((p.detach() - start[n]).abs()
+                                          .max()) for n, p in
+                                    model.named_parameters())
+            finally:
+                torch.set_num_threads(threads)
+            out[side] = losses
+            if side == "card":
+                card_s = time.perf_counter() - t0
+        tol = LM_SMOKE_TOL.get(arch, LM_SMOKE_TOL_DEFAULT)
+        gap = abs(out["card"][0] - out["host"][0])
+        row = {"arch": arch, "first_loss": out["card"][0],
+               "card_vs_host": gap, "tol": tol,
+               "card_vs_host_all_steps": max(
+                   abs(a - b) for a, b in zip(out["card"], out["host"])),
+               "last_loss": out["card"][-1], "least_first_step_move": moved,
+               "card_s": card_s}
+        rows.append(row)
+        if not (gap <= tol and out["card"][-1] < out["card"][0]
+                and moved > 0):
+            raise AssertionError(f"lm_train smoke {arch}: {row}, "
+                                 f"card {out['card']}, host {out['host']}")
+        del card, host
+        release_card()
+    emit({"phase": "lm_train", "check": "smoke", "archs": len(rows),
+          "steps": r["steps"], "lr": r["lr"], "rows": rows,
+          "card": nvidia_smi_line()})
+
+
+def lm_dp_rank(device_name, out_dir):
+    """(d), one of ``LM_RANKS`` ranks on the card: the data-parallel step
+    of smoke qwen2 and deepseek on ``(2, 2)`` and ``(4, 1)`` against this
+    rank's own whole-batch step, and ``compressed_psum_grads`` on a data
+    mesh of 4.  Every rank reports its launches (all must be 0); rank 0
+    writes ``lm_dp.json``."""
+    import copy
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import _mesh, make_debug_mesh, rules_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.compression import (GradCompressor,
+                                               compressed_psum_grads)
+    from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    zero_launches(KERNELS)
+    d = LM_DP
+    report = {"dp": []}
+
+    def one_step(model, cfg, batch):
+        opt = make_optimizer(model, OptimizerConfig(lr=d["lr"]))
+        return make_train_step(cfg, opt)(model, 0, batch)
+
+    for arch in ("qwen2-0.5b", "deepseek-v2-lite-16b"):
+        cfg = smoke(get_config(arch), d_model=d["d_model"])
+        base = tf.init_params(torch.Generator(device).manual_seed(SEED), cfg,
+                              device)
+        batch = model_batch(cfg, d["batch"], d["seq"], SEED + 23, device)
+        single = copy.deepcopy(base)
+        want = one_step(single, cfg, batch)
+        want_p = dict(single.named_parameters())
+        for shape in ((2, 2), (4, 1)):
+            mesh = make_debug_mesh(*shape, device_type=device.type)
+            rules = rules_for(cfg, mesh, global_batch=d["batch"])
+            model = sharding.shard_module(copy.deepcopy(base), mesh, rules)
+            t0 = time.perf_counter()
+            with sharding.use_sharding(mesh, rules):
+                got = one_step(model, cfg, batch)
+            step_s = time.perf_counter() - t0
+            worst = max(float((sharding.gather(p.detach())
+                               - want_p[n].detach()).abs().max())
+                        for n, p in model.named_parameters())
+            loss_rel = abs(float(got["loss"]) - float(want["loss"])) \
+                / abs(float(want["loss"]))
+            row = {"arch": arch, "mesh": list(shape), "loss": float(
+                got["loss"]), "single_loss": float(want["loss"]),
+                "loss_rel_err": loss_rel, "param_max_abs_err": worst,
+                "step_s": step_s,
+                "moe_aux_loss": float(got.get("moe_aux_loss", 0.0)),
+                "single_moe_aux_loss": float(want.get("moe_aux_loss", 0.0))}
+            report["dp"].append(row)
+            if not (loss_rel <= d["loss_rtol"] and worst < d["param_tol"]):
+                raise AssertionError(f"lm_train dp: {row}")
+    # the int8 reduction on a data mesh of 4
+    mesh = _mesh((LM_RANKS,), ("data",), device.type)
+    rng = np.random.default_rng(SEED + 24)
+    params = {"w": torch.from_numpy(rng.standard_normal(
+        (64, 64)).astype(np.float32)).to(device),
+        "b": torch.zeros(3, device=device)}
+    x = torch.from_numpy(rng.standard_normal((32, 64)).astype(
+        np.float32)).to(device)
+
+    def grad_fn(p, xb):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        loss = (torch.tanh(xb @ leaves["w"]) ** 2).mean() \
+            + leaves["b"].sum() * 0
+        return dict(zip(leaves, torch.autograd.grad(loss,
+                                                    list(leaves.values()))))
+
+    comp = GradCompressor(min_size=16)
+    fn = compressed_psum_grads(grad_fn, mesh, "data", comp)
+    grads, _ = fn(params, x, comp.init_state(params))
+    ref = grad_fn(params, x)
+    err = float((grads["w"] - ref["w"]).abs().max() / ref["w"].abs().max())
+    report["compressed"] = {"rel_err": err, "tol": 0.05,
+                            "wire_bytes": fn.wire_bytes,
+                            "wire_bytes_per_element":
+                                fn.wire_bytes.get("w", 0) / 64 / 64}
+    if not (err < 0.05 and fn.wire_bytes == {"w": 64 * 64 * 2}):
+        raise AssertionError(f"lm_train compressed: {report['compressed']}")
+    report["launches_by_rank"] = rank_launches(KERNELS)
+    if dist.get_rank() == 0:
+        with open(Path(out_dir) / "lm_dp.json", "w") as f:
+            json.dump(report, f)
+
+
+def lm_mesh(device):
+    """(d): ``lm_dp_rank`` on ``LM_RANKS`` spawned ranks sharing the card,
+    then the trainer's ``--mesh debug`` resume cycle under
+    ``torch.distributed.run``."""
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.hostdev import run_host_ranks
+    out = tempfile.mkdtemp(prefix="lm_dp-")
+    t0 = time.perf_counter()
+    run_host_ranks(lm_dp_rank, LM_RANKS, (str(device), out), rdzv_dir=out,
+                   timeout=MESH_TIMEOUT_S)
+    with open(Path(out) / "lm_dp.json") as f:
+        report = json.load(f)
+    for rank, counts in report["launches_by_rank"].items():
+        if any(counts.values()):
+            raise AssertionError(f"lm_train dp: rank {rank} launched "
+                                 f"kernels: {counts}")
+    emit({"phase": "lm_train", "check": "data_parallel", "ranks": LM_RANKS,
+          "transport": "gloo", **report, "wall_s": time.perf_counter() - t0,
+          "card": nvidia_smi_line()})
+    ckpt_dir = tempfile.mkdtemp(prefix="lm_mesh_ckpt-")
+    args = list(LM_MESH_CLI_ARGS) + ["--ckpt-dir", ckpt_dir]
+    if device.type != "cuda":
+        args += ["--device", str(device)]
+    logs, walls = [], []
+    try:
+        for steps in ("8", "12"):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", str(LM_RANKS), "-m",
+                 "repro_torch.launch.train", *args, "--steps", steps],
+                capture_output=True, text=True, timeout=MESH_TIMEOUT_S,
+                env={**os.environ, "PYTHONPATH": str(
+                    Path(__file__).resolve().parent / "src")})
+            walls.append(time.perf_counter() - t0)
+            if run.returncode:
+                raise AssertionError(f"lm_train mesh trainer: exited "
+                                     f"{run.returncode}: "
+                                     f"{run.stderr[-3000:]}")
+            logs.append(run.stdout)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(out, ignore_errors=True)
+    losses = [[float(x) for x in re.findall(r"loss (\d+\.\d+)", log)]
+              for log in logs]
+    row = {"phase": "lm_train", "check": "mesh_trainer",
+           "launcher": "torch.distributed.run", "ranks": LM_RANKS,
+           "argv": args, "losses_first": losses[0],
+           "losses_resumed": losses[1],
+           "resumed_line": "[train] resumed from step 8" in logs[1],
+           "wall_s": walls, "card": nvidia_smi_line()}
+    emit(row)
+    if not (row["resumed_line"] and len(losses[0]) == 8
+            and len(losses[1]) == 4 and losses[1][-1] < losses[0][0]):
+        raise AssertionError(f"lm_train mesh trainer: {row}")
+
+
+def phase_lm_train(device):
+    """Phase 3 (l), the lm_train path: (a) card against host, (b) the
+    trainer at full width with the resume cycle, (c) the smoke archs,
+    (d) four ranks sharing the card.  It launches none of the eleven
+    kernels; returns their counts, read around the path, which must all
+    be 0."""
+    fns = {name: kernel_pair(name)[0] for name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    walls = {}
+    for name, part in (("card_vs_host", lm_card_vs_host),
+                       ("trainer", lm_full_width), ("smoke", lm_smoke),
+                       ("mesh", lm_mesh)):
+        t1 = time.perf_counter()
+        part(device)
+        walls[name] = time.perf_counter() - t1
+    counts = {name: fn.launches for name, fn in fns.items()}
+    if any(counts.values()):
+        raise AssertionError(f"lm_train path launched kernels: {counts}")
+    emit({"phase": "lm_train", "round": "total", "wall_s":
+          time.perf_counter() - t0, "parts_s": walls})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4862,7 +5433,8 @@ def main() -> int:
                "stream": phase_stream(device, stream_keep),
                "cli": phase_cli(device),
                "mesh": phase_mesh(device),
-               "models": phase_models(device)}
+               "models": phase_models(device),
+               "lm_train": phase_lm_train(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

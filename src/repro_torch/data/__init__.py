@@ -1,1 +1,3 @@
-"""Datasets of the port (``tm_datasets``), drawn from ``torch.Generator``s."""
+"""Datasets of the port: the TM tasks (``tm_datasets``, drawn from
+``torch.Generator``s) and the LM trainer's synthetic token stream
+(``pipeline``, numpy)."""

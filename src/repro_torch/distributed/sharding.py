@@ -525,6 +525,21 @@ def result_layout(*operands) -> Optional[Tuple[Any, List]]:
     return None if mesh is None else (mesh, pls)
 
 
+def local(x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``x`` (a plain tensor is its own block)."""
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def block_like(like: torch.Tensor, block: torch.Tensor, placements=None):
+    """``block`` as a block of ``like``'s layout (a ``DTensor`` on its mesh
+    with its placements, or ``placements``); ``block`` itself when
+    ``like`` is a plain tensor."""
+    if not isinstance(like, DTensor):
+        return block
+    return DTensor.from_local(block, like.device_mesh,
+                              placements or like.placements, run_check=False)
+
+
 def from_block(block: torch.Tensor, layout) -> DTensor:
     """This rank's block of a result, as a ``DTensor`` of ``layout``."""
     mesh, pls = layout
@@ -576,10 +591,36 @@ def all_reduce_sum(t: torch.Tensor, mesh, mesh_dims) -> torch.Tensor:
     return t
 
 
+class _Gather(torch.autograd.Function):
+    """:func:`assemble` with a backward: the whole-tensor gradient,
+    averaged over the data-parallel ranks of the forward's
+    :func:`data_parallel` block, cut to this rank's block."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, pls, shape, dp):
+        ctx.layout = (mesh, pls, shape, dp)
+        return assemble(block, mesh, pls)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, pls, shape, dp = ctx.layout
+        if dp is not None:
+            grad = all_reduce_mean(grad, dp.mesh, dp.dims)
+        return (grad[_block_slices(shape, mesh, pls)].contiguous(), None,
+                None, None, None)
+
+
 def gather(x):
-    """``x`` whole on every rank (a plain tensor passes through)."""
+    """``x`` whole on every rank (a plain tensor passes through).  Under
+    autograd the gather is differentiable (FSDP-style): the gradient of a
+    block is its slice of the whole gradient, averaged over the
+    data-parallel ranks (:func:`data_parallel`)."""
     if not isinstance(x, DTensor):
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x.to_local(), x.device_mesh,
+                             tuple(x.placements), tuple(x.shape),
+                             _DP[0])
     return assemble(x.to_local(), x.device_mesh, x.placements)
 
 
@@ -600,6 +641,116 @@ def map_blocks(fn: Callable[[torch.Tensor], torch.Tensor], x):
     return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements,
                               run_check=False, shape=x.shape,
                               stride=x.stride())
+
+
+# ----------------------------------------------------- data parallelism
+#
+# Under a data-parallel training step each rank computes on its rows of
+# the global batch (the rows ``rules.batch`` gives its mesh coordinates;
+# ranks that differ only on other axes share rows).  The step's loss is
+# the mean of the ranks' losses, so every gradient is the mean of theirs:
+# a whole parameter's gradient is all-reduced after the backward, a
+# block's inside :func:`gather`'s backward, and the few statistics that
+# are not means over rows (the MoE load-balance loss multiplies two batch
+# means) are averaged in the forward through :func:`batch_mean`.
+
+
+@dataclasses.dataclass(frozen=True)
+class DataParallel:
+    """The mesh and its dimensions (of more than one rank) that split the
+    batch."""
+
+    mesh: Any
+    dims: Tuple[int, ...]
+
+    @property
+    def ranks(self) -> int:
+        n = 1
+        for i in self.dims:
+            n *= self.mesh.size(i)
+        return n
+
+
+# Process-wide, not a context variable: on the card the autograd engine
+# runs the backward (and the recomputation of a checkpointed block, which
+# must average as the forward did) on its own device threads.
+_DP: List[Optional[DataParallel]] = [None]
+
+
+def data_parallel_of(mesh, rules: ShardingRules) -> Optional[DataParallel]:
+    """The data parallelism ``rules.batch`` declares on ``mesh``, or None
+    when no mesh dimension of more than one rank splits the batch."""
+    axes = rules.batch
+    if mesh is None or axes is None:
+        return None
+    names = list(mesh.mesh_dim_names)
+    dims = tuple(names.index(a)
+                 for a in (axes if isinstance(axes, tuple) else (axes,))
+                 if mesh.size(names.index(a)) > 1)
+    return DataParallel(mesh, dims) if dims else None
+
+
+@contextlib.contextmanager
+def data_parallel(dp: Optional[DataParallel]):
+    """Inside the block, gradients and :func:`batch_mean` average over
+    ``dp``'s ranks (None: a no-op block)."""
+    prev, _DP[0] = _DP[0], dp
+    try:
+        yield
+    finally:
+        _DP[0] = prev
+
+
+def active_data_parallel() -> Optional[DataParallel]:
+    return _DP[0]
+
+
+def batch_rows(n_rows: int, dp: Optional[DataParallel]) -> slice:
+    """This rank's rows of a global batch of ``n_rows`` under ``dp``: the
+    block its coordinates on ``dp.dims`` give (the first outermost)."""
+    if dp is None:
+        return slice(0, n_rows)
+    coord = dp.mesh.get_coordinate()
+    k = 0
+    for i in dp.dims:
+        k = k * dp.mesh.size(i) + coord[i]
+    if n_rows % dp.ranks:
+        raise ValueError(f"a batch of {n_rows} rows does not split over "
+                         f"{dp.ranks} data-parallel ranks")
+    step = n_rows // dp.ranks
+    return slice(k * step, (k + 1) * step)
+
+
+def all_reduce_mean(t: torch.Tensor, mesh, mesh_dims) -> torch.Tensor:
+    """The mean of ``t`` over the ranks of the mesh dimensions
+    ``mesh_dims`` (a new tensor)."""
+    n = 1
+    for i in mesh_dims:
+        n *= mesh.size(i)
+    return all_reduce_sum(t, mesh, mesh_dims) / n
+
+
+class _BatchMean(torch.autograd.Function):
+    """The mean over data-parallel ranks; its adjoint is the same mean
+    (every rank's loss holds the averaged value once)."""
+
+    @staticmethod
+    def forward(ctx, t, dp):
+        ctx.dp = dp
+        return all_reduce_mean(t, dp.mesh, dp.dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_mean(grad, ctx.dp.mesh, ctx.dp.dims), None
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t`` averaged over the ranks of the active :func:`data_parallel`
+    block (differentiable); ``t`` itself outside one."""
+    dp = _DP[0]
+    if dp is None:
+        return t
+    return _BatchMean.apply(t, dp)
 
 
 # ------------------------------------------------------------ agreement

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import batch_mean, constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, apply_mlp, dtype_of, fan_in_init,
                                        full, param_dtype)
@@ -155,13 +155,17 @@ def apply_moe(p: MoE, x: torch.Tensor,
     if p.dense is not None:
         y = y + apply_mlp(p.dense, x, cfg)
 
-    # aux losses (Switch-style load balance + router z-loss)
-    me = probs.mean(dim=(0, 1))                               # [E]
-    ce = (assign.float() / k).mean(dim=(0, 1))                # [E]
+    # aux losses (Switch-style load balance + router z-loss).  Under a
+    # data-parallel step the two batch means of the load-balance loss and
+    # the drop fraction are averaged over the ranks first (a product of
+    # means is not the mean of the ranks' products); the z-loss is a mean
+    # and averages with the loss.
+    me = batch_mean(probs.mean(dim=(0, 1)))                   # [E]
+    ce = batch_mean((assign.float() / k).mean(dim=(0, 1)))    # [E]
     aux = {
         "moe_aux_loss": e * torch.sum(me * ce) * m.aux_loss_weight,
         "moe_z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
         * m.router_z_weight,
-        "moe_drop_frac": 1.0 - valid.float().mean(),
+        "moe_drop_frac": 1.0 - batch_mean(valid.float().mean()),
     }
     return y, aux

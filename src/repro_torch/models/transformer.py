@@ -5,8 +5,11 @@ The stack is ``prologue`` (e.g. DeepSeek's dense layer 0) followed by
 ``n_super`` repeats of the config's super-block pattern.  The reference
 scans stacked per-superblock parameters; here each superblock is its own
 ``nn.ModuleDict`` of layers (``blocks.<i>.<j>``) and a Python loop runs
-them.  ``cfg.remat`` only matters under a backward pass and is inert
-here.
+them.  With ``cfg.remat`` and autograd on, each superblock (and each
+encoder block, and each chunk of the chunked CE) runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, where the reference wraps the same bodies in
+``jax.checkpoint``.
 
 Top-level API (functions over a :class:`Transformer`, with the config
 passed explicitly as in the reference):
@@ -19,8 +22,10 @@ passed explicitly as in the reference):
 
 ``batch`` is a dict: tokens [B, S] (+ ``vision_embeds`` for the VLM stub,
 ``audio_frames`` for the audio stub).  Entry points run on the card
-unless the caller passes ``device="cpu"``; ``forward``, ``loss_fn`` and
-the decode functions run without autograd (``torch.no_grad``).
+unless the caller passes ``device="cpu"``.  ``loss_fn`` builds the
+autograd graph when the caller has grad enabled (the train step
+differentiates it); ``forward`` and the decode functions serve, and run
+without autograd (``torch.no_grad``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.distributed.sharding import constrain
@@ -217,18 +223,29 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         return Transformer(gen, cfg, device=device, dtype=dtype)
 
 
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat``
+    and autograd are on (the reference's ``jax.checkpoint`` sites)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _encode(params: Transformer, batch, cfg: ModelConfig):
     """Whisper encoder over stub audio frames [B, T_enc, D]."""
     x = batch["audio_frames"].to(dtype_of(cfg.compute_dtype))
     b, t, _ = x.shape
     positions = attn._positions(b, t, x.device)
-    for blk in params.encoder.blocks:
-        p = blk["0"]
+
+    def block(p, x):
         h = apply_norm(p.norm1, x, cfg)
         x = x + attn.attention(p.mix, h, cfg, positions=positions,
                                causal=False)
         h = apply_norm(p.norm2, x, cfg)
-        x = x + apply_mlp(p.mlp, h, cfg)
+        return x + apply_mlp(p.mlp, h, cfg)
+
+    for blk in params.encoder.blocks:
+        x = _remat(cfg, block, blk["0"], x)
     return apply_norm(params.encoder.norm, x, cfg)
 
 
@@ -251,14 +268,24 @@ def forward_hidden(params: Transformer, batch, cfg: ModelConfig):
     enc_out = _encode(params, batch, cfg) if cfg.is_encoder_decoder else None
     shared = params.shared
     aux = _aux_zero(cfg, x.device)
-    layers = [(p, spec) for p, spec in zip(params.prologue or (),
-                                           cfg.prologue)]
-    layers += [(blk[str(i)], spec) for blk in params.blocks
-               for i, spec in enumerate(cfg.block_pattern)]
-    for p, spec in layers:
+    for p, spec in zip(params.prologue or (), cfg.prologue):
         x, a = apply_layer(p, spec, x, cfg, positions, shared=shared,
                            enc_out=enc_out)
         aux = _aux_add(aux, a)
+
+    def superblock(blk, x, a, enc_out):
+        for i, spec in enumerate(cfg.block_pattern):
+            x, ai = apply_layer(blk[str(i)], spec, x, cfg, positions,
+                                shared=shared, enc_out=enc_out)
+            a = _aux_add(a, ai)
+        return x, a
+
+    # the stack's aux sums run from zero, then join the prologue's (the
+    # reference's scan carry)
+    stack_aux = _aux_zero(cfg, x.device)
+    for blk in params.blocks:
+        x, stack_aux = _remat(cfg, superblock, blk, x, stack_aux, enc_out)
+    aux = _aux_add(aux, stack_aux)
     x = apply_norm(params.final_norm, x, cfg)
     return x, aux
 
@@ -289,12 +316,12 @@ def _ce_chunk(params, x_chunk, tgt_chunk, mask_chunk, cfg: ModelConfig):
     return nll.sum()
 
 
-@torch.no_grad()
 def loss_fn(params: Transformer, batch, cfg: ModelConfig):
     """Next-token CE (+ MoE aux losses).  Vision slots are masked.
 
     The CE is computed over sequence chunks (``cfg.loss_chunk``) so the
-    [B, S, vocab] logits are never materialized at once."""
+    [B, S, vocab] logits are never materialized at once.  Differentiable
+    when the caller has grad enabled; the value is the same either way."""
     x, aux = forward_hidden(params, batch, cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -311,8 +338,8 @@ def loss_fn(params: Transformer, batch, cfg: ModelConfig):
         nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, s, cs):
             sl = slice(c0, c0 + cs)
-            nll_sum = nll_sum + _ce_chunk(params, x[:, sl], tgt[:, sl],
-                                          mask[:, sl], cfg)
+            nll_sum = nll_sum + _remat(cfg, _ce_chunk, params, x[:, sl],
+                                       tgt[:, sl], mask[:, sl], cfg)
     else:
         nll_sum = _ce_chunk(params, x, tgt, mask, cfg)
     loss = nll_sum / torch.clamp(mask.sum(), min=1.0)

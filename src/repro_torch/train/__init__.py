@@ -1,1 +1,2 @@
-"""Training drivers of the port: the replay-buffer ``OnlineTrainer``."""
+"""Training drivers of the port: the replay-buffer ``OnlineTrainer``
+(``online``) and the LM train step (``train_step``)."""

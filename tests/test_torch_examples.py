@@ -327,3 +327,38 @@ def test_image_imbue_quick_reads_on_the_dense_kernel_tier():
     assert shares.mean() < 25, shares         # the reference's moved
     assert abs(stats["include_pct"] - shares.mean()) <= max(
         4 * shares.std(), 0.05), (stats["include_pct"], shares)
+
+
+def test_lm_train_example_trains_from_the_reference_loss(capsys):
+    """``examples/torch_lm_train.py`` at a few steps (qwen2-0.5b, the
+    trainer's reduced config): it checkpoints into a temporary directory
+    it removes, logs every step, and its first loss equals the
+    reference's ``loss_fn`` on the same initial parameters (carried over
+    through ``convert.lm_tree_to_numpy``) and the same ``synth_batch``
+    rows, within rtol 1e-5 (float32)."""
+    from repro.configs import get_config as ref_get_config
+    from repro.configs import smoke as ref_smoke
+    from repro.data import pipeline as ref_pipeline
+    from repro.models import transformer as ref_tf
+    from repro_torch import convert
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tf
+
+    ex = _load("torch_lm_train")
+    argv = ["--device", "cpu", "--arch", "qwen2-0.5b", "--steps", "4",
+            "--batch", "2", "--seq", "32", "--log-every", "1"]
+    run = ex.main(argv)
+    out = capsys.readouterr().out
+    assert "resumed" not in out and "step     3" in out
+    assert sorted(run.losses) == [0, 1, 2, 3]
+    assert all(np.isfinite(v) for v in run.losses.values())
+    cfg = train_cli._config(train_cli._parser().parse_args(argv))
+    start = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    rcfg = ref_smoke(ref_get_config("qwen2-0.5b"), d_model=256, n_super=2,
+                     vocab=2048)
+    batch = ref_pipeline.synth_batch(rcfg, ref_pipeline.DataConfig(), 0, 2,
+                                     32)
+    want, _ = jax.jit(lambda p, b: ref_tf.loss_fn(p, b, rcfg))(
+        jax.tree.map(jnp.asarray, convert.lm_tree_to_numpy(start)),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    assert run.losses[0] == pytest.approx(float(want), rel=1e-5)

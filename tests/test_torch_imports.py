@@ -79,7 +79,9 @@ def test_scan_covers_the_port():
             "sharding.py", "mesh.py", "hostdev.py", "tm_distributed.py",
             "torch_tm_scaleout.py", "config.py", "layers.py",
             "attention.py", "moe.py", "ssm.py", "transformer.py",
-            "pipeline.py", "archs.py", "base.py"} <= names
+            "pipeline.py", "archs.py", "base.py", "optimizers.py",
+            "compression.py", "train_step.py", "train.py",
+            "torch_lm_train.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",
@@ -325,6 +327,7 @@ CLI_MAINS = {
     "launch/serve": ["--epochs", "1", "--requests", "8"],
     "launch/chaos": ["--smoke"],
     "launch/retrain": ["--smoke"],
+    "launch/train": ["--steps", "1"],
     "benchmarks/serve_bench_torch": ["--smoke"],
     "benchmarks/stream_bench_torch": ["--smoke"],
     "benchmarks/run_torch": ["--fast"],
@@ -334,6 +337,7 @@ CLI_MAINS = {
     "examples/torch_swap_quickstart": [],
     "examples/torch_image_imbue": ["--quick"],
     "examples/torch_tm_scaleout": [],
+    "examples/torch_lm_train": ["--steps", "1"],
 }
 
 

@@ -586,3 +586,244 @@ def pipeline_case(out_dir):
     for name, fn in (("gpipe", gpipe), ("sharded_lm", sharded_lm)):
         rec.check(name, fn)
     rec.save(out_dir)
+
+
+# ------------------------------------------------------------ LM training
+
+LM_DP = dict(d_model=64, batch=4, seq=64, lr=1e-2)
+LM_LOSS_RTOL = 2e-4      # the reference's bars (tests/test_distributed.py)
+LM_PARAM_TOL = 3e-3
+LM_ADAFACTOR_PARAM_TOL = 1e-6
+# (data, model) meshes; 4x1 is data parallelism alone (the model axis of
+# one rank keeps rules_for's expert / tensor axes defined)
+LM_DP_MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
+
+
+def lm_dp_tokens(vocab, seed=2):
+    """The DP step's ``[4, 64]`` tokens, numpy seed 2."""
+    return np.random.default_rng(seed).integers(
+        0, vocab, (LM_DP["batch"], LM_DP["seq"])).astype(np.int64)
+
+
+def lm_train_case(out_dir, ckpt_dir, ref_ckpt_dir):
+    """On 4 ranks: a data-parallel AdamW step of qwen2 and deepseek
+    ``smoke()`` on a ``(data 2, model 2)`` and a ``(data 4, model 1)``
+    mesh against one rank on the whole batch (and Adafactor's on
+    blocks, and the int8 compressor on gradient blocks against whole
+    gradients); the LM elastic restore
+    (saved whole, restored onto blocks and back, exact); a
+    reference-written checkpoint restored onto the mesh and trained one
+    step on; the int8 compressed gradient reduction on 4 ranks; the
+    trainer's ``--mesh debug`` resume cycle."""
+    import copy
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.compression import (GradCompressor,
+                                               compressed_psum_grads)
+    from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    rec = Record()
+
+    def one_step(model, cfg, batch, step_idx=0, **opt_kw):
+        opt = make_optimizer(model, OptimizerConfig(lr=LM_DP["lr"],
+                                                    **opt_kw))
+        return opt, make_train_step(cfg, opt)(model, step_idx, batch)
+
+    def whole(model):
+        return {n: sharding.gather(p.detach()) for n, p in
+                model.named_parameters()}
+
+    def dp_against_single(arch, meshes=LM_DP_MESHES,
+                          param_tol=LM_PARAM_TOL, **opt_kw):
+        cfg = smoke(get_config(arch), d_model=LM_DP["d_model"])
+        base = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        batch = {"tokens": torch.from_numpy(lm_dp_tokens(cfg.vocab_size))}
+        single = copy.deepcopy(base)
+        _, want = one_step(single, cfg, batch, **opt_kw)
+        want_p = whole(single)
+        for label, shape in meshes.items():
+            mesh = mesh_mod.make_debug_mesh(*shape, device_type="cpu")
+            rules = mesh_mod.rules_for(cfg, mesh,
+                                       global_batch=LM_DP["batch"])
+            dp = sharding.data_parallel_of(mesh, rules)
+            assert dp is not None and dp.ranks == shape[0], (label, dp)
+            model = sharding.shard_module(copy.deepcopy(base), mesh, rules)
+            assert any(sharding.partitioned(p) for p in model.parameters())
+            with sharding.use_sharding(mesh, rules):
+                opt, got = one_step(model, cfg, batch, **opt_kw)
+            np.testing.assert_allclose(float(got["loss"]),
+                                       float(want["loss"]),
+                                       rtol=LM_LOSS_RTOL)
+            got_p = whole(model)
+            worst = max(float((got_p[n] - want_p[n]).abs().max())
+                        for n in want_p)
+            assert worst < param_tol, (label, worst)
+            # the state of a block is a block of the same placement
+            for n, p in model.named_parameters():
+                if sharding.partitioned(p):
+                    m = opt.state[p]["m"]
+                    assert list(m.placements) == list(p.placements), n
+            for k in want:
+                if k.startswith("moe_"):
+                    np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                               rtol=LM_LOSS_RTOL, atol=1e-7,
+                                               err_msg=k)
+            _all_ranks_equal(np.array([float(got["loss"]), worst]))
+            tag = opt_kw.get("name", "adamw")
+            rec.arrays[f"{arch}_{tag}_{label}_loss"] = np.array(
+                [float(got["loss"]), float(want["loss"]), worst])
+
+    def adafactor_blocks():
+        # factored (row / col) state on blocks: its means reduce over the
+        # ranks that split a parameter's last two axes.  Adafactor's first
+        # update g / sqrt(vhat + eps) is smooth in g (AdamW's is a sign),
+        # so float order moves a parameter by ~lr x 1e-6: a tight bar
+        dp_against_single("qwen2-0.5b", {"2x2": (2, 2)},
+                          param_tol=LM_ADAFACTOR_PARAM_TOL, name="adafactor",
+                          factored_min_dim=16)
+
+    def compressor_blocks():
+        # the int8 compressor on gradient blocks scales by the whole
+        # tensor's max: bit for bit the compressor on whole gradients
+        cfg = smoke(get_config("qwen2-0.5b"), d_model=LM_DP["d_model"])
+        mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+        rules = mesh_mod.rules_for(cfg, mesh, global_batch=LM_DP["batch"])
+        model = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        rng = np.random.default_rng(7)
+        grads = {n: torch.from_numpy(rng.standard_normal(
+            tuple(p.shape)).astype(np.float32))
+            for n, p in model.named_parameters()}
+        comp = GradCompressor(min_size=16)
+        want_g, want_e = comp.compress_decompress(grads,
+                                                  comp.init_state(grads))
+        sharding.shard_module(model, mesh, rules)
+        placed = {n: sharding.block_like(
+            p, grads[n][sharding._block_slices(
+                tuple(p.shape), p.device_mesh, p.placements)].contiguous())
+            if sharding.partitioned(p) else grads[n]
+            for n, p in model.named_parameters()}
+        assert any(sharding.partitioned(g) for g in placed.values())
+        state = comp.init_state(dict(model.named_parameters()))
+        got_g, got_e = comp.compress_decompress(placed, state)
+        for n in grads:
+            assert torch.equal(sharding.gather(got_g[n]), want_g[n]), n
+            if want_e[n] is not None:
+                assert torch.equal(sharding.gather(got_e[n]), want_e[n]), n
+
+    def elastic():
+        cfg = smoke(get_config("stablelm-1.6b"), d_model=64)
+        model = tf.init_params(torch.Generator().manual_seed(3), cfg, "cpu")
+        ckpt.save(ckpt_dir, 7, {"params": convert.lm_tree_to_numpy(model)},
+                  extra={"arch": cfg.name})
+        assert ckpt.latest_step(ckpt_dir) == 7
+        mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+        rules = mesh_mod.rules_for(cfg, mesh, global_batch=4)
+        placed = sharding.shard_module(
+            tf.init_params(torch.Generator().manual_seed(9), cfg, "cpu"),
+            mesh, rules)
+        like = {"params": convert.lm_tree_to_numpy(placed)}
+        tree, man = ckpt.restore(ckpt_dir, 7, like, device="cpu")
+        assert man["extra"]["arch"] == cfg.name
+        convert.load_lm_params(placed, tree["params"])
+        assert any(sharding.partitioned(p) for p in placed.parameters())
+        want = dict(model.named_parameters())
+        for n, p in placed.named_parameters():
+            assert torch.equal(sharding.gather(p.detach()), want[n]), n
+        # round 2: save the blocks (gathered), restore whole
+        ckpt.save(ckpt_dir, 8, {"params": convert.lm_tree_to_numpy(placed)})
+        back = tf.init_params(torch.Generator().manual_seed(9), cfg, "cpu")
+        tree2, _ = ckpt.restore(ckpt_dir, 8, like, device="cpu")
+        convert.load_lm_params(back, tree2["params"])
+        for n, p in back.named_parameters():
+            assert torch.equal(p, want[n]), n
+
+    def reference_checkpoint():
+        cfg = smoke(get_config("qwen2-0.5b"), d_model=LM_DP["d_model"])
+        mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+        rules = mesh_mod.rules_for(cfg, mesh, global_batch=LM_DP["batch"])
+        model = sharding.shard_module(
+            tf.init_params(torch.Generator().manual_seed(5), cfg, "cpu"),
+            mesh, rules)
+        opt = make_optimizer(model, OptimizerConfig(lr=LM_DP["lr"]))
+        like = {"params": convert.lm_tree_to_numpy(model),
+                "opt": convert.lm_tree_to_numpy(opt.state_tree())}
+        step, tree, _ = ckpt.restore_latest(ref_ckpt_dir, like, "cpu")
+        convert.load_lm_params(model, tree["params"])
+        opt.load_state_tree(convert.lm_opt_state_from_numpy(
+            tree["opt"], model, "cpu"))
+        batch = {"tokens": torch.from_numpy(lm_dp_tokens(cfg.vocab_size,
+                                                         seed=6))}
+        with sharding.use_sharding(mesh, rules):
+            metrics = make_train_step(cfg, opt)(model, step, batch)
+        flat = convert._flatten(convert.lm_tree_to_numpy(model))
+        rec.arrays.update({f"refckpt.{k}": v for k, v in flat.items()})
+        rec.arrays["refckpt_loss"] = np.array([float(metrics["loss"])])
+
+    def compressed():
+        mesh = mesh_mod._mesh((4,), ("data",), "cpu")
+        w0, batch = compression_inputs()
+        params = {"w": torch.from_numpy(w0), "b": torch.zeros(3)}
+
+        def loss(p, x):
+            return (torch.tanh(x @ p["w"]) ** 2).mean() + p["b"].sum() * 0
+
+        def grad_fn(p, x):
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in p.items()}
+            gs = torch.autograd.grad(loss(leaves, x), list(leaves.values()))
+            return dict(zip(leaves, gs))
+
+        comp = GradCompressor(min_size=16)
+        fn = compressed_psum_grads(grad_fn, mesh, "data", comp)
+        ef0 = comp.init_state(params)
+        grads, ef = fn(params, torch.from_numpy(batch), ef0)
+        ref = grad_fn(params, torch.from_numpy(batch))
+        err = float((grads["w"] - ref["w"]).abs().max()
+                    / ref["w"].abs().max())
+        assert err < 0.05, err
+        assert fn.wire_bytes == {"w": 64 * 64 * 2}, fn.wire_bytes
+        assert ef["b"] is None and ef["w"].shape == (64, 64)
+        _all_ranks_equal(grads["w"].numpy())
+        rec.arrays["compressed_w"] = grads["w"].numpy()
+        rec.arrays["compressed_err"] = np.array([err])
+
+    def launcher():
+        run_dir = os.path.join(ckpt_dir, "trainer")
+        base = ["--arch", "qwen2-0.5b", "--batch", "8", "--seq", "64",
+                "--ckpt-dir", run_dir, "--ckpt-every", "4", "--mesh",
+                "debug", "--log-every", "2", "--device", "cpu"]
+        first = train_cli.train(base + ["--steps", "8"])
+        assert first.start_step == 0 and sorted(first.losses) == list(
+            range(8))
+        again = train_cli.train(base + ["--steps", "12"])
+        assert again.start_step == 8 and sorted(again.losses) == [8, 9, 10,
+                                                                   11]
+        assert again.losses[11] < first.losses[0]
+        rec.arrays["launcher_losses"] = np.array(
+            [first.losses[i] for i in range(8)]
+            + [again.losses[i] for i in range(8, 12)])
+
+    for name, fn in (("dp_qwen2", lambda: dp_against_single("qwen2-0.5b")),
+                     ("dp_deepseek",
+                      lambda: dp_against_single("deepseek-v2-lite-16b")),
+                     ("adafactor_blocks", adafactor_blocks),
+                     ("compressor_blocks", compressor_blocks),
+                     ("elastic", elastic),
+                     ("reference_checkpoint", reference_checkpoint),
+                     ("compressed", compressed), ("launcher", launcher)):
+        rec.check(name, fn)
+    rec.save(out_dir)
+
+
+def compression_inputs():
+    """``(w [64, 64], batch [32, 64])`` float32, numpy seeds 0 and 1."""
+    w = np.random.default_rng(0).standard_normal((64, 64)).astype(np.float32)
+    x = np.random.default_rng(1).standard_normal((32, 64)).astype(np.float32)
+    return w, x
