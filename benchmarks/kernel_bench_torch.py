@@ -54,13 +54,15 @@ import chip_smoke  # noqa: E402
 from repro_torch._device import resolve_device  # noqa: E402
 from repro_torch.configs.imbue_tm import tm_config  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
 
 # Published H100 SXM figures at the 700 W limit (NVIDIA's data sheet and
 # the CUDA C++ guide's throughput table), as chip_smoke.py and PERF.md use
-# them: HBM bytes/s, fp32 FLOP/s outside the tensor cores, 32-bit logic
-# (LOP3) per clock per SM, SMs and the boost clock.
-HBM_BYTES_PER_S = chip_smoke.HBM_BYTES_PER_S
-FP32_FLOP_PER_S = chip_smoke.FP32_FLOP_PER_S
+# them: HBM bytes/s and fp32 FLOP/s outside the tensor cores from the
+# port's roofline module; 32-bit logic (LOP3) per clock per SM, SMs and
+# the boost clock.
+HBM_BYTES_PER_S = roofline.HBM_BW
+FP32_FLOP_PER_S = roofline.FP32_FLOPS
 LOP3_PER_S = chip_smoke.LOP3_PER_CLOCK_PER_SM * 132 * 1.98e9
 
 

@@ -221,7 +221,18 @@ is non-zero and no result line is printed):
    max |g|, 2 bytes an element on the wire), and the trainer's ``--mesh
    debug`` resume cycle under ``torch.distributed.run``.  Like the models
    it launches none of the eleven kernels (counts read around the path
-   and on every rank, all 0).
+   and on every rank, all 0); (m) the roofline path, the port's cost
+   model (``repro_torch.roofline``, ``launch.dryrun``): the dry run of
+   ``ROOFLINE_CELLS`` on the production meshes (a fake group of 256 / 512
+   ranks, meta tensors, one process a cell, all at once; no failure, the
+   skipped cells ``launch.shapes``' own, positive terms); three steps the
+   port runs on the card (the trainer's qwen2-0.5b step, the bf16 prefill
+   and decode of ``MODEL_BF16``) counted under ``StepCost`` on the card
+   and on meta (FLOPs equal, bytes within ``ROOFLINE_BYTES_RTOL``), timed
+   (CUDA events) at or above their roofline bound, the dry run's peak
+   estimate beside ``max_memory_allocated``; and whisper-large-v3's
+   decode on the default bf16 cache against its forward; no kernel
+   launch.
    Each path's launch counters are zeroed just before it and read just
    after: one launch per dispatch (plus one per probe read and canary
    shadow read on the live path, one ``tm_infer`` per probe commit, and
@@ -347,6 +358,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.roofline import analysis as roofline  # noqa: E402
+
 SEED = 2026
 N_REQUESTS = 512
 FLIP = 0.08
@@ -364,10 +377,11 @@ BATCHES = (8, 64, 128)
 # one row, the timed batches, and one row past a 128-row block.
 CHECK_BATCHES = (1, 8, 64, 128, 129)
 SPIN_CYCLES = 2_000_000        # the timing spin kernel: ~1 ms at 1.98 GHz
-# Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12        # outside the tensor cores
-INT8_OP_PER_S = 1979e12        # dense, tensor cores, int32 accumulation
+# Published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit), from
+# the port's roofline module.
+HBM_BYTES_PER_S = roofline.HBM_BW
+FP32_FLOP_PER_S = roofline.FP32_FLOPS   # outside the tensor cores
+INT8_OP_PER_S = roofline.INT8_OPS       # dense, tensor cores, int32 acc.
 # POPC rate on compute capability 9.0, per clock per SM (the arithmetic
 # instruction throughput table of NVIDIA's CUDA C++ documentation).
 POPC_PER_CLOCK_PER_SM = 16
@@ -662,6 +676,40 @@ LM_DP = dict(d_model=64, batch=4, seq=64, lr=1e-2, loss_rtol=2e-4,
 LM_MESH_CLI_ARGS = ("--mesh", "debug", "--arch", "qwen2-0.5b", "--batch",
                     "8", "--seq", "64", "--ckpt-every", "4", "--log-every",
                     "1")
+# The roofline path, phase 3 (m): the port's cost model
+# (repro_torch.roofline, launch.dryrun).  (a) The dry run on the
+# production meshes (torch's in-process fake group of 256 / 512 ranks, the
+# meta device), one process a cell, all started together: every kind at
+# full width.  Every record has positive memory_s and model_flops, and
+# positive compute_s but for tm_train, whose plain clause evaluation
+# (AND + popcount over packed words) runs no product; the skipped cells
+# are launch.shapes' own.
+ROOFLINE_CELLS = (
+    ("qwen2-0.5b", "train_4k", "both"),
+    ("deepseek-v2-lite-16b", "prefill_32k", "single"),
+    ("arctic-480b", "decode_32k", "single"),
+    ("zamba2-1.2b", "long_500k", "single"),
+    ("imbue-tm-mnist", "tm_train_4k", "single"),
+    ("imbue-tm-mnist", "tm_infer_32k", "single"),
+    ("imbue-tm-mnist", "imbue_infer_32k", "single"),
+)
+ROOFLINE_TIMEOUT_S = 600
+# (b) Three steps the port runs on the card, each counted there under
+# roofline.StepCost and on meta (one rank): FLOPs equal, bytes within
+# ROOFLINE_BYTES_RTOL; the step timed with CUDA events (median of
+# ROOFLINE_REPS after a warm-up) at or above its bound max(compute_s,
+# memory_s); the dry run's peak estimate beside max_memory_allocated, the
+# ratio within ROOFLINE_PEAK_BAND.  The trainer's qwen2-0.5b step of
+# LM_TRAIN_RUNS (bf16 compute, float32 AdamW), and the models path's
+# MODEL_BF16 prefill and decode.
+ROOFLINE_BYTES_RTOL = 0.01
+ROOFLINE_REPS = 5
+ROOFLINE_PEAK_BAND = (0.5, 2.0)
+# (c) The bf16-cache repair: whisper-large-v3 at published width (float32
+# compute, so float32 queries meet the bf16 cross caches) decodes
+# ROOFLINE_WHISPER_DECODE = (batch, steps) from init_decode_state's
+# default bf16 state against its own forward at MODEL_DECODE_TOL.
+ROOFLINE_WHISPER_DECODE = (2, 8)
 # Flash attention at the attention widths of three architectures the repo
 # registers (src/repro/configs/archs.py; the numbers are copied, the port
 # imports nothing of the reference), in the models' compute dtype (bf16),
@@ -721,7 +769,7 @@ FLASH_PATH_STEPS = 3
 # bound stays the algorithm's; the timing rows show the split's tensor
 # work beside it.
 SPLIT_PRODUCTS = {"flash_bwd_dkv": 6 / 4, "flash_bwd_dq": 4 / 3}
-BF16_FLOP_PER_S = 989e12       # dense, tensor cores
+BF16_FLOP_PER_S = roofline.BF16_FLOPS   # dense, tensor cores
 # Special-function unit (exp, tanh) rate on compute capability 9.0, per
 # clock per SM (the same table as the POPC rate).
 SFU_PER_CLOCK_PER_SM = 16
@@ -5408,6 +5456,213 @@ def phase_lm_train(device):
     return counts
 
 
+# -------------------------------------------------------------- roofline
+
+def roofline_dryrun():
+    """(a): ``python -m repro_torch.launch.dryrun`` on ``ROOFLINE_CELLS``,
+    one process a cell (each its own fake group), all at once; one line a
+    record (``roofline.report`` renders them).  Fails on a failure, a
+    missing record, a skipped list that is not ``launch.shapes``' or a
+    record whose terms are not positive."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import shapes
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src")}
+    want_skipped = [{"arch": a, "shape": s, "reason": why}
+                    for a, s, ok, why in shapes.cells(include_skipped=True)
+                    if not ok]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        runs = []
+        for i, (arch, shape, mesh) in enumerate(ROOFLINE_CELLS):
+            out = Path(tmp) / f"{i}.json"
+            runs.append((arch, shape, mesh, out, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", str(out)], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env)))
+        records = []
+        try:
+            for arch, shape, mesh, out, proc in runs:
+                _, err = proc.communicate(timeout=ROOFLINE_TIMEOUT_S)
+                if proc.returncode:
+                    raise AssertionError(
+                        f"roofline dryrun {arch} x {shape} exited "
+                        f"{proc.returncode}: {err[-3000:]}")
+                got = json.loads(out.read_text())
+                want_n = 2 if mesh == "both" else 1
+                if (got["failures"] or len(got["results"]) != want_n
+                        or got["skipped"] != want_skipped):
+                    raise AssertionError(f"roofline dryrun {arch} x {shape}:"
+                                         f" {got['failures']}")
+                records += got["results"]
+        finally:
+            for *_, proc in runs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    for r in records:
+        positive = ["memory_s", "model_flops"]
+        if r["kind"] != "tm_train":
+            positive.append("compute_s")
+        if not all(r[k] > 0 for k in positive):
+            raise AssertionError(f"roofline dryrun record: {r}")
+        emit({"phase": "roofline", "check": "dryrun", "record": r})
+    emit({"phase": "roofline", "check": "dryrun_total", "cells":
+          len(ROOFLINE_CELLS), "records": len(records),
+          "skipped": len(want_skipped),
+          "wall_s": time.perf_counter() - t0})
+
+
+def roofline_inputs(cfg, kind, b, s, seed, device):
+    """A held step's inputs on ``device``: the batch (numpy-drawn tokens),
+    or a decode step's token at position 0."""
+    batch = model_batch(cfg, b, s, seed, device)
+    if kind == "decode":
+        return {"token": batch["tokens"][:, :1], "pos": 0}
+    return batch
+
+
+def roofline_meta_inputs(inputs):
+    """``inputs`` as meta tensors of the same shapes and dtypes."""
+    return {k: (torch.empty(v.shape, dtype=v.dtype, device="meta")
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in inputs.items()}
+
+
+def roofline_held_step(label, cfg, kind, b, s, device):
+    """(b): one step counted on the card and on meta, timed, its memory
+    read; fails unless the counts agree and the time is at or above the
+    bound."""
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.models import transformer as tf
+
+    def state(dev):
+        return (tf.init_decode_state(cfg, b, s, torch.bfloat16, dev)
+                if kind == "decode" else None)
+    inputs = roofline_inputs(cfg, kind, b, s, SEED + 11, device)
+    meta_cost, meta_mem, trace_s = dryrun.count_step(dryrun.build_step(
+        cfg, kind, shapes.abstract_params(cfg), roofline_meta_inputs(inputs),
+        state=state(shapes.META)))
+    release_card()
+    model = tf.init_params(torch.Generator(device).manual_seed(SEED), cfg,
+                           device)
+    step = dryrun.build_step(cfg, kind, model, inputs, state=state(device))
+    step.run()                                     # warm-up
+    torch.cuda.synchronize()
+    release_card()
+    torch.cuda.reset_peak_memory_stats()
+    card_cost, card_mem, count_s = dryrun.count_step(step)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = events_ms(step.run, ROOFLINE_REPS)
+    t = roofline.step_times(card_cost)
+    bound_s = max(t["compute_s"], t["memory_s"])
+    share = bound_s * 1e3 / ms
+    bytes_gap = abs(card_cost.bytes - meta_cost.bytes) / meta_cost.bytes
+    row = {"phase": "roofline", "check": "held_step", "step": label,
+           "kind": kind, "batch": b, "seq": s,
+           "compute_dtype": cfg.compute_dtype,
+           "card_flops": card_cost.flops, "meta_flops": meta_cost.flops,
+           "flops_by_dtype": card_cost.flops_by_dtype,
+           "card_bytes": card_cost.bytes, "meta_bytes": meta_cost.bytes,
+           "bytes_rel_gap": bytes_gap, "card_ops": card_cost.ops,
+           "meta_ops": meta_cost.ops, "compute_ms": t["compute_s"] * 1e3,
+           "memory_ms": t["memory_s"] * 1e3, "bound_ms": bound_s * 1e3,
+           "bound_by": "operations" if t["compute_s"] >= t["memory_s"]
+           else "bytes", "ms": ms, "roofline_share": share,
+           "peak_estimate_gib": meta_mem["peak_bytes"] / 2 ** 30,
+           "card_estimate_gib": card_mem["peak_bytes"] / 2 ** 30,
+           "max_memory_allocated_gib": peak / 2 ** 30,
+           "peak_ratio": meta_mem["peak_bytes"] / peak,
+           "meta_trace_s": trace_s, "card_count_s": count_s,
+           "card": nvidia_smi_line()}
+    emit(row)
+    lo, hi = ROOFLINE_PEAK_BAND
+    if (card_cost.flops != meta_cost.flops
+            or bytes_gap > ROOFLINE_BYTES_RTOL or share > 1.0
+            or not lo <= row["peak_ratio"] <= hi):
+        raise AssertionError(f"roofline held step {label}: {row}")
+    del step
+    release_card()
+    return row
+
+
+def roofline_held_steps(device):
+    """(b): the trainer's qwen2-0.5b step, the models path's bf16 prefill
+    and decode."""
+    from repro_torch.configs import get_config
+    args = dict(LM_TRAIN_RUNS)["qwen2-0.5b"]
+    b, s = (int(args[args.index(k) + 1]) for k in ("--batch", "--seq"))
+    cfg = get_config("qwen2-0.5b")
+    roofline_held_step("trainer qwen2-0.5b", cfg, "train", b, s, device)
+    r = MODEL_BF16
+    cfg = get_config(r["arch"])
+    roofline_held_step(f"{r['arch']} prefill", cfg, "prefill", r["batch"],
+                       r["prefill"], device)
+    roofline_held_step(f"{r['arch']} decode", cfg, "decode", r["batch"],
+                       r["cache"], device)
+
+
+def roofline_whisper(device):
+    """(c): whisper-large-v3 decodes on the default bf16 cache against its
+    own forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = float32_config(get_config("whisper-large-v3"))
+    b, s = ROOFLINE_WHISPER_DECODE
+    model = tf.init_params(torch.Generator(device).manual_seed(SEED), cfg,
+                           device)
+    batch = model_batch(cfg, b, s, SEED + 13, device)
+    want = tf.forward(model, batch, cfg)
+    state = tf.init_decode_state(cfg, b, s, device=device)
+    dtypes = {t.dtype for blk in state["blocks"] for c in blk.values()
+              for t in (c["cross_k"], c["self"]["k"])}
+    state = tf.fill_cross_cache(model, state, batch, cfg)
+    outs = []
+    for t in range(s):
+        logits, state = tf.decode_step(model, state,
+                                       batch["tokens"][:, t:t + 1], t, cfg)
+        outs.append(logits[:, 0])
+    err = held(torch.stack(outs, 1), want, MODEL_DECODE_TOL,
+               "whisper-large-v3 bf16-cache decode")
+    emit({"phase": "roofline", "check": "whisper_bf16_decode",
+          "cache_dtypes": sorted(str(d) for d in dtypes),
+          "compute_dtype": cfg.compute_dtype, "batch": b, "steps": s,
+          "max_abs_err": err, "tol": MODEL_DECODE_TOL,
+          "card": nvidia_smi_line()})
+    if dtypes != {torch.bfloat16}:
+        raise AssertionError(f"roofline whisper: cache dtypes {dtypes}")
+    del model, state
+    release_card()
+
+
+def phase_roofline(device):
+    """Phase 3 (m), the roofline path: (a) the dry run on the production
+    meshes, (b) three steps' counts held to the card, (c) whisper's decode
+    on a bf16 cache.  It launches none of the eleven kernels; returns
+    their counts, read around the path, which must all be 0."""
+    fns = {name: kernel_pair(name)[0] for name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    walls = {}
+    for name, part in (("dryrun", lambda _: roofline_dryrun()),
+                       ("held_steps", roofline_held_steps),
+                       ("whisper", roofline_whisper)):
+        t1 = time.perf_counter()
+        part(device)
+        walls[name] = time.perf_counter() - t1
+    counts = {name: fn.launches for name, fn in fns.items()}
+    if any(counts.values()):
+        raise AssertionError(f"roofline path launched kernels: {counts}")
+    emit({"phase": "roofline", "round": "total", "wall_s":
+          time.perf_counter() - t0, "parts_s": walls})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5434,7 +5689,8 @@ def main() -> int:
                "cli": phase_cli(device),
                "mesh": phase_mesh(device),
                "models": phase_models(device),
-               "lm_train": phase_lm_train(device)}
+               "lm_train": phase_lm_train(device),
+               "roofline": phase_roofline(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

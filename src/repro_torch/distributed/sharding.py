@@ -432,12 +432,23 @@ def _block_slices(shape, mesh, pls) -> Tuple[slice, ...]:
 
 def distribute(x: torch.Tensor, mesh, spec: Spec) -> DTensor:
     """The whole tensor ``x`` (every rank holds it) as a ``DTensor`` of
-    ``spec`` on ``mesh``: this rank keeps its block.  No communication."""
+    ``spec`` on ``mesh``: this rank keeps its block (a view of ``x`` where
+    the block is contiguous).  No communication."""
     pls = placements(mesh, spec)
     local = x[_block_slices(tuple(x.shape), mesh, pls)]
     return DTensor.from_local(local.contiguous(), mesh, pls,
                               run_check=False, shape=x.shape,
                               stride=x.contiguous().stride())
+
+
+def _store(x: torch.Tensor, mesh, spec: Spec) -> DTensor:
+    """:func:`distribute` for a tensor kept past the call (a parameter):
+    the block is a copy, so that it does not keep the whole tensor's
+    storage alive."""
+    d = distribute(x, mesh, spec)
+    return DTensor.from_local(
+        d.to_local().clone(memory_format=torch.contiguous_format), mesh,
+        d.placements, run_check=False, shape=d.shape, stride=d.stride())
 
 
 def partitioned(x) -> bool:
@@ -468,7 +479,7 @@ def shard_tree(tree, mesh, rules: Optional[ShardingRules] = None):
     def place(path, leaf):
         sh = NamedSharding(mesh, param_pspec(path, tuple(leaf.shape), rules,
                                              mesh))
-        return distribute(leaf, mesh, sh.spec) if sh.partitions else leaf
+        return _store(leaf, mesh, sh.spec) if sh.partitions else leaf
     return tree_map_with_path(place, tree)
 
 
@@ -488,7 +499,7 @@ def shard_module(module: torch.nn.Module, mesh,
         owner, _, name = path.rpartition(".")
         sub = module.get_submodule(owner) if owner else module
         setattr(sub, name, torch.nn.Parameter(
-            distribute(prm.detach(), mesh, sh.spec),
+            _store(prm.detach(), mesh, sh.spec),
             requires_grad=prm.requires_grad))
     return module
 

@@ -287,7 +287,9 @@ def clause_eval_packed(litw: torch.Tensor, incw: torch.Tensor) -> torch.Tensor:
     """``[B, C]`` uint8 clause bits from packed words, training semantics
     (empty clauses fire)."""
     _check_pair("clause_eval_packed", litw, incw, (torch.int32,))
-    if litw.device.type == "cpu":
+    # the host, and the meta device where the dry run counts a TM step
+    # (shapes only: no kernel can run there), take the plain version
+    if litw.device.type in ("cpu", "meta"):
         return clause_eval_packed_ref(litw, incw)
     out = _launch_eval("clause_eval_packed", litw, incw)
     if out.numel():                     # an empty output launched nothing

@@ -254,7 +254,9 @@ def attention_decode(p: Attention, x, cache: Optional[dict], pos: int,
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     if cross_kv is not None:
         q = _project_q(p, x, cfg, positions, use_rope=False)
-        k, v = _expand_kv(*cross_kv, cfg)
+        # the cross caches keep the state's dtype (bf16 by default); the
+        # products take q's, as the self-attention branch reads its cache
+        k, v = _expand_kv(*(c.to(q.dtype) for c in cross_kv), cfg)
         k_pos = _positions(b, k.shape[1], k.device)
         out = _sdpa(q, k, v, scale=scale, causal=False, q_pos=positions,
                     k_pos=k_pos, cap=cfg.attn_softcap)

@@ -214,9 +214,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     """A model of ``cfg`` on ``device`` (the card unless ``"cpu"``), drawn
     from ``gen`` (a generator on that device).  ``dtype`` overrides the
     config's ``param_dtype`` for the weights; norms, scalars and the router
-    stay float32."""
+    stay float32.  On ``"meta"`` (shapes and dtypes only, nothing
+    allocated: the dry run's abstract model) no value is drawn, and ``gen``
+    may be any generator."""
     device = resolve_device(device)
-    if gen.device.type != device.type:
+    if device.type != "meta" and gen.device.type != device.type:
         raise ValueError(f"the generator is on {gen.device}, the model on "
                          f"{device}: draw on the model's device")
     with torch.no_grad():

@@ -81,7 +81,8 @@ def test_scan_covers_the_port():
             "attention.py", "moe.py", "ssm.py", "transformer.py",
             "pipeline.py", "archs.py", "base.py", "optimizers.py",
             "compression.py", "train_step.py", "train.py",
-            "torch_lm_train.py"} <= names
+            "torch_lm_train.py", "shapes.py", "dryrun.py", "analysis.py",
+            "report.py"} <= names
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {
         "imbue_infer_planes.cu", "imbue_infer_packed.cu", "imbue_infer.cu",

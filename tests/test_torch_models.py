@@ -17,6 +17,7 @@ its mixers alone agrees with the port within 2.1e-6 (held here at
 
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -235,6 +236,46 @@ def test_decode_matches_reference_decode():
                                    atol=TOL)
 
 
+# bf16 decode state, rtol = atol: tighter than the reference's decode bar
+# (chip_smoke's MODEL_DECODE_TOL, 2e-2).  The port's cross products read
+# the bf16 caches as float32 where the reference rounds its softmax to
+# bf16 before the value product: 8.1e-4 apart on logits of max 0.52 here.
+BF16_DECODE_TOL = 2e-3
+
+
+def test_whisper_decode_on_bf16_state_matches_reference():
+    """whisper-large-v3 decodes on ``init_decode_state``'s default bf16
+    state (its cross caches bf16 beside float32 queries) and agrees with
+    the reference's ``decode_step`` on the same bf16 state: the cross
+    caches the port fills from the encoder, copied into the reference's
+    state bit for bit, then 8 positions at ``BF16_DECODE_TOL``."""
+    cfg, params, _, pcfg, model = pair("whisper-large-v3")
+    b, s = 2, 8
+    batch = batch_np(cfg, b, s)
+    pstate = tf.init_decode_state(pcfg, b, s, device="cpu")
+    pstate = tf.fill_cross_cache(model, pstate, to_port(batch), pcfg)
+    rstate = ref_tf.init_decode_state(cfg, b, s)
+    for i in range(len(cfg.block_pattern)):
+        for name in ("cross_k", "cross_v"):
+            caches = [blk[str(i)][name] for blk in pstate["blocks"]]
+            assert all(c.dtype == torch.bfloat16 for c in caches)
+            rstate["blocks"][str(i)][name] = jnp.asarray(
+                np.stack([c.float().numpy() for c in caches]),
+                dtype=jnp.bfloat16)
+    step = jax.jit(ref_tf.decode_step, static_argnames=("cfg",))
+    tokens = batch["tokens"]
+    for t in range(s):
+        want, rstate = step(params, rstate, jnp.asarray(tokens[:, t:t + 1]),
+                            jnp.int32(t), cfg)
+        got, pstate = tf.decode_step(
+            model, pstate, torch.from_numpy(tokens[:, t:t + 1].astype(
+                np.int64)), t, pcfg)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=BF16_DECODE_TOL,
+                                   atol=BF16_DECODE_TOL)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_port_init_forward_shapes_and_finite(arch):
     """The port's own initialisation (a seeded generator): forward shapes
@@ -301,8 +342,28 @@ def test_model_init_is_seeded_and_typed():
     for n, p in bf.named_parameters():
         f32 = n.endswith(("scale", "bias", "kv_norm", "router"))
         assert p.dtype == (torch.float32 if f32 else torch.bfloat16), n
+    # a generator on another device than the model's is refused (a stub
+    # stands in for a card's generator); on meta, where nothing is drawn,
+    # the host's serves
+    card_gen = types.SimpleNamespace(device=torch.device("cuda"))
     with pytest.raises(ValueError, match="generator"):
-        tf.init_params(torch.Generator().manual_seed(5), cfg, "meta")
+        tf.init_params(card_gen, cfg, "cpu")
+    meta = tf.init_params(torch.Generator().manual_seed(5), cfg, "meta")
+    assert all(p.is_meta for p in meta.parameters())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_meta_model_matches_host_model(arch):
+    """A model built on ``"meta"`` (the dry run's abstract parameters)
+    has the host-built model's parameter names, shapes and dtypes, and
+    allocates nothing."""
+    cfg = smoke(get_config(arch))
+    host = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    meta = tf.init_params(torch.Generator().manual_seed(0), cfg, "meta")
+    want = {n: (tuple(p.shape), p.dtype) for n, p in host.named_parameters()}
+    got = {n: (tuple(p.shape), p.dtype) for n, p in meta.named_parameters()}
+    assert got == want
+    assert all(p.device.type == "meta" for p in meta.parameters())
 
 
 def test_converter_rejects_missing_extra_and_misshapen_leaves():
