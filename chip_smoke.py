@@ -232,7 +232,18 @@ is non-zero and no result line is printed):
    (CUDA events) at or above their roofline bound, the dry run's peak
    estimate beside ``max_memory_allocated``; and whisper-large-v3's
    decode on the default bf16 cache against its forward; no kernel
-   launch.
+   launch; (n) the tp path, tensor parallelism on the model axis for the
+   LM side path: four ranks sharing the card over gloo on a ``(2, 2)``
+   mesh, qwen2-0.5b at full width (depth ``TP_QWEN_LAYERS``) training a
+   step (loss, gradients, the train step's own gradients and the AdamW
+   update within ``TP_TOL`` of one rank's, each entry's move within
+   ``TP_MOVE_TOL`` x lr of one rank's where its gradient is not near
+   0), deepseek-v2-lite-16b at full width with bf16 weights (depth
+   ``TP_DEEPSEEK_LAYERS``) forward and ``TP_DECODE`` decode steps on a
+   ``kv_seq``-split cache within ``MODEL_DECODE_TOL`` of one process, a
+   ``seq_parallel`` smoke arch; each rank's peak memory, collective bytes
+   and ms a step; the step counted on the card against meta on a fake
+   ``(2, 2)`` group; no kernel launch.
    Each path's launch counters are zeroed just before it and read just
    after: one launch per dispatch (plus one per probe read and canary
    shadow read on the live path, one ``tm_infer`` per probe commit, and
@@ -710,6 +721,50 @@ ROOFLINE_PEAK_BAND = (0.5, 2.0)
 # ROOFLINE_WHISPER_DECODE = (batch, steps) from init_decode_state's
 # default bf16 state against its own forward at MODEL_DECODE_TOL.
 ROOFLINE_WHISPER_DECODE = (2, 8)
+# The tp path, phase 3 (n): tensor parallelism on the model axis for the
+# LM side path (sharding.use_sharding under launch.mesh.rules_for: heads,
+# MLP, vocab, experts and the decode cache's sequence on "model"),
+# TP_RANKS ranks sharing the card over gloo on make_debug_mesh(2, 2),
+# each checked against the same work on one rank.  (a) qwen2-0.5b at its
+# published widths, depth cut to TP_QWEN_LAYERS layers, float32
+# (float32_config), B x S = TP_SHAPE: loss_fn's loss and every gradient
+# within TP_TOL x max |g| of one rank's; one AdamW step at TP_LR (lr x
+# g / (|g| + eps) moves an entry whose gradient is near eps by up to lr
+# under any reordering of the sums, so lr keeps that inside the bar) with
+# the updated parameters within TP_TOL x max |p| and every leaf the
+# one-rank step moves moved as far; that bar is wider than the whole
+# update, so the step is also held by what it is made of: the gradients
+# the train step hands the optimizer (rows split over "data" and
+# averaged) within TP_TOL x max |g| of the one-rank step's, and each
+# entry's move within TP_MOVE_TOL x lr of the one-rank move wherever the
+# one-rank step's gradient is at least TP_MOVE_MIN_G of its largest (the
+# move there is lr x sign(g)); then the trainer's step
+# (launch.dryrun.build_step, AdamW) counted on the card under StepCost
+# (a rank's FLOPs, bytes and collective bytes) and timed (CUDA events,
+# median of TP_REPS), and each rank's peak max_memory_allocated.  (b)
+# deepseek-v2-lite-16b at its published widths with bf16 weights
+# (MODEL_OVERRIDES), depth cut to TP_DEEPSEEK_LAYERS (the dense MLA
+# prologue layer and one MoE layer), float32 compute with MoE at capacity
+# E / K (float32_config): the forward at TP_SHAPE and TP_DECODE decode
+# steps on a kv_seq-split cache of TP_DECODE slots (half on each model
+# rank), against one process, run first in this process and released
+# before the ranks start, within MODEL_DECODE_TOL.  (c) arctic-480b's
+# smoke() with seq_parallel on (as launch.shapes sets it), remat on and
+# two CE chunks: (a)'s checks.  (d) The trainer's step of (a) counted on
+# meta on a fake (2, 2) group in this process against rank 0's count on
+# the card: FLOPs equal, bytes within ROOFLINE_BYTES_RTOL.  Ranks sharing
+# one card over gloo make these mechanism readings only.
+TP_RANKS = 4
+TP_SHAPE = (2, 64)
+TP_QWEN_LAYERS = 4
+TP_DEEPSEEK_LAYERS = 2
+TP_DECODE = 8
+TP_TOL = 2e-5
+TP_LR = 1e-5
+TP_MOVE_TOL = 0.05
+TP_MOVE_MIN_G = 1e-3
+TP_REPS = 3
+TP_TIMEOUT_S = 600
 # Flash attention at the attention widths of three architectures the repo
 # registers (src/repro/configs/archs.py; the numbers are copied, the port
 # imports nothing of the reference), in the models' compute dtype (bf16),
@@ -5663,6 +5718,319 @@ def phase_roofline(device):
     return counts
 
 
+# -------------------------------------------------------------------- tp
+
+def tp_configs():
+    """``{label: config}`` of the path's three models (constants above)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke
+    qwen = float32_config(get_config("qwen2-0.5b"))
+    arch = "deepseek-v2-lite-16b"
+    deep = float32_config(dataclasses.replace(
+        get_config(arch), **MODEL_OVERRIDES[arch]))
+    return {"qwen2-0.5b": dataclasses.replace(qwen, n_layers=TP_QWEN_LAYERS),
+            arch: dataclasses.replace(deep, n_layers=TP_DEEPSEEK_LAYERS),
+            "arctic-480b smoke seq_parallel": dataclasses.replace(
+                smoke(get_config("arctic-480b")), seq_parallel=True,
+                remat=True, loss_chunk=32)}
+
+
+def tp_model(cfg, device):
+    from repro_torch.models import transformer as tf
+    return tf.init_params(torch.Generator(device).manual_seed(SEED), cfg,
+                          device)
+
+
+def tp_decode(model, cfg, batch):
+    """``TP_DECODE`` decode steps from an empty float32 cache of as many
+    slots (made under the active sharding: a rank's slice of them)."""
+    from repro_torch.models import transformer as tf
+    state = tf.init_decode_state(cfg, TP_SHAPE[0], TP_DECODE,
+                                 dtype=torch.float32,
+                                 device=batch["tokens"].device)
+    outs = []
+    for t in range(TP_DECODE):
+        logits, state = tf.decode_step(model, state,
+                                       batch["tokens"][:, t:t + 1], t, cfg)
+        outs.append(logits[:, 0])
+    return torch.stack(outs, 1)
+
+
+def tp_within(got, want, what):
+    """``(max |err| over the leaves, bar)``; fails past TP_TOL x the
+    largest |value| of ``want``'s leaves."""
+    if not isinstance(want, dict):
+        got, want = {"": got}, {"": want}
+    top = max(float(w.abs().max()) for w in want.values())
+    err = max(float((got[n].float() - w.float()).abs().max())
+              for n, w in want.items())
+    if not err <= TP_TOL * top:
+        raise AssertionError(f"tp {what}: max |err| {err} past "
+                             f"{TP_TOL} x {top}")
+    return err, TP_TOL * top
+
+
+def tp_step_gradients(opt):
+    """The gradients the train step hands ``opt.step``, whole, by name
+    (filled when the step runs)."""
+    from repro_torch.distributed import sharding
+    seen = {}
+    inner = opt.step
+
+    def spy(step_idx, grads=None):
+        seen.update({n: sharding.gather(g).detach().clone()
+                     for n, g in grads.items()})
+        return inner(step_idx, grads)
+
+    opt.step = spy
+    return seen
+
+
+def tp_moves_within(got, want, want_g, what):
+    """``(max |err| of the moves held, share of entries held)``: each
+    entry's move within TP_MOVE_TOL x TP_LR of the one-rank move where
+    the one-rank step's gradient is at least TP_MOVE_MIN_G of its
+    largest."""
+    top = max(float(g.abs().max()) for g in want_g.values())
+    err, held, total = 0.0, 0, 0
+    for n, g in want_g.items():
+        mask = g.abs() >= TP_MOVE_MIN_G * top
+        if bool(mask.any()):
+            err = max(err, float((got[n] - want[n])[mask].abs().max()))
+        held += int(mask.sum())
+        total += mask.numel()
+    if not err <= TP_MOVE_TOL * TP_LR or not held:
+        raise AssertionError(f"tp {what}: a move off by {err} past "
+                             f"{TP_MOVE_TOL} x {TP_LR}, or {held} of "
+                             f"{total} entries held")
+    return err, held / total
+
+
+def tp_train_check(label, cfg, mesh, device):
+    """(a) / (c) on this rank: gradients and one AdamW step against one
+    rank; returns the row."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    batch = model_batch(cfg, *TP_SHAPE, SEED + 31, device)
+    single = tp_model(cfg, device)
+    want_loss, want_g = lm_grads(single, batch, cfg)
+    before = {n: p.detach().clone() for n, p in single.named_parameters()}
+    opt = make_optimizer(single, OptimizerConfig(lr=TP_LR))
+    want_sg = tp_step_gradients(opt)
+    make_train_step(cfg, opt)(single, 0, batch)
+    want_p = {n: p.detach() for n, p in single.named_parameters()}
+    del single
+    rules = rules_for(cfg, mesh, global_batch=TP_SHAPE[0])
+    model = sharding.shard_module(tp_model(cfg, device), mesh, rules)
+    with sharding.use_sharding(mesh, rules):
+        loss, g = lm_grads(model, batch, cfg)
+        opt = make_optimizer(model, OptimizerConfig(lr=TP_LR))
+        got_sg = tp_step_gradients(opt)
+        make_train_step(cfg, opt)(model, 0, batch)
+    got_g = {n: sharding.gather(v) for n, v in g.items()}
+    got_p = {n: sharding.gather(p.detach())
+             for n, p in model.named_parameters()}
+    loss_err, _ = tp_within(loss, want_loss, f"{label} loss")
+    g_err, g_bar = tp_within(got_g, want_g, f"{label} gradients")
+    sg_err, sg_bar = tp_within(got_sg, want_sg,
+                               f"{label} train-step gradients")
+    p_err, p_bar = tp_within(got_p, want_p, f"{label} AdamW step")
+    for n, w in want_p.items():
+        moved = float((w - before[n]).abs().max())
+        if float((got_p[n] - before[n]).abs().max()) < 0.5 * moved:
+            raise AssertionError(f"tp {label}: {n} did not move")
+    move_err, move_share = tp_moves_within(
+        {n: got_p[n] - before[n] for n in before},
+        {n: want_p[n] - before[n] for n in before}, want_sg,
+        f"{label} AdamW moves")
+    split = sum(sharding.partitioned(p) for p in model.parameters())
+    return {"model": label, "check": "train_step", "loss": float(loss),
+            "loss_err": loss_err, "grad_max_abs_err": g_err,
+            "grad_bar": g_bar, "step_grad_max_abs_err": sg_err,
+            "step_grad_bar": sg_bar, "param_max_abs_err": p_err,
+            "param_bar": p_bar, "move_max_abs_err": move_err,
+            "move_bar": TP_MOVE_TOL * TP_LR, "move_share_held": move_share,
+            "lr": TP_LR, "leaves_split": split,
+            "seq_parallel": cfg.seq_parallel}
+
+
+def tp_rank(device_name, out_dir, ref_path):
+    """One of ``TP_RANKS`` ranks on the card: (a), (b), (c); every rank
+    reports its launches, peak memory, collective bytes and ms a step;
+    rank 0 writes ``tp.json``."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh, rules_for
+    from repro_torch.models import transformer as tf
+    device = torch.device(device_name)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    zero_launches(KERNELS)
+    mesh = make_debug_mesh(2, 2, device_type=device.type)
+    cfgs = tp_configs()
+    rows = []
+    qwen, deep, sp = cfgs
+    rows.append(tp_train_check(qwen, cfgs[qwen], mesh, device))
+    release_card()
+    # the trainer's step of (a), counted and timed on this rank
+    cfg = cfgs[qwen]
+    rules = rules_for(cfg, mesh, global_batch=TP_SHAPE[0])
+    batch = model_batch(cfg, *TP_SHAPE, SEED + 31, device)
+    torch.cuda.reset_peak_memory_stats()
+    with sharding.use_sharding(mesh, rules):
+        step = dryrun.build_step(cfg, "train", tp_model(cfg, device), batch,
+                                 mesh=mesh, rules=rules)
+        cost, mem, count_s = dryrun.count_step(step)
+        ms = events_ms(step.run, TP_REPS)
+    mine = {"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "flops": cost.flops, "bytes": cost.bytes,
+            "collective_bytes": cost.collective_bytes,
+            "collective_ops": dict(cost.collective_detail),
+            "step_ms": ms, "count_s": count_s,
+            "params_bytes": mem["params_bytes"]}
+    del step
+    release_card()
+    # (b): the one-process results came from the parent
+    cfg = cfgs[deep]
+    want = torch.load(ref_path)
+    batch = model_batch(cfg, *TP_SHAPE, SEED + 32, device)
+    rules = rules_for(cfg, mesh, global_batch=TP_SHAPE[0])
+    model = sharding.shard_module(tp_model(cfg, device), mesh, rules)
+    release_card()
+    with sharding.use_sharding(mesh, rules):
+        t0 = time.perf_counter()
+        fwd = tf.forward(model, batch, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = tp_decode(model, cfg, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    rows.append({"model": deep, "check": "forward_decode",
+                 "forward_err": held(fwd, want["forward"], MODEL_DECODE_TOL,
+                                     f"tp {deep} forward"),
+                 "decode_err": held(dec, want["decode"], MODEL_DECODE_TOL,
+                                    f"tp {deep} decode"),
+                 "tol": MODEL_DECODE_TOL, "forward_s": t1 - t0,
+                 "decode_s": t2 - t1, "cache_slots_a_rank": TP_DECODE // 2})
+    del model, fwd, dec
+    release_card()
+    rows.append(tp_train_check(sp, cfgs[sp], mesh, device))
+    mine["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    launches = rank_launches(KERNELS)
+    if dist.get_rank() == 0:
+        with open(Path(out_dir) / "tp.json", "w") as f:
+            json.dump({"rows": rows, "by_rank": every,
+                       "launches_by_rank": launches}, f)
+
+
+def tp_one_process(device, path):
+    """(b)'s one-process forward and decode, saved to ``path``; the model
+    is released before the ranks start."""
+    from repro_torch.models import transformer as tf
+    cfg = tp_configs()["deepseek-v2-lite-16b"]
+    model = tp_model(cfg, device)
+    batch = model_batch(cfg, *TP_SHAPE, SEED + 32, device)
+    t0 = time.perf_counter()
+    fwd, aux = tf.forward(model, batch, cfg, return_aux=True)
+    if float(aux["moe_drop_frac"]):
+        raise AssertionError("tp deepseek: the forward dropped slots")
+    dec = tp_decode(model, cfg, batch)
+    torch.cuda.synchronize()
+    torch.save({"forward": fwd.cpu(), "decode": dec.cpu()}, path)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, fwd, dec
+    release_card()
+    return {"params": n_params, "one_process_s": time.perf_counter() - t0}
+
+
+def tp_meta_count():
+    """(d): the trainer's step of (a) counted on meta on a fake (2, 2)
+    group in this process (rank 0)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import dryrun, shapes
+    from repro_torch.launch.mesh import make_debug_mesh, rules_for
+    cfg = tp_configs()["qwen2-0.5b"]
+    dryrun.fake_group(TP_RANKS)
+    try:
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        rules = rules_for(cfg, mesh, global_batch=TP_SHAPE[0])
+        inputs = roofline_meta_inputs(model_batch(cfg, *TP_SHAPE, SEED + 31,
+                                                  "cpu"))
+        with sharding.use_sharding(mesh, rules):
+            cost, mem, _ = dryrun.count_step(dryrun.build_step(
+                cfg, "train", shapes.abstract_params(cfg), inputs,
+                mesh=mesh, rules=rules))
+    finally:
+        dist.destroy_process_group()
+    return cost, mem
+
+
+def phase_tp(device):
+    """Phase 3 (n), the tp path: (b)'s one process, (d)'s meta count, then
+    ``tp_rank`` on ``TP_RANKS`` spawned ranks sharing the card.  It
+    launches none of the eleven kernels; returns their counts, read
+    around the path and on every rank, which must all be 0."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.hostdev import run_host_ranks
+    fns = {name: kernel_pair(name)[0] for name in KERNELS}
+    for fn in fns.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = tempfile.mkdtemp(prefix="tp-")
+    try:
+        ref = tp_one_process(device, str(Path(out) / "deepseek.pt"))
+        meta, meta_mem = tp_meta_count()
+        t1 = time.perf_counter()
+        run_host_ranks(tp_rank, TP_RANKS,
+                       (str(device), out, str(Path(out) / "deepseek.pt")),
+                       rdzv_dir=out, timeout=TP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t1
+        with open(Path(out) / "tp.json") as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for rank, counts in report["launches_by_rank"].items():
+        if any(counts.values()):
+            raise AssertionError(f"tp: rank {rank} launched kernels: "
+                                 f"{counts}")
+    card = nvidia_smi_line()
+    for row in report["rows"]:
+        emit({"phase": "tp", "ranks": TP_RANKS, "mesh": [2, 2],
+              "transport": "gloo", **row, "card": card})
+    card0 = report["by_rank"][0]
+    gap = abs(card0["bytes"] - meta.bytes) / meta.bytes
+    emit({"phase": "tp", "check": "per_rank", "model": "qwen2-0.5b",
+          "layers": TP_QWEN_LAYERS, "batch": TP_SHAPE[0],
+          "seq": TP_SHAPE[1], "by_rank": report["by_rank"],
+          "deepseek_one_process": ref, "card": card})
+    row = {"phase": "tp", "check": "meta_count", "card_flops":
+           card0["flops"], "meta_flops": meta.flops,
+           "card_bytes": card0["bytes"], "meta_bytes": meta.bytes,
+           "bytes_rel_gap": gap, "card_collective_bytes":
+           card0["collective_bytes"], "meta_collective_bytes":
+           meta.collective_bytes, "meta_peak_gib":
+           meta_mem["peak_bytes"] / 2 ** 30, "card": card}
+    emit(row)
+    if card0["flops"] != meta.flops or gap > ROOFLINE_BYTES_RTOL:
+        raise AssertionError(f"tp meta count: {row}")
+    counts = {name: fn.launches for name, fn in fns.items()}
+    if any(counts.values()):
+        raise AssertionError(f"tp path launched kernels: {counts}")
+    emit({"phase": "tp", "round": "total", "wall_s":
+          time.perf_counter() - t0, "ranks_s": ranks_s})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5690,7 +6058,8 @@ def main() -> int:
                "mesh": phase_mesh(device),
                "models": phase_models(device),
                "lm_train": phase_lm_train(device),
-               "roofline": phase_roofline(device)}
+               "roofline": phase_roofline(device),
+               "tp": phase_tp(device)}
     by_path["training"], train_epochs = phase_training(device)
     by_path["flash"] = phase_flash_path(device)
     emit({"phase": "launches", "by_path": by_path})

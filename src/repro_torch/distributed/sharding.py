@@ -25,7 +25,9 @@ rank holds, with no communication (:func:`distribute`).  Eager code
 never runs on a ``DTensor``: a partitioned read takes each operand's
 local block (:func:`local_block`), computes its block of the result and
 gathers the blocks (:func:`assemble`), which is where the reference's
-GSPMD partitioning of its jnp paths lands in this port.
+GSPMD partitioning of its jnp paths lands in this port.  The LM models
+partition their layers over the tensor axis themselves, Megatron-style
+(:class:`TensorParallel`).
 """
 
 from __future__ import annotations
@@ -121,10 +123,16 @@ class ActiveSharding:
 
 @contextlib.contextmanager
 def use_sharding(mesh, rules: ShardingRules):
+    """Inside the block ``constrain`` places per ``rules`` on ``mesh``, and
+    the models compute their partitioned layers on this rank's block
+    where ``rules`` put a tensor axis of more than one rank on ``mesh``
+    (:func:`tensor_parallel_of`; process-wide, see :data:`_TP`)."""
     tok = _ACTIVE.set(ActiveSharding(mesh, rules))
+    prev, _TP[0] = _TP[0], tensor_parallel_of(mesh, rules)
     try:
         yield
     finally:
+        _TP[0] = prev
         _ACTIVE.reset(tok)
 
 
@@ -134,11 +142,10 @@ def active() -> Optional[ActiveSharding]:
 
 def constrain(x: torch.Tensor, *logical_axes) -> torch.Tensor:
     """Place ``x`` per the active rules (a no-op without them): a
-    ``DTensor`` is redistributed.  A plain tensor passes as it is: the
-    models compute every activation whole on each rank (their parameters
-    may be stored as blocks, :func:`shard_module`, and are gathered at
-    use), so the sites where the reference hints a layout to its
-    partitioner place nothing in eager code."""
+    ``DTensor`` is redistributed.  A plain tensor passes as it is: eager
+    code places its activations itself (the models' tensor-parallel
+    layers, :class:`TensorParallel`), so the sites where the reference
+    hints a layout to its partitioner place nothing here."""
     act = _ACTIVE.get()
     if act is None or not isinstance(x, DTensor):
         return x
@@ -563,6 +570,14 @@ _WIRE_DTYPES = {torch.int16: torch.int32, torch.bool: torch.uint8,
 
 
 def _all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    if t.dtype == torch.bfloat16:
+        # a gather does no arithmetic: bf16 travels as its bytes, not
+        # widened to float32 as a sum must be
+        wire = t.contiguous().reshape(-1).view(torch.uint8)
+        out = [torch.empty_like(wire)
+               for _ in range(dist.get_world_size(group))]
+        dist.all_gather(out, wire, group=group)
+        return [o.view(torch.bfloat16).reshape(t.shape) for o in out]
     wire = t.to(_WIRE_DTYPES.get(t.dtype, t.dtype)).contiguous()
     out = [torch.empty_like(wire)
            for _ in range(dist.get_world_size(group))]
@@ -762,6 +777,213 @@ def batch_mean(t: torch.Tensor) -> torch.Tensor:
     if dp is None:
         return t
     return _BatchMean.apply(t, dp)
+
+
+# --------------------------------------------------- tensor parallelism
+#
+# Megatron-style tensor parallelism on the rules' tensor axis ("model"):
+# every rank of a model group holds the same rows, and a partitioned
+# layer computes on this rank's block of its heads, hidden units, vocab
+# or experts.  A replicated tensor enters such a layer through
+# :func:`copy_to_model` (its gradient is the sum of the ranks' partial
+# ones) and a partial result leaves it through :func:`reduce_from_model`
+# (the sum of the ranks' blocks), so the activations between layers stay
+# replicated over the group, or split on the sequence
+# (:func:`slice_along` / :func:`gather_along`) where ``rules.seq`` says
+# so.  Gloo has no reduce-scatter: an all-reduce and a slice stand in.
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The mesh dimension (of more than one rank) that the rules' tensor
+    axis names, and which logical axes it carries."""
+
+    mesh: Any
+    dim: int
+    heads: bool = False
+    mlp: bool = False
+    vocab: bool = False
+    expert: bool = False
+    kv_seq: bool = False
+    seq: bool = False
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.dim)
+
+    @property
+    def rank(self) -> int:
+        """This rank's coordinate on the model dimension."""
+        return self.mesh.get_coordinate()[self.dim]
+
+    @property
+    def group(self):
+        return self.mesh.get_group(self.dim)
+
+    def block(self, n: int, rank: Optional[int] = None) -> slice:
+        """Rank ``rank``'s (default: this rank's) block of ``n`` items,
+        ``n`` a multiple of :attr:`size`."""
+        step = n // self.size
+        r = self.rank if rank is None else rank
+        return slice(r * step, (r + 1) * step)
+
+
+# Process-wide, as :data:`_DP`: the backward and a checkpointed block's
+# recomputation run on the autograd engine's device threads.
+_TP: List[Optional[TensorParallel]] = [None]
+
+
+def tensor_parallel_of(mesh, rules: ShardingRules) -> Optional[
+        TensorParallel]:
+    """The tensor parallelism ``rules.tensor`` declares on ``mesh`` (each
+    logical axis the rules map to that mesh axis is carried by it), or
+    None when the axis is off, absent or of one rank."""
+    axis = rules.tensor
+    names = getattr(mesh, "mesh_dim_names", None)
+    if axis is None or not names or axis not in names:
+        return None
+    dim = list(names).index(axis)
+    if mesh.size(dim) == 1:
+        return None
+    return TensorParallel(mesh, dim, **{
+        name: getattr(rules, name) == axis
+        for name in ("heads", "mlp", "vocab", "expert", "kv_seq", "seq")})
+
+
+def tensor_parallel() -> Optional[TensorParallel]:
+    """The active tensor parallelism (None outside :func:`use_sharding`
+    or where it has none)."""
+    return _TP[0]
+
+
+def model_all_reduce(t: torch.Tensor, tp: TensorParallel,
+                     op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced by ``op`` over the model group (a new tensor)."""
+    w = t.to(dtype=_WIRE_DTYPES.get(t.dtype, t.dtype),
+             memory_format=torch.contiguous_format, copy=True)
+    dist.all_reduce(w, op=op, group=tp.group)
+    return w.to(t.dtype)
+
+
+def _model_all_gather(t: torch.Tensor, tp: TensorParallel,
+                      dim: int) -> torch.Tensor:
+    return torch.cat(_all_gather(t, tp.group), dim=dim)
+
+
+def _narrow(t: torch.Tensor, tp: TensorParallel, dim: int) -> torch.Tensor:
+    sl = tp.block(t.shape[dim])
+    return t.narrow(dim, sl.start, sl.stop - sl.start).contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_reduce(grad, ctx.tp), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return model_all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    """The ranks' blocks joined along ``dim``; the backward takes this
+    rank's block of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _model_all_gather(x, tp, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _narrow(grad, ctx.tp, ctx.dim), None, None
+
+
+class _SliceAlong(torch.autograd.Function):
+    """This rank's block along ``dim``; the backward joins the ranks'
+    gradient blocks."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _narrow(x, tp, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_all_gather(grad, ctx.tp, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (replicated over the model group) entering a partitioned
+    computation: unchanged, with a gradient summed over the group."""
+    tp = _TP[0]
+    return x if tp is None else _CopyToModel.apply(x, tp)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` (replicated after it)."""
+    tp = _TP[0]
+    return x if tp is None else _ReduceFromModel.apply(x, tp)
+
+
+def gather_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` joined along ``dim`` (sequence
+    parallelism's all-gather, the vocab blocks of the logits)."""
+    tp = _TP[0]
+    return x if tp is None else _GatherAlong.apply(x, tp, dim % x.ndim)
+
+
+def slice_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of the replicated ``x`` along ``dim``."""
+    tp = _TP[0]
+    return x if tp is None else _SliceAlong.apply(x, tp, dim % x.ndim)
+
+
+def model_block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of parameter ``x``, whole on its
+    other dimensions.  A leaf stored with its ``dim`` split over the model
+    dimension alone is all-gathered over its FSDP dimensions only and
+    keeps its block (the gradient of the block: averaged over the
+    data-parallel ranks and cut to the stored block, as :func:`gather`'s);
+    any other leaf is read whole and its block cut from it
+    (:func:`param_slice`)."""
+    tp = _TP[0]
+    if tp is None:
+        return gather(x)
+    if (isinstance(x, DTensor) and x.device_mesh == tp.mesh
+            and split_dims(x, dim) == [tp.dim]):
+        pls = tuple(Replicate() if i == tp.dim else p
+                    for i, p in enumerate(x.placements))
+        shape = list(x.shape)
+        shape[dim] //= tp.size
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Gather.apply(x.to_local(), x.device_mesh, pls,
+                                 tuple(shape), _DP[0])
+        return assemble(x.to_local(), x.device_mesh, pls)
+    sl = tp.block(x.shape[dim])
+    return param_slice(x, dim, sl.start, sl.stop)
+
+
+def param_slice(x: torch.Tensor, dim: int, lo: int, hi: int) -> torch.Tensor:
+    """``x[lo:hi]`` along ``dim``, read whole (:func:`gather`) and cut:
+    the cut is rank-specific, so the whole leaf's gradient is summed over
+    the model group (:func:`copy_to_model`)."""
+    return copy_to_model(gather(x)).narrow(dim, lo, hi - lo)
 
 
 # ------------------------------------------------------------ agreement

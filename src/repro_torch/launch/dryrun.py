@@ -15,13 +15,17 @@ meshes come from torch's in-process fake process group: one process
 stands for rank 0 of 256 or 512, and its collectives complete without
 moving data, where the reference forces 512 host devices into one
 process.  What a rank counts is what the port runs: parameters stored
-as FSDP blocks (``sharding.shard_module`` under ``rules_for``) and
-gathered whole at use, each rank its rows of the batch (``batch_rows``)
-where the rules shard it, every activation whole (no tensor
-parallelism), and a decode cache of the rank's rows with the whole
-sequence (the port's decode reads its cache whole, so
-``cache_shardings``' ``kv_seq`` split is not applied).  Records go to
-JSON under the reference's keys (``roofline.analysis.analyze_step``).
+as blocks (``sharding.shard_module`` under ``rules_for``), each rank its
+rows of the batch (``batch_rows``) where the rules shard it, the
+partitioned layers computed on the rank's block of heads, hidden units,
+vocab and experts (tensor parallelism on ``model``, and sequence
+parallelism where the cell's config sets ``seq_parallel``) with the
+FSDP blocks gathered over ``data`` at use, the other parameters
+gathered whole, and a decode cache of the rank's rows and its slice of
+the sequence (``kv_seq``).  Its collective bytes count each
+reduce-scatter as the all-reduce and slice the port runs in its place
+(gloo has none).  Records go to JSON under the reference's keys
+(``roofline.analysis.analyze_step``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\

@@ -129,7 +129,9 @@ def abstract_params(cfg: ModelConfig) -> tf.Transformer:
 def abstract_decode_state(cfg: ModelConfig, shape: str,
                           dtype=torch.bfloat16) -> dict:
     """Empty decode caches of the cell on the meta device, bf16 by default
-    as in the reference."""
+    as in the reference.  Under ``kv_seq`` tensor parallelism
+    (``sharding.use_sharding``) a KV or MLA cache holds this rank's slice
+    of the sequence, as ``cache_pspec`` places it."""
     spec = SHAPES[shape]
     return tf.init_decode_state(cfg, spec.global_batch, spec.seq, dtype,
                                 META)

@@ -14,9 +14,11 @@
 * NaN sentry: a non-finite loss raises before a checkpoint can be
   poisoned (a restart resumes from the last good step).
 
-``--mesh debug`` trains data-parallel (each rank its rows of the batch)
-with the parameters stored FSDP-style as blocks on a ``(data 2, model
-2)`` mesh (``launch.mesh.rules_for``); it needs a process group of 4
+``--mesh debug`` trains on a ``(data 2, model 2)`` mesh under
+``launch.mesh.rules_for``: data-parallel over ``data`` (each rank its
+rows of the batch) and tensor-parallel over ``model`` (each rank its
+block of the heads, MLP, vocab and experts), the parameters stored as
+blocks (FSDP over ``data``); it needs a process group of 4
 ranks: ``--host-devices 4`` on the host, or ``python -m
 torch.distributed.run --nproc-per-node 4`` (gloo, which lets ranks share
 one card).  ``single`` / ``multi`` build the production meshes and need

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import gather
 from repro_torch.models.config import ModelConfig
 
@@ -81,17 +82,23 @@ class Norm(nn.Module):
             self.register_parameter("bias", None)
 
 
-def apply_norm(p: Norm, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_norm(p: Norm, x: torch.Tensor, cfg: ModelConfig, *,
+               seq_split: bool = False) -> torch.Tensor:
+    """``seq_split``: ``x`` is this rank's slice of a sequence split over
+    the model group (sequence parallelism), so the parameters' gradients
+    are partial sums there, summed over the group."""
+    def prm(t):
+        return sharding.copy_to_model(full(t)) if seq_split else full(t)
     xf = x.float()
     if cfg.norm_type == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(var + cfg.norm_eps) * full(p.scale)
+        out = xf * torch.rsqrt(var + cfg.norm_eps) * prm(p.scale)
     else:
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.var(xf, dim=-1, keepdim=True, correction=0)
-        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps) * full(p.scale)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps) * prm(p.scale)
         if p.bias is not None:
-            out = out + full(p.bias)
+            out = out + prm(p.bias)
     return out.to(x.dtype)
 
 
@@ -130,10 +137,30 @@ class MLP(nn.Module):
             self.register_parameter("w_gate", None)
 
 
+def tp_splits(flag: str, n: int) -> bool:
+    """True when the active tensor parallelism carries logical axis
+    ``flag`` and ``n`` items of it divide over the model group (a layer
+    whose axis does not divide computes whole on every rank)."""
+    tp = sharding.tensor_parallel()
+    return tp is not None and getattr(tp, flag) and n % tp.size == 0
+
+
 def apply_mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``x`` replicated over the model group; under tensor parallelism on
+    ``mlp`` the hidden units split (column-parallel ``w_up`` / ``w_gate``,
+    row-parallel ``w_down``, one all-reduce)."""
     cd = dtype_of(cfg.compute_dtype)
     act = _act(cfg.mlp_act)
     xc = x.to(cd)
+    if tp_splits("mlp", p.w_up.shape[1]):
+        xc = sharding.copy_to_model(xc)
+        h = xc @ sharding.model_block(p.w_up, 1).to(cd)
+        if p.w_gate is not None:
+            h = act(xc @ sharding.model_block(p.w_gate, 1).to(cd)) * h
+        else:
+            h = act(h)
+        return sharding.reduce_from_model(
+            h @ sharding.model_block(p.w_down, 0).to(cd))
     h = xc @ full(p.w_up).to(cd)
     if p.w_gate is not None:
         h = act(xc @ full(p.w_gate).to(cd)) * h
@@ -169,8 +196,19 @@ class Embeddings(nn.Module):
 def embed_tokens(p: Embeddings, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     cd = dtype_of(cfg.compute_dtype)
-    # Gather, then cast: the same values as casting the table first.
-    x = F.embedding(tokens, full(p.embed)).to(cd)
+    if tp_splits("vocab", p.embed.shape[0]):
+        # vocab-parallel: this rank's rows of the table; the tokens
+        # outside them read zeros, and the ranks' rows sum to the whole
+        sl = sharding.tensor_parallel().block(p.embed.shape[0])
+        local = tokens - sl.start
+        inside = (local >= 0) & (local < sl.stop - sl.start)
+        w = sharding.model_block(p.embed, 0)
+        x = F.embedding(torch.where(inside, local, 0), w) \
+            * inside[..., None].to(w.dtype)
+        x = sharding.reduce_from_model(x).to(cd)
+    else:
+        # Gather, then cast: the same values as casting the table first.
+        x = F.embedding(tokens, full(p.embed)).to(cd)
     if cfg.scale_embeddings:
         # the factor rounded to the compute dtype first, as the reference;
         # made on the device (a host scalar tensor would be a copy)
@@ -179,11 +217,32 @@ def embed_tokens(p: Embeddings, tokens: torch.Tensor,
     return x
 
 
-def unembed(p: Embeddings, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def vocab_parallel(cfg: ModelConfig) -> bool:
+    """True when the logits split over the model group by vocab."""
+    return tp_splits("vocab", cfg.vocab_size)
+
+
+def unembed_block(p: Embeddings, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """The float32 logits of ``x`` (replicated over the model group) over
+    this rank's vocab block under :func:`vocab_parallel`, else whole."""
     cd = dtype_of(cfg.compute_dtype)
-    if cfg.tie_embeddings:
+    if vocab_parallel(cfg):
+        xc = sharding.copy_to_model(x.to(cd))
+        if cfg.tie_embeddings:
+            logits = xc @ sharding.model_block(p.embed, 0).to(cd).T
+        else:
+            logits = xc @ sharding.model_block(p.unembed, 1).to(cd)
+    elif cfg.tie_embeddings:
         logits = x.to(cd) @ full(p.embed).to(cd).T
     else:
         logits = x.to(cd) @ full(p.unembed).to(cd)
     logits = softcap(logits, cfg.final_softcap)
     return logits.float()
+
+
+def unembed(p: Embeddings, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The whole float32 logits (the vocab blocks joined)."""
+    logits = unembed_block(p, x, cfg)
+    return sharding.gather_along(logits, -1) if vocab_parallel(cfg) \
+        else logits

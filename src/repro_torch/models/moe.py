@@ -11,6 +11,11 @@
 * DeepSeek shared experts and Arctic's dense residual MLP add in
   parallel.
 
+Under tensor parallelism on ``expert`` (the experts dividing the model
+group) the router and the dispatch run replicated, so every rank of the
+group takes the same slot decisions; a rank computes its own experts'
+slots and the combined output is summed over the group.
+
 Expert choice matches ``jax.lax.top_k``: ties go to the lower expert
 index (a stable descending sort), and the dropped tokens are written to
 a spare slot column ``cap`` of a ``[B, E, cap + 1]`` table that is then
@@ -27,10 +32,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import batch_mean, constrain
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MLP, apply_mlp, dtype_of, fan_in_init,
-                                       full, param_dtype)
+                                       full, param_dtype, tp_splits)
 
 
 def expert_capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -125,29 +131,48 @@ def apply_moe(p: MoE, x: torch.Tensor,
     xc = constrain(x.to(cd), "batch", None, None)
     d_idx = constrain(d_idx, "batch", None, None)
     live = constrain(live, "batch", None, None)
+    w = (gate_vals * valid.float()).to(cd)
+    ep = tp_splits("expert", e)
+    # the experts this rank computes: [lo, lo + el)
+    lo, el = 0, e
+    if ep:
+        sl = sharding.tensor_parallel().block(e)
+        lo, el = sl.start, sl.stop - sl.start
+        # replicated tensors entering the rank's experts: their gradients
+        # are the sums of the ranks' partial ones
+        xc, w = sharding.copy_to_model(xc), sharding.copy_to_model(w)
+        d_idx, live = d_idx[:, lo:lo + el], live[:, lo:lo + el]
+
+    def experts(t):
+        return sharding.model_block(t, 0) if ep else full(t)
     rows = torch.arange(b, device=dev)[:, None, None]
     expert_in = xc[rows, d_idx]                               # [B,E,C,D]
     expert_in = expert_in * live[..., None].to(cd)
     expert_in = constrain(expert_in, "batch", "expert", None, None)
 
     up = torch.einsum("becd,edf->becf", expert_in,
-                      full(p.experts_up).to(cd))
+                      experts(p.experts_up).to(cd))
     gt = torch.einsum("becd,edf->becf", expert_in,
-                      full(p.experts_gate).to(cd))
+                      experts(p.experts_gate).to(cd))
     h = F.silu(gt) * up
     y_exp = torch.einsum("becf,efd->becd", h,
-                         full(p.experts_down).to(cd))         # [B,E,C,D]
+                         experts(p.experts_down).to(cd))      # [B,E,C,D]
 
     # combine: gather each token's (expert, slot) outputs from the
-    # flattened slot table
-    y_flat = y_exp.reshape(b, e * cap, d)
+    # flattened slot table (the rank's experts' slots; the other
+    # experts' choices weigh zero here)
+    y_flat = y_exp.reshape(b, el * cap, d)
     y_flat = constrain(y_flat, "batch", None, None)
     p_flat = torch.where(valid, pos_k, torch.zeros_like(pos_k))
-    slot_flat = (idx * cap + p_flat).reshape(b, s * k)        # [B,S*K]
+    slot_flat = ((idx - lo).clamp(0, el - 1) * cap
+                 + p_flat).reshape(b, s * k)                  # [B,S*K]
     gathered = y_flat[torch.arange(b, device=dev)[:, None], slot_flat]
     gathered = gathered.reshape(b, s, k, d)
-    w = (gate_vals * valid.float()).to(cd)
+    if ep:
+        w = w * ((idx >= lo) & (idx < lo + el)).to(cd)
     y = torch.einsum("bskd,bsk->bsd", gathered, w)
+    if ep:
+        y = sharding.reduce_from_model(y)       # the AG boundary
     y = constrain(y, "batch", None, None)
 
     if p.shared is not None:

@@ -20,6 +20,15 @@ passed explicitly as in the reference):
   init_decode_state(cfg, batch, max_len) -> caches
   decode_step(params, state, token, pos, cfg) -> (logits [B,1,V], state)
 
+Under tensor parallelism (``sharding.use_sharding`` with a model axis
+of more than one rank) the residual stream stays replicated over the
+model group, or, where ``rules.seq`` is set and the sequence divides the
+group, split on the sequence: norms and residual adds then run on the
+rank's slice, the stream is all-gathered before each mixer / MLP and
+reduced and sliced after it (``sharding.gather_along`` /
+``slice_along``).  The loss is a vocab-parallel chunked CE, and
+``forward`` / ``decode_step`` join the vocab blocks of the logits.
+
 ``batch`` is a dict: tokens [B, S] (+ ``vision_embeds`` for the VLM stub,
 ``audio_frames`` for the audio stub).  Entry points run on the card
 unless the caller passes ``device="cpu"``.  ``loss_fn`` builds the
@@ -37,6 +46,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -44,7 +54,8 @@ from repro_torch.models import ssm
 from repro_torch.models.config import LayerSpec, ModelConfig
 from repro_torch.models.layers import (MLP, Embeddings, Norm, apply_mlp,
                                        apply_norm, dtype_of, embed_tokens,
-                                       full, unembed)
+                                       full, unembed, unembed_block,
+                                       vocab_parallel)
 
 _MIXERS = {"attn": attn.Attention, "attn_local": attn.Attention,
            "mla": attn.MLA, "mamba2": ssm.Mamba2, "mlstm": ssm.MLSTM,
@@ -121,36 +132,57 @@ def _mix(p: Layer, spec, x, cfg, positions, shared):
     raise ValueError(spec.mixer)
 
 
-def _ffn(p: Layer, spec: LayerSpec, x, cfg: ModelConfig):
+def _seq_parallel(s: int) -> bool:
+    """True when the residual stream of a sequence of ``s`` splits on the
+    sequence over the model group (``rules.seq``)."""
+    tp = sharding.tensor_parallel()
+    return tp is not None and tp.seq and s % tp.size == 0
+
+
+def _sublayer(norm, fn, x, cfg: ModelConfig, sp: bool):
+    """``fn`` of the normed stream ``x``: under sequence parallelism
+    (``sp``) the rank's slice is normed, all-gathered for ``fn`` (which
+    takes and returns the whole sequence, replicated) and ``fn``'s output
+    sliced back."""
+    h = apply_norm(norm, x, cfg, seq_split=sp)
+    if not sp:
+        return fn(h)
+    return sharding.slice_along(fn(sharding.gather_along(h, 1)), 1)
+
+
+def _ffn(p: Layer, spec: LayerSpec, x, cfg: ModelConfig, sp=False):
     """The layer's MLP half: ``(x, aux)``."""
     aux = _aux_zero(cfg, x.device)
     if spec.mlp == "none":
         return x, aux
-    h = apply_norm(p.norm2, x, cfg)
-    if spec.mlp == "dense":
-        f = apply_mlp(p.mlp, h, cfg)
-    else:
-        f, aux = moe_mod.apply_moe(p.moe, h, cfg)
-    if cfg.post_norms:
-        f = apply_norm(p.post2, f, cfg)
-    return x + f, aux
+
+    def ffn(h):
+        nonlocal aux
+        if spec.mlp == "dense":
+            f = apply_mlp(p.mlp, h, cfg)
+        else:
+            f, aux = moe_mod.apply_moe(p.moe, h, cfg)
+        return apply_norm(p.post2, f, cfg) if cfg.post_norms else f
+    x = x + _sublayer(p.norm2, ffn, x, cfg, sp)
+    return x, aux
 
 
 def apply_layer(p: Layer, spec: LayerSpec, x, cfg: ModelConfig, positions,
-                shared=None, enc_out=None):
-    """Returns (x, aux_dict)."""
-    h = apply_norm(p.norm1, x, cfg)
-    m = _mix(p, spec, h, cfg, positions, shared)
-    if cfg.post_norms:
-        m = apply_norm(p.post1, m, cfg)
-    x = x + m
+                shared=None, enc_out=None, sp=False):
+    """Returns (x, aux_dict).  ``sp``: ``x`` is this rank's slice of the
+    sequence (:func:`_seq_parallel`); ``positions`` are the whole
+    sequence's."""
+    def mix(h):
+        m = _mix(p, spec, h, cfg, positions, shared)
+        return apply_norm(p.post1, m, cfg) if cfg.post_norms else m
+    x = x + _sublayer(p.norm1, mix, x, cfg, sp)
     if enc_out is not None:
-        h = apply_norm(p.cross_norm, x, cfg)
         ck, cv = attn._project_kv(p.cross, enc_out, cfg, positions=None,
                                   use_rope=False)
-        x = x + attn.attention(p.cross, h, cfg, positions=positions,
-                               cross_kv=(ck, cv))
-    x, aux = _ffn(p, spec, x, cfg)
+        x = x + _sublayer(p.cross_norm, lambda h: attn.attention(
+            p.cross, h, cfg, positions=positions, cross_kv=(ck, cv)),
+            x, cfg, sp)
+    x, aux = _ffn(p, spec, x, cfg, sp)
     x = constrain(x, "batch", "seq", "embed")
     return x, aux
 
@@ -266,19 +298,22 @@ def forward_hidden(params: Transformer, batch, cfg: ModelConfig):
     b, s = batch["tokens"].shape
     x = _embed_input(params, batch, cfg)
     positions = attn._positions(b, s, x.device)
+    sp = _seq_parallel(s)
+    if sp:
+        x = sharding.slice_along(x, 1)
     x = constrain(x, "batch", "seq", "embed")
     enc_out = _encode(params, batch, cfg) if cfg.is_encoder_decoder else None
     shared = params.shared
     aux = _aux_zero(cfg, x.device)
     for p, spec in zip(params.prologue or (), cfg.prologue):
         x, a = apply_layer(p, spec, x, cfg, positions, shared=shared,
-                           enc_out=enc_out)
+                           enc_out=enc_out, sp=sp)
         aux = _aux_add(aux, a)
 
     def superblock(blk, x, a, enc_out):
         for i, spec in enumerate(cfg.block_pattern):
             x, ai = apply_layer(blk[str(i)], spec, x, cfg, positions,
-                                shared=shared, enc_out=enc_out)
+                                shared=shared, enc_out=enc_out, sp=sp)
             a = _aux_add(a, ai)
         return x, a
 
@@ -288,7 +323,9 @@ def forward_hidden(params: Transformer, batch, cfg: ModelConfig):
     for blk in params.blocks:
         x, stack_aux = _remat(cfg, superblock, blk, x, stack_aux, enc_out)
     aux = _aux_add(aux, stack_aux)
-    x = apply_norm(params.final_norm, x, cfg)
+    x = apply_norm(params.final_norm, x, cfg, seq_split=sp)
+    if sp:
+        x = sharding.gather_along(x, 1)
     return x, aux
 
 
@@ -310,10 +347,26 @@ def forward(params: Transformer, batch, cfg: ModelConfig, *,
 
 def _ce_chunk(params, x_chunk, tgt_chunk, mask_chunk, cfg: ModelConfig):
     b, s, d = x_chunk.shape
-    lg = unembed(params.embeddings, x_chunk.reshape(b * s, d), cfg).float()
+    lg = unembed_block(params.embeddings, x_chunk.reshape(b * s, d), cfg)
     lg = constrain(lg, "batch", "vocab")
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, 1, tgt_chunk.reshape(b * s)[:, None])[:, 0]
+    tgt = tgt_chunk.reshape(b * s)
+    if vocab_parallel(cfg):
+        # vocab-parallel CE over this rank's logit columns: the max (no
+        # gradient) and the sum of exps all-reduced, the target logit
+        # taken by the rank holding it; [rows, V] is never joined
+        tp = sharding.tensor_parallel()
+        m = sharding.model_all_reduce(lg.detach().amax(-1), tp,
+                                      torch.distributed.ReduceOp.MAX)
+        logz = m + torch.log(sharding.reduce_from_model(
+            torch.exp(lg - m[:, None]).sum(-1)))
+        sl = tp.block(cfg.vocab_size)
+        local = tgt - sl.start
+        inside = (local >= 0) & (local < sl.stop - sl.start)
+        gold = torch.gather(lg, 1, torch.where(inside, local, 0)[:, None])
+        gold = sharding.reduce_from_model(gold[:, 0] * inside.float())
+    else:
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, 1, tgt[:, None])[:, 0]
     nll = (logz - gold) * mask_chunk.reshape(b * s)
     return nll.sum()
 
@@ -364,9 +417,11 @@ def loss_fn(params: Transformer, batch, cfg: ModelConfig):
 def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       max_len: int, dtype, device) -> dict:
     if spec.mixer in ("attn", "attn_local", "shared_attn"):
-        c = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+        c = attn.init_kv_cache(cfg, batch, attn.cache_len(max_len), dtype,
+                               device)
     elif spec.mixer == "mla":
-        c = attn.init_mla_cache(cfg, batch, max_len, dtype, device)
+        c = attn.init_mla_cache(cfg, batch, attn.cache_len(max_len), dtype,
+                                device)
     elif spec.mixer == "mamba2":
         c = ssm.init_mamba2_cache(cfg, batch, dtype, device)
     elif spec.mixer == "mlstm":
@@ -387,7 +442,11 @@ def _init_layer_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device: DeviceLike = None) -> dict:
     """Empty caches: ``{"blocks": [{layer: cache} a superblock],
-    "prologue": [cache a layer]}``."""
+    "prologue": [cache a layer]}``.  Under ``kv_seq`` tensor parallelism
+    (``sharding.use_sharding``) a KV or MLA cache holds this rank's slice
+    of the ``max_len`` positions (``attention.cache_len``): make the state
+    under the sharding that decodes it.  SSM states, conv windows and
+    cross caches stay whole."""
     device = resolve_device(device)
     state = {"blocks": [
         {str(i): _init_layer_cache(spec, cfg, batch, max_len, dtype, device)

@@ -24,7 +24,10 @@ and nothing is allocated or computed (the dry run, ``launch.dryrun``):
 * **collective_bytes**: operand bytes of the ``c10d`` collectives,
   classified as all-gather, all-reduce (x 2, the algorithmic factor, as
   the reference), reduce-scatter, all-to-all, send-recv (the reference's
-  collective-permute: bytes sent) and broadcast.
+  collective-permute: bytes sent) and broadcast.  The port reduces and
+  scatters (an FSDP gradient, a sequence-parallel exit) by an
+  all-reduce and a slice on every backend, since gloo has no
+  reduce-scatter, so those count at an all-reduce's bytes.
 * **peak memory**: the most bytes live at once among the storages the
   step allocates (a view shares its base's bytes; a storage dies when its
   last tensor does), to which the caller adds its arguments' bytes.

@@ -15,8 +15,11 @@ against the reference's (``repro.launch.shapes``, ``repro.launch.dryrun``).
 * The traced cells, on torch's in-process fake process group, in one
   subprocess (the group is process-wide): ``trace_cell`` of a ``smoke()``
   arch on a ``(2, 2)`` mesh for each kind (at batch 8 x 128) returns a
-  complete record with collectives counted, the TM cells at their own
-  shapes too, and ``main`` on ``--mesh both`` (256 then 512 ranks) writes
+  complete record with collectives counted; under ``pure_dp`` rules (no
+  tensor axis) a rank counts exactly the no-mesh step on its quarter of
+  the batch, and under the default rules (tensor parallelism) at most
+  0.55x the matrix-product FLOPs of the same step on ``(2, 1)``; the TM
+  cells at their own shapes too, and ``main`` on ``--mesh both`` (256 then 512 ranks) writes
   the reference's JSON layout.  The full widths and shapes run on the
   card's host (``chip_smoke.py``'s ``roofline`` path).
 """
@@ -144,10 +147,11 @@ def test_abstract_decode_state_and_inputs_match_reference(arch):
 
 
 _TRACE_SCRIPT = textwrap.dedent("""
-    import json, sys
+    import contextlib, json, sys
     from repro_torch.configs import smoke
+    from repro_torch.distributed import sharding
     from repro_torch.launch import dryrun, shapes
-    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.mesh import make_debug_mesh, rules_for
     full = shapes.get_config
     shapes.get_config = lambda arch: smoke(full(arch))
     # the cells' kinds at a small batch and sequence: what the trace
@@ -156,37 +160,52 @@ _TRACE_SCRIPT = textwrap.dedent("""
     shapes.SHAPES = {k: shapes.ShapeSpec(k, v.kind, 128,
                                          min(v.global_batch, 8))
                      for k, v in shapes.SHAPES.items()}
+    ARCH = "qwen2-0.5b"
+    lm = ("train_4k", "prefill_32k", "decode_32k")
+
+    def counted(shape, mesh=None, pure_dp=False):
+        cfg = shapes.cell_config(ARCH, shape)
+        spec = shapes.SHAPES[shape]
+        rules = rules_for(cfg, mesh, global_batch=spec.global_batch,
+                          pure_dp=pure_dp) if mesh is not None else None
+        with sharding.use_sharding(mesh, rules) if mesh is not None \\
+                else contextlib.nullcontext():
+            cost, mem, _ = dryrun.count_step(dryrun.build_step(
+                cfg, spec.kind, shapes.abstract_params(cfg),
+                shapes.input_specs(cfg, shape),
+                state=shapes.abstract_decode_state(cfg, shape)
+                if spec.kind == "decode" else None, mesh=mesh, rules=rules,
+                microbatches=shapes.TRAIN_MICROBATCHES.get(ARCH, 1)
+                if spec.kind == "train" else 1))
+        return {"flops": cost.flops, "bytes": cost.bytes,
+                "args_bytes": mem["args_bytes"]}
+
     out = {}
     dryrun.fake_group(4)
     mesh = make_debug_mesh(2, 2, device_type="cpu")
-    lm = ("train_4k", "prefill_32k", "decode_32k")
     for shape in lm:
-        out[shape] = dryrun.trace_cell("qwen2-0.5b", shape, mesh,
-                                       verbose=False)
-    # what rank 0 should count: the same step with no mesh, on its half
-    # of the batch (the data axis has 2 ranks)
-    shapes.SHAPES = {k: shapes.ShapeSpec(k, v.kind, v.seq,
-                                         v.global_batch // 2)
-                     for k, v in shapes.SHAPES.items()}
-    for shape in lm:
-        cfg = shapes.cell_config("qwen2-0.5b", shape)
-        kind = shapes.SHAPES[shape].kind
-        cost, mem, _ = dryrun.count_step(dryrun.build_step(
-            cfg, kind, shapes.abstract_params(cfg),
-            shapes.input_specs(cfg, shape),
-            state=shapes.abstract_decode_state(cfg, shape)
-            if kind == "decode" else None,
-            microbatches=shapes.TRAIN_MICROBATCHES.get("qwen2-0.5b", 1)
-            if kind == "train" else 1))
-        out[shape + ":rank_rows"] = {"flops": cost.flops,
-                                     "bytes": cost.bytes,
-                                     "args_bytes": mem["args_bytes"]}
+        out[shape] = dryrun.trace_cell(ARCH, shape, mesh, verbose=False)
+        # pure data parallelism: the model axis folds into the batch
+        out[shape + ":pure_dp"] = counted(shape, mesh, pure_dp=True)
     for shape in dryrun.TM_SHAPES:
         out[shape] = dryrun.trace_tm_cell("imbue-tm-mnist", shape, mesh,
                                           verbose=False)
     out["main"] = dryrun.main(["--arch", "deepseek-v2-lite-16b", "--shape",
                                "train_4k", "--mesh", "both", "--out",
                                sys.argv[1] + ".main"])
+    # the same steps with a model axis of one rank
+    dryrun.fake_group(2)
+    one = make_debug_mesh(2, 1, device_type="cpu")
+    for shape in lm:
+        out[shape + ":2x1"] = dryrun.trace_cell(ARCH, shape, one,
+                                                verbose=False)
+    # what a pure-DP rank should count: the same step with no mesh, on
+    # its quarter of the batch (4 batch ranks)
+    shapes.SHAPES = {k: shapes.ShapeSpec(k, v.kind, v.seq,
+                                         v.global_batch // 4)
+                     for k, v in shapes.SHAPES.items()}
+    for shape in lm:
+        out[shape + ":rank_rows"] = counted(shape)
     json.dump(out, open(sys.argv[1], "w"))
 """)
 
@@ -223,13 +242,28 @@ def test_trace_cell_on_a_fake_mesh(traced, shape):
         assert rec["collective_ops"]["all-reduce"] > 0
     mem = rec["memory_analysis"]
     assert mem["peak_bytes"] > mem["params_bytes"] > 0
-    # a rank counts its own rows: exactly the FLOPs and the argument bytes
-    # of the same step run with no mesh on the rank's half of the batch
-    alone = traced[shape + ":rank_rows"]
-    assert per["flops"] == alone["flops"]
-    assert mem["args_bytes"] == alone["args_bytes"]
+    # under pure data parallelism (no tensor axis) a rank counts its own
+    # rows: exactly the FLOPs and the argument bytes of the same step run
+    # with no mesh on the rank's quarter of the batch
+    pure, alone = traced[shape + ":pure_dp"], traced[shape + ":rank_rows"]
+    assert pure["flops"] == alone["flops"]
+    assert pure["args_bytes"] == alone["args_bytes"]
     assert rec["model_flops"] > 0 and rec["compute_s"] > 0
     assert rec["dominant"] in ("compute", "memory", "collective")
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_tensor_parallel_splits_a_ranks_matmuls(traced, shape):
+    """Under the default rules (heads, MLP, vocab and the decode cache's
+    sequence on ``model``) qwen2's ``smoke()``, whose partitioned
+    dimensions all divide by 2, counts at most 0.55x the matrix-product
+    FLOPs a rank on ``(2, 2)`` that the same step counts on ``(2, 1)``,
+    and its tensor-parallel all-reduces show on ``(2, 2)`` alone."""
+    tp, one = traced[shape], traced[shape + ":2x1"]
+    assert one["mesh"] == "data=2xmodel=1"
+    assert tp["per_device"]["flops"] <= 0.55 * one["per_device"]["flops"]
+    assert tp["collective_ops"]["all-reduce"] > \
+        one["collective_ops"].get("all-reduce", 0.0)
 
 
 @pytest.mark.parametrize("shape", sorted(dryrun.TM_SHAPES))

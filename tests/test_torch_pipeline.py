@@ -103,17 +103,23 @@ def test_init_pipeline_params_shapes_and_scale():
 
 
 def test_sharded_lm_forward_equals_unsharded(mesh_run):
-    """qwen2 ``smoke()`` on a ``(data 2, model 2)`` mesh under
-    ``rules_for``: its partitioned parameters (embed, q/k/v/o, MLP) held
-    as DTensor blocks and gathered at use; the logits equal the whole
-    model's exactly, here as on the ranks."""
+    """qwen2 ``smoke()`` on a ``(data 2, model 2)`` mesh, its partitioned
+    parameters (embed, q/k/v/o, MLP) held as DTensor blocks.  Under
+    ``rules_for(..., pure_dp=True)`` (no tensor axis: the FSDP blocks
+    gathered whole at use) the logits equal the whole model's exactly;
+    under the default rules (each rank computing its heads, hidden units
+    and vocab block: tensor parallelism) within ``TP_TOL`` = 2e-5 of its
+    max |logit| (the ranks' partial sums add in another order); here as
+    on the ranks."""
     _ok(mesh_run, "sharded_lm")
     cfg = smoke(get_config("qwen2-0.5b"))
     model = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     want = tf.forward(model, {"tokens": torch.from_numpy(
-        cases.lm_tokens(cfg.vocab_size))}, cfg)
-    np.testing.assert_array_equal(mesh_run[1]["lm_sharded_logits"],
-                                  want.numpy())
+        cases.lm_tokens(cfg.vocab_size))}, cfg).numpy()
+    np.testing.assert_array_equal(mesh_run[1]["lm_sharded_logits_fsdp"],
+                                  want)
+    err = float(np.abs(mesh_run[1]["lm_sharded_logits_tp"] - want).max())
+    assert err <= cases.TP_TOL * float(np.abs(want).max()), err
 
 
 MESHES = [{"data": 2, "model": 2}, {"data": 2, "model": 4},

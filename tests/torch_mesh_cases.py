@@ -14,6 +14,8 @@ draws the parent makes.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import traceback
@@ -528,7 +530,9 @@ def pipeline_case(out_dir):
     every rank and partitioned over ``pipe``; then ``rules_for`` on a
     ``(data 2, model 2)`` debug mesh: the qwen2 ``smoke()`` model's
     parameters stored as blocks (``shard_module``) give the forward of
-    the whole model."""
+    the whole model, exactly under ``pure_dp`` (FSDP blocks gathered at
+    use) and within ``TP_TOL`` under the default rules (tensor
+    parallelism)."""
     from repro_torch import convert
     from repro_torch.configs import get_config, smoke
     from repro_torch.distributed import pipeline, sharding
@@ -562,26 +566,40 @@ def pipeline_case(out_dir):
     def sharded_lm():
         cfg = smoke(get_config("qwen2-0.5b"))
         mesh = make_debug_mesh(2, 2, device_type="cpu")
-        rules = rules_for(cfg, mesh, global_batch=LM_BATCH)
-        assert rules.batch == ("data",) and rules.tensor == "model"
-        model = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        base = tf.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
         batch = {"tokens": torch.from_numpy(lm_tokens(cfg.vocab_size))}
-        want = tf.forward(model, batch, cfg)
-        sharding.shard_module(model, mesh, rules)
-        split = [n for n, p in model.named_parameters()
-                 if sharding.partitioned(p)]
-        assert "embeddings.embed" in split and \
-            "blocks.0.0.mix.w_q" in split, split
-        for n, p in model.named_parameters():
-            want_spec = sharding.param_pspec(n, tuple(p.shape), rules, mesh)
-            if n in split:
-                assert list(p.placements) == sharding.placements(
-                    mesh, want_spec), n
-        with sharding.use_sharding(mesh, rules):
-            got = tf.forward(model, batch, cfg)
-        assert not isinstance(got, sharding.DTensor)
-        assert torch.equal(got, want)
-        rec.arrays["lm_sharded_logits"] = got.numpy()
+        want = tf.forward(base, batch, cfg)
+        for label, pure_dp in (("fsdp", True), ("tp", False)):
+            rules = rules_for(cfg, mesh, global_batch=LM_BATCH,
+                              pure_dp=pure_dp)
+            if pure_dp:
+                assert rules.tensor is None and rules.fsdp == "data"
+            else:
+                assert rules.batch == ("data",) and rules.tensor == "model"
+            model = sharding.shard_module(copy.deepcopy(base), mesh, rules)
+            split = [n for n, p in model.named_parameters()
+                     if sharding.partitioned(p)]
+            assert "embeddings.embed" in split and \
+                "blocks.0.0.mix.w_q" in split, (label, split)
+            for n, p in model.named_parameters():
+                want_spec = sharding.param_pspec(n, tuple(p.shape), rules,
+                                                 mesh)
+                if n in split:
+                    assert list(p.placements) == sharding.placements(
+                        mesh, want_spec), (label, n)
+            with sharding.use_sharding(mesh, rules):
+                got = tf.forward(model, batch, cfg)
+            assert not isinstance(got, sharding.DTensor)
+            if pure_dp:
+                # no tensor axis: the FSDP blocks are gathered whole at
+                # use and every product is the whole model's
+                assert torch.equal(got, want), label
+            else:
+                # computed tensor-parallel on the blocks: the partial sums
+                # add in another order than the whole model's products
+                err = float((got - want).abs().max())
+                assert err <= TP_TOL * float(want.abs().max()), err
+            rec.arrays[f"lm_sharded_logits_{label}"] = got.numpy()
 
     for name, fn in (("gpipe", gpipe), ("sharded_lm", sharded_lm)):
         rec.check(name, fn)
@@ -827,3 +845,255 @@ def compression_inputs():
     w = np.random.default_rng(0).standard_normal((64, 64)).astype(np.float32)
     x = np.random.default_rng(1).standard_normal((32, 64)).astype(np.float32)
     return w, x
+
+
+# ------------------------------------------------- tensor parallelism
+
+# Smoke variants whose partitioned dimensions divide by 2, or do not
+# divide by 4 on purpose (that layer then computes whole on every rank):
+# qwen2's 6 heads padded to 8 read 2 kv heads (rank 0's q head 3 reads kv
+# head 1 at TP 2; at TP 4 the kv heads stay whole); gemma2's 510-token
+# vocab; arctic's 6 experts with sequence parallelism; whisper's d_ff of
+# 254.  qwen2 and arctic also take remat and two CE chunks.
+TP_VARIANTS = {
+    "qwen2-padded": ("qwen2-0.5b", dict(n_heads=6, head_pad_to=8,
+                                        remat=True, loss_chunk=32)),
+    "gemma2": ("gemma2-2b", dict(vocab_size=510, local_window=16)),
+    "deepseek": ("deepseek-v2-lite-16b", {}),
+    "arctic": ("arctic-480b", dict(seq_parallel=True, remat=True,
+                                   loss_chunk=32)),
+    "whisper": ("whisper-large-v3", dict(d_ff=254)),
+    "zamba2": ("zamba2-1.2b", {}),
+}
+TP_MOE_EXPERTS = {"arctic": 6}
+TP_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+TP_BATCH, TP_SEQ, TP_DECODE, TP_CACHE = 4, 64, 8, 16
+TP_TOL = 2e-5            # of max |value| of the one-rank result
+# AdamW's first update is lr * g / (|g| + eps): an entry whose gradient
+# is near eps moves by up to lr under any reordering of the float sums,
+# so the step's lr keeps that bound inside TP_TOL (the parameters' max
+# |value| is at least 1: the norm scales); the check also requires every
+# leaf the one-rank step moves to move as far on the mesh.  Since that
+# bar is wider than the whole update, the step is also held by what it
+# is made of: the gradients the train step hands the optimizer (rows
+# split over ``data`` and averaged) within TP_TOL of the one-rank
+# step's, and each entry's move (after - before) within TP_MOVE_TOL x lr
+# of the one-rank move wherever the one-rank gradient is at least
+# TP_MOVE_MIN_G of the largest (there the move is lr x sign(g) to float
+# precision, so a flipped sign or a lost entry is off by lr or more).
+TP_LR = 1e-5
+TP_MOVE_TOL = 0.05
+TP_MOVE_MIN_G = 1e-3
+
+
+def step_gradients(opt) -> dict:
+    """The gradients the train step hands ``opt.step``, whole, by name
+    (filled when the step runs)."""
+    from repro_torch.distributed import sharding
+    seen = {}
+    inner = opt.step
+
+    def spy(step_idx, grads=None):
+        seen.update({n: sharding.gather(g).detach().clone()
+                     for n, g in grads.items()})
+        return inner(step_idx, grads)
+
+    opt.step = spy
+    return seen
+
+
+def moves_close(got, want, lr, what):
+    """Each leaf's move ``got["moves"]`` within ``TP_MOVE_TOL`` x ``lr``
+    of ``want["moves"]`` on the entries whose one-rank step gradient
+    ``want["step_grads"]`` is at least ``TP_MOVE_MIN_G`` of the largest;
+    returns the share of entries held."""
+    top = max(float(g.abs().max()) for g in want["step_grads"].values())
+    held = total = 0
+    for n, g in want["step_grads"].items():
+        mask = g.abs() >= TP_MOVE_MIN_G * top
+        err = float((got["moves"][n] - want["moves"][n])[mask].abs()
+                    .max()) if bool(mask.any()) else 0.0
+        assert err <= TP_MOVE_TOL * lr, \
+            f"{what} {n}: a move off by {err} past {TP_MOVE_TOL} x {lr}"
+        held += int(mask.sum())
+        total += mask.numel()
+    return held / total
+
+
+def tp_config(name, mod):
+    """The variant ``name`` built from ``mod.smoke(mod.get_config(arch))``
+    (``mod``: the port's ``repro_torch.configs`` or the reference's
+    ``repro.configs``, which build the same fields)."""
+    import dataclasses
+    arch, over = TP_VARIANTS[name]
+    cfg = dataclasses.replace(mod.smoke(mod.get_config(arch)), **over)
+    if name in TP_MOE_EXPERTS:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=TP_MOE_EXPERTS[name]))
+    return cfg
+
+
+def tp_batch(cfg):
+    """Tokens ``[4, 64]`` (+ the audio stub's frames), numpy seed 3."""
+    rng = np.random.default_rng(3)
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (TP_BATCH, TP_SEQ)).astype(np.int64)}
+    if cfg.is_encoder_decoder:
+        out["audio_frames"] = rng.standard_normal(
+            (TP_BATCH, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def tp_case(out_dir, params_dir):
+    """On 4 ranks, for each ``TP_VARIANTS`` model (parameters from
+    ``params_dir/<name>.npz``, the reference's draw) and each mesh of
+    ``TP_MESHES``: the forward logits, ``loss_fn`` and every gradient on
+    the whole batch, one AdamW train step (data-parallel over ``data``:
+    the gradients it hands the optimizer, the updated parameters, and
+    each entry's move by :func:`moves_close`) and ``TP_DECODE`` decode
+    steps on a ``kv_seq``-split cache, under
+    ``rules_for``'s tensor parallelism with the parameters stored as
+    blocks, against the same on one rank (this rank, no mesh), within
+    ``TP_TOL`` of the one-rank result's max |value|.  Rank 0 records the
+    partitioned results for the reference."""
+    from repro_torch import convert
+    from repro_torch import configs as port_configs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_debug_mesh, rules_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.optimizers import OptimizerConfig, make_optimizer
+    from repro_torch.train.train_step import make_train_step
+
+    torch.set_num_threads(1)
+    rec = Record()
+
+    def close(got, want, what):
+        """Every leaf of ``got`` (a tensor, or a dict of them) within
+        ``TP_TOL`` of ``want``'s largest |value| over all its leaves."""
+        if not isinstance(want, dict):
+            got, want = {"": got}, {"": want}
+        top = max(float(w.detach().abs().max()) for w in want.values())
+        tol = TP_TOL * max(top, 1e-30)
+        for n, w in want.items():
+            err = float((got[n].detach().float() - w.detach().float())
+                        .abs().max())
+            assert err <= tol, f"{what} {n}: max |err| {err} past {tol}"
+
+    def run(model, cfg, batch, mesh=None, rules=None):
+        """The results of ``model`` (stored on ``mesh`` per ``rules`` when
+        given): logits, (loss, {name: whole gradient}), the decode
+        logits, and of one AdamW train step its gradients, the updated
+        parameters and their moves."""
+        ctx = sharding.use_sharding(mesh, rules) if mesh is not None \
+            else contextlib.nullcontext()
+        out = {}
+        with ctx:
+            out["logits"] = tf.forward(model, batch, cfg)
+            loss, _ = tf.loss_fn(model, batch, cfg)
+            named = list(model.named_parameters())
+            gs = torch.autograd.grad(loss, [p for _, p in named],
+                                     allow_unused=True)
+            out["loss"] = loss.detach()
+            out["grads"] = {n: torch.zeros(p.shape) if g is None
+                            else sharding.gather(g)
+                            for (n, p), g in zip(named, gs)}
+            state = tf.init_decode_state(cfg, TP_BATCH, TP_CACHE,
+                                         dtype=torch.float32, device="cpu")
+            if cfg.is_encoder_decoder:
+                state = tf.fill_cross_cache(model, state, batch, cfg)
+            steps = []
+            for t in range(TP_DECODE):
+                lg, state = tf.decode_step(
+                    model, state, batch["tokens"][:, t:t + 1], t, cfg)
+                steps.append(lg[:, 0])
+            out["decode"] = torch.stack(steps, 1)
+            before = {n: sharding.gather(p.detach()).clone()
+                      for n, p in model.named_parameters()}
+            opt = make_optimizer(model, OptimizerConfig(lr=TP_LR))
+            out["step_grads"] = step_gradients(opt)
+            make_train_step(cfg, opt)(model, 0, batch)
+            out["updated"] = {n: sharding.gather(p.detach())
+                              for n, p in model.named_parameters()}
+            out["moves"] = {n: out["updated"][n] - before[n]
+                            for n in before}
+            out["moved"] = {n: float(m.abs().max())
+                            for n, m in out["moves"].items()}
+        return out
+
+    def variant(name):
+        cfg = tp_config(name, port_configs)
+        with np.load(os.path.join(params_dir, f"{name}.npz")) as z:
+            tree = convert._nest(dict(z))
+        base = convert.lm_params_from_numpy(tree, cfg, "cpu")
+        batch = {k: torch.from_numpy(v) for k, v in tp_batch(cfg).items()}
+        want = run(copy.deepcopy(base), cfg, batch)
+        for label, shape in TP_MESHES.items():
+            mesh = make_debug_mesh(*shape, device_type="cpu")
+            rules = rules_for(cfg, mesh, global_batch=TP_BATCH)
+            assert sharding.tensor_parallel_of(mesh, rules).size == shape[1]
+            model = sharding.shard_module(copy.deepcopy(base), mesh, rules)
+            got = run(model, cfg, batch, mesh, rules)
+            tag = f"{name}/{label}"
+            close(got["logits"], want["logits"], f"{tag} logits")
+            close(got["loss"], want["loss"], f"{tag} loss")
+            close(got["grads"], want["grads"], f"{tag} gradient")
+            close(got["step_grads"], want["step_grads"],
+                  f"{tag} train-step gradient")
+            close(got["updated"], want["updated"], f"{tag} AdamW update")
+            for n, moved in want["moved"].items():
+                assert got["moved"][n] >= 0.5 * moved, (tag, n, moved)
+            held = moves_close(got, want, TP_LR, f"{tag} AdamW move")
+            assert held >= 0.5, (tag, held)
+            rec.arrays[f"{tag}/moves_held"] = np.float64(held)
+            close(got["decode"], want["decode"], f"{tag} decode")
+            _all_ranks_equal(got["logits"].numpy())
+            rec.arrays[f"{tag}/logits"] = got["logits"].numpy()
+            rec.arrays[f"{tag}/loss"] = got["loss"].numpy()
+            rec.arrays[f"{tag}/decode"] = got["decode"].numpy()
+            for n, g in got["grads"].items():
+                rec.arrays[f"{tag}/grad/{n}"] = g.numpy()
+
+    def stale_split():
+        """A decode state made under ``kv_seq`` holds half the slots a
+        rank: decoding it with no sharding, or on a model axis of a
+        different split, raises at the first slot no rank holds instead
+        of dropping the write."""
+        cfg = tp_config("qwen2-padded", port_configs)
+        model = tf.init_params(torch.Generator().manual_seed(0), cfg,
+                               "cpu")
+        tokens = torch.from_numpy(tp_batch(cfg)["tokens"])
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        rules = rules_for(cfg, mesh, global_batch=TP_BATCH)
+        with sharding.use_sharding(mesh, rules):
+            split = tf.init_decode_state(cfg, TP_BATCH, TP_CACHE,
+                                         dtype=torch.float32, device="cpu")
+        half = TP_CACHE // 2
+        assert split["blocks"][0]["0"]["k"].shape[1] == half
+        for t in range(half):
+            tf.decode_step(model, split, tokens[:, t:t + 1], t, cfg)
+        try:
+            tf.decode_step(model, split, tokens[:, half:half + 1], half,
+                           cfg)
+        except ValueError as e:
+            assert "past the cache" in str(e), e
+        else:
+            raise AssertionError("a write past the split cache was dropped")
+        wide = make_debug_mesh(1, 4, device_type="cpu")
+        with sharding.use_sharding(wide, rules_for(cfg, wide,
+                                                   global_batch=TP_BATCH)):
+            split = tf.init_decode_state(cfg, TP_BATCH, TP_CACHE,
+                                         dtype=torch.float32, device="cpu")
+        with sharding.use_sharding(mesh, rules):
+            try:
+                tf.decode_step(model, split, tokens[:, half:half + 1],
+                               half, cfg)
+            except ValueError as e:
+                assert "past the cache" in str(e), e
+            else:
+                raise AssertionError("a write no rank holds was dropped")
+
+    for name in TP_VARIANTS:
+        rec.check(name, lambda name=name: variant(name))
+    rec.check("stale_split", stale_split)
+    rec.save(out_dir)
+
