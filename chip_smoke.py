@@ -752,12 +752,30 @@ ROOFLINE_WHISPER_DECODE = (2, 8)
 # smoke() with seq_parallel on (as launch.shapes sets it), remat on and
 # two CE chunks: (a)'s checks.  (d) The trainer's step of (a) counted on
 # meta on a fake (2, 2) group in this process against rank 0's count on
-# the card: FLOPs equal, bytes within ROOFLINE_BYTES_RTOL.  Ranks sharing
-# one card over gloo make these mechanism readings only.
+# the card: FLOPs equal, bytes within ROOFLINE_BYTES_RTOL.  (e) The SSM
+# mixers on "model": zamba2-1.2b at its published widths cut to
+# TP_ZAMBA_LAYERS (the two-layer Mamba2 prologue and one super-block: the
+# shared attention + MLP and five Mamba2 layers; 64 heads, 32 a rank) and
+# xlstm-125m cut to TP_XLSTM_LAYERS (one super-block: five mLSTM layers,
+# whose 4 heads split 2 a rank, and the replicated sLSTM), float32: each
+# rank's loss_fn loss within TP_TOL, every gradient within the larger of
+# TP_TOL x max |g| and TP_FLOOR_X x the models' rounding floor, and
+# TP_DECODE decode steps (the SSM caches hold a rank's heads) within
+# MODEL_DECODE_TOL, of the same work on one rank at TP_SHAPE.  The floor
+# is read in the same run: the most one process's gradients move when
+# every weight is scaled by 1 + MODEL_NUDGE x a normal draw.  At these
+# widths it is at or past TP_TOL on its own (on an H100, two draws moved
+# zamba2's gradients 2.2e-5 and 2.4e-5 of the largest, xlstm's 4.7e-5
+# and 6.6e-5), and a reordering of the sums is a perturbation of that
+# size.  Ranks sharing one card over gloo make these mechanism readings
+# only.
 TP_RANKS = 4
 TP_SHAPE = (2, 64)
 TP_QWEN_LAYERS = 4
 TP_DEEPSEEK_LAYERS = 2
+TP_ZAMBA_LAYERS = 8
+TP_XLSTM_LAYERS = 6
+TP_FLOOR_X = 2
 TP_DECODE = 8
 TP_TOL = 2e-5
 TP_LR = 1e-5
@@ -4781,12 +4799,23 @@ def events_ms(fn, reps):
     return statistics.median(times)
 
 
+def nudged(model, device):
+    """A copy of ``model`` with every weight scaled by 1 + MODEL_NUDGE x a
+    normal draw (seed ``SEED``): float32 rounding of its inputs."""
+    import copy
+    out = copy.deepcopy(model)
+    gen = torch.Generator(device).manual_seed(SEED)
+    with torch.no_grad():
+        for p in out.parameters():
+            p.mul_(1 + MODEL_NUDGE * torch.randn(
+                p.shape, generator=gen, device=device, dtype=p.dtype))
+    return out
+
+
 def models_card_vs_host(arch, host, card, cfg, device):
     """float32 forward on the card against the same weights on the host at
     ``MODEL_HOST_SHAPE``; the gap with TF32 allowed and the rounding floor
     (``MODEL_NUDGE``) are read beside it (not held)."""
-    import copy
-
     from repro_torch.models import transformer as tf
     b, s = MODEL_HOST_SHAPE
     batch = model_batch(cfg, b, s, SEED + 7, "cpu")
@@ -4804,13 +4833,8 @@ def models_card_vs_host(arch, host, card, cfg, device):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    nudged = copy.deepcopy(card)
-    gen = torch.Generator(device).manual_seed(SEED)
-    with torch.no_grad():
-        for p in nudged.parameters():
-            p.mul_(1 + MODEL_NUDGE * torch.randn(
-                p.shape, generator=gen, device=device, dtype=p.dtype))
-    floor = float((tf.forward(nudged, on_card, cfg) - got).abs().max())
+    floor = float((tf.forward(nudged(card, device), on_card, cfg) - got)
+                  .abs().max())
     emit({"phase": "models", "check": "card_vs_host", "arch": arch,
           "shape": [b, s], "dtype": "float32", "max_abs_err": err,
           "max_abs_logit": float(want.abs().max()), "tol": tol,
@@ -5721,7 +5745,7 @@ def phase_roofline(device):
 # -------------------------------------------------------------------- tp
 
 def tp_configs():
-    """``{label: config}`` of the path's three models (constants above)."""
+    """``{label: config}`` of the path's five models (constants above)."""
     import dataclasses
 
     from repro_torch.configs import get_config, smoke
@@ -5733,7 +5757,11 @@ def tp_configs():
             arch: dataclasses.replace(deep, n_layers=TP_DEEPSEEK_LAYERS),
             "arctic-480b smoke seq_parallel": dataclasses.replace(
                 smoke(get_config("arctic-480b")), seq_parallel=True,
-                remat=True, loss_chunk=32)}
+                remat=True, loss_chunk=32),
+            "zamba2-1.2b": float32_config(dataclasses.replace(
+                get_config("zamba2-1.2b"), n_layers=TP_ZAMBA_LAYERS)),
+            "xlstm-125m": float32_config(dataclasses.replace(
+                get_config("xlstm-125m"), n_layers=TP_XLSTM_LAYERS))}
 
 
 def tp_model(cfg, device):
@@ -5757,18 +5785,19 @@ def tp_decode(model, cfg, batch):
     return torch.stack(outs, 1)
 
 
-def tp_within(got, want, what):
-    """``(max |err| over the leaves, bar)``; fails past TP_TOL x the
-    largest |value| of ``want``'s leaves."""
+def tp_within(got, want, what, floor=0.0):
+    """``(max |err| over the leaves, bar)``; fails past the larger of
+    TP_TOL x the largest |value| of ``want``'s leaves and ``floor``."""
     if not isinstance(want, dict):
         got, want = {"": got}, {"": want}
     top = max(float(w.abs().max()) for w in want.values())
     err = max(float((got[n].float() - w.float()).abs().max())
               for n, w in want.items())
-    if not err <= TP_TOL * top:
-        raise AssertionError(f"tp {what}: max |err| {err} past "
-                             f"{TP_TOL} x {top}")
-    return err, TP_TOL * top
+    bar = max(TP_TOL * top, floor)
+    if not err <= bar:
+        raise AssertionError(f"tp {what}: max |err| {err} past the larger "
+                             f"of {TP_TOL} x {top} and {floor}")
+    return err, bar
 
 
 def tp_step_gradients(opt):
@@ -5857,8 +5886,56 @@ def tp_train_check(label, cfg, mesh, device):
             "seq_parallel": cfg.seq_parallel}
 
 
+def tp_rounding_floor(model, batch, cfg, want_g):
+    """The most ``model``'s gradients move from ``want_g`` (its own, at
+    ``batch``) when its weights are nudged (:func:`nudged`)."""
+    _, g = lm_grads(nudged(model, batch["tokens"].device), batch, cfg)
+    return max(float((g[n] - w).abs().max()) for n, w in want_g.items())
+
+
+def tp_ssm_check(label, cfg, mesh, device):
+    """(e) on this rank: ``loss_fn``'s loss and gradients and
+    ``TP_DECODE`` decode steps against one rank; returns the row."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models import ssm
+    batch = model_batch(cfg, *TP_SHAPE, SEED + 33, device)
+    single = tp_model(cfg, device)
+    want_loss, want_g = lm_grads(single, batch, cfg)
+    want_dec = tp_decode(single, cfg, batch)
+    floor = tp_rounding_floor(single, batch, cfg, want_g)
+    del single
+    release_card()
+    rules = rules_for(cfg, mesh, global_batch=TP_SHAPE[0])
+    model = sharding.shard_module(tp_model(cfg, device), mesh, rules)
+    n_heads = ssm._mlstm_dims(cfg)[1]       # Mamba2's and mLSTM's alike
+    with sharding.use_sharding(mesh, rules):
+        heads = ssm._head_split(n_heads)[1]
+        t0 = time.perf_counter()
+        loss, g = lm_grads(model, batch, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = tp_decode(model, cfg, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    got_g = {n: sharding.gather(v) for n, v in g.items()}
+    loss_err, _ = tp_within(loss, want_loss, f"{label} loss")
+    g_err, g_bar = tp_within(got_g, want_g, f"{label} gradients",
+                             TP_FLOOR_X * floor)
+    g_top = max(float(w.abs().max()) for w in want_g.values())
+    return {"model": label, "check": "grads_decode", "layers": cfg.n_layers,
+            "ssm_heads": n_heads,
+            "ssm_heads_a_rank": heads.stop - heads.start, "loss": float(loss),
+            "loss_err": loss_err, "grad_max_abs_err": g_err,
+            "grad_bar": g_bar, "grad_tp_tol_bar": TP_TOL * g_top,
+            "rounding_floor": floor, "nudge": MODEL_NUDGE,
+            "decode_err": held(dec, want_dec, MODEL_DECODE_TOL,
+                               f"tp {label} decode"),
+            "tol": MODEL_DECODE_TOL, "grads_s": t1 - t0, "decode_s": t2 - t1}
+
+
 def tp_rank(device_name, out_dir, ref_path):
-    """One of ``TP_RANKS`` ranks on the card: (a), (b), (c); every rank
+    """One of ``TP_RANKS`` ranks on the card: (a), (b), (c), (e); every rank
     reports its launches, peak memory, collective bytes and ms a step;
     rank 0 writes ``tp.json``."""
     import torch.distributed as dist
@@ -5874,7 +5951,7 @@ def tp_rank(device_name, out_dir, ref_path):
     mesh = make_debug_mesh(2, 2, device_type=device.type)
     cfgs = tp_configs()
     rows = []
-    qwen, deep, sp = cfgs
+    qwen, deep, sp, zamba, xlstm = cfgs
     rows.append(tp_train_check(qwen, cfgs[qwen], mesh, device))
     release_card()
     # the trainer's step of (a), counted and timed on this rank
@@ -5920,6 +5997,10 @@ def tp_rank(device_name, out_dir, ref_path):
     del model, fwd, dec
     release_card()
     rows.append(tp_train_check(sp, cfgs[sp], mesh, device))
+    release_card()
+    for label in (zamba, xlstm):
+        rows.append(tp_ssm_check(label, cfgs[label], mesh, device))
+        release_card()
     mine["peak_gib_all"] = torch.cuda.max_memory_allocated() / 2 ** 30
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
@@ -5975,9 +6056,10 @@ def tp_meta_count():
 
 def phase_tp(device):
     """Phase 3 (n), the tp path: (b)'s one process, (d)'s meta count, then
-    ``tp_rank`` on ``TP_RANKS`` spawned ranks sharing the card.  It
-    launches none of the eleven kernels; returns their counts, read
-    around the path and on every rank, which must all be 0."""
+    ``tp_rank`` on ``TP_RANKS`` spawned ranks sharing the card ((a), (b),
+    (c), (e)).  It launches none of the eleven kernels; returns their
+    counts, read around the path and on every rank, which must all be
+    0."""
     import shutil
     import tempfile
 
@@ -6027,7 +6109,7 @@ def phase_tp(device):
     if any(counts.values()):
         raise AssertionError(f"tp path launched kernels: {counts}")
     emit({"phase": "tp", "round": "total", "wall_s":
-          time.perf_counter() - t0, "ranks_s": ranks_s})
+          time.perf_counter() - t0, "ranks_s": ranks_s, "card": card})
     return counts
 
 

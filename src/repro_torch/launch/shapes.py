@@ -131,7 +131,8 @@ def abstract_decode_state(cfg: ModelConfig, shape: str,
     """Empty decode caches of the cell on the meta device, bf16 by default
     as in the reference.  Under ``kv_seq`` tensor parallelism
     (``sharding.use_sharding``) a KV or MLA cache holds this rank's slice
-    of the sequence, as ``cache_pspec`` places it."""
+    of the sequence, as ``cache_pspec`` places it, and a Mamba2 or mLSTM
+    cache this rank's heads."""
     spec = SHAPES[shape]
     return tf.init_decode_state(cfg, spec.global_batch, spec.seq, dtype,
                                 META)

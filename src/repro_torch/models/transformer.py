@@ -444,8 +444,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """Empty caches: ``{"blocks": [{layer: cache} a superblock],
     "prologue": [cache a layer]}``.  Under ``kv_seq`` tensor parallelism
     (``sharding.use_sharding``) a KV or MLA cache holds this rank's slice
-    of the ``max_len`` positions (``attention.cache_len``): make the state
-    under the sharding that decodes it.  SSM states, conv windows and
+    of the ``max_len`` positions (``attention.cache_len``), and a Mamba2 or
+    mLSTM cache the heads this rank computes: make the state under the
+    sharding that decodes it.  sLSTM states, the B / C conv window and
     cross caches stay whole."""
     device = resolve_device(device)
     state = {"blocks": [

@@ -18,7 +18,8 @@ against the reference's (``repro.launch.shapes``, ``repro.launch.dryrun``).
   complete record with collectives counted; under ``pure_dp`` rules (no
   tensor axis) a rank counts exactly the no-mesh step on its quarter of
   the batch, and under the default rules (tensor parallelism) at most
-  0.55x the matrix-product FLOPs of the same step on ``(2, 1)``; the TM
+  0.55x the matrix-product FLOPs of the same step on ``(2, 1)``, for
+  qwen2 and for zamba2 (Mamba2 split on ``model``); the TM
   cells at their own shapes too, and ``main`` on ``--mesh both`` (256 then 512 ranks) writes
   the reference's JSON layout.  The full widths and shapes run on the
   card's host (``chip_smoke.py``'s ``roofline`` path).
@@ -161,6 +162,7 @@ _TRACE_SCRIPT = textwrap.dedent("""
                                          min(v.global_batch, 8))
                      for k, v in shapes.SHAPES.items()}
     ARCH = "qwen2-0.5b"
+    SSM = "zamba2-1.2b"
     lm = ("train_4k", "prefill_32k", "decode_32k")
 
     def counted(shape, mesh=None, pure_dp=False):
@@ -185,6 +187,8 @@ _TRACE_SCRIPT = textwrap.dedent("""
     mesh = make_debug_mesh(2, 2, device_type="cpu")
     for shape in lm:
         out[shape] = dryrun.trace_cell(ARCH, shape, mesh, verbose=False)
+        out[SSM + ":" + shape] = dryrun.trace_cell(SSM, shape, mesh,
+                                                   verbose=False)
         # pure data parallelism: the model axis folds into the batch
         out[shape + ":pure_dp"] = counted(shape, mesh, pure_dp=True)
     for shape in dryrun.TM_SHAPES:
@@ -199,6 +203,8 @@ _TRACE_SCRIPT = textwrap.dedent("""
     for shape in lm:
         out[shape + ":2x1"] = dryrun.trace_cell(ARCH, shape, one,
                                                 verbose=False)
+        out[SSM + ":" + shape + ":2x1"] = dryrun.trace_cell(
+            SSM, shape, one, verbose=False)
     # what a pure-DP rank should count: the same step with no mesh, on
     # its quarter of the batch (4 batch ranks)
     shapes.SHAPES = {k: shapes.ShapeSpec(k, v.kind, v.seq,
@@ -258,12 +264,17 @@ def test_tensor_parallel_splits_a_ranks_matmuls(traced, shape):
     sequence on ``model``) qwen2's ``smoke()``, whose partitioned
     dimensions all divide by 2, counts at most 0.55x the matrix-product
     FLOPs a rank on ``(2, 2)`` that the same step counts on ``(2, 1)``,
-    and its tensor-parallel all-reduces show on ``(2, 2)`` alone."""
-    tp, one = traced[shape], traced[shape + ":2x1"]
-    assert one["mesh"] == "data=2xmodel=1"
-    assert tp["per_device"]["flops"] <= 0.55 * one["per_device"]["flops"]
-    assert tp["collective_ops"]["all-reduce"] > \
-        one["collective_ops"].get("all-reduce", 0.0)
+    and its tensor-parallel all-reduces show on ``(2, 2)`` alone.  So
+    does zamba2's, whose 8 Mamba2 heads split with its shared attention,
+    MLP and vocab (only B / C and their conv stay whole)."""
+    for prefix in ("", "zamba2-1.2b:"):
+        tp, one = traced[prefix + shape], traced[prefix + shape + ":2x1"]
+        assert one["mesh"] == "data=2xmodel=1"
+        assert tp["per_device"]["flops"] <= \
+            0.55 * one["per_device"]["flops"], (prefix, tp["per_device"],
+                                                one["per_device"])
+        assert tp["collective_ops"]["all-reduce"] > \
+            one["collective_ops"].get("all-reduce", 0.0)
 
 
 @pytest.mark.parametrize("shape", sorted(dryrun.TM_SHAPES))

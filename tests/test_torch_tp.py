@@ -3,16 +3,18 @@ port's partitioned layers (``sharding.use_sharding`` under
 ``launch.mesh.rules_for``) against one rank, and against the reference's
 single-device functions on the same numpy parameters.
 
-Six smoke variants (``tests/torch_mesh_cases.py::TP_VARIANTS``) cover
+Seven smoke variants (``tests/torch_mesh_cases.py::TP_VARIANTS``) cover
 padded GQA (qwen2: 6 heads padded to 8 over 2 kv heads, so at TP 2 rank
 0's q head 3 reads kv head 1, held by rank 1), window + softcaps + tied
 embeddings with a vocab that does not divide by 4 (gemma2), MLA and MoE
 with shared experts (deepseek), MoE with 6 experts under sequence
 parallelism (arctic), the encoder and cross attention with a ``d_ff``
-that does not divide by 4 (whisper), and Mamba2's whole-compute
-fallback beside shared attention (zamba2).  The reference draws each
-variant's parameters (``init_params(PRNGKey(0), cfg)``); the ranks load
-them through ``convert.lm_params_from_numpy``.
+that does not divide by 4 (whisper), Mamba2 split on both meshes beside
+shared attention, its 8 heads over 2 B / C groups (zamba2), and mLSTM's
+2 heads split on ``(2, 2)`` and computed whole on ``(1, 4)`` beside a
+replicated sLSTM (xlstm).  The reference draws each variant's
+parameters (``init_params(PRNGKey(0), cfg)``); the ranks load them
+through ``convert.lm_params_from_numpy``.
 
 The multi-rank checks run once, on 4 gloo host ranks
 (``tests/torch_mesh_cases.py::tp_case``), for both ``(data 2, model 2)``
@@ -161,6 +163,65 @@ def test_decode_state_of_another_split_raises(tp_run):
     on ``(2, 2)`` raises at the first slot no rank holds (checked on the
     ranks)."""
     assert tp_run[0]["stale_split"] == "ok", tp_run[0]["stale_split"]
+
+
+def test_ssm_decode_state_of_another_split_raises(tp_run):
+    """Mamba2 and mLSTM decode caches hold the heads of the split they
+    were made under: a state made with no sharding or on ``(1, 4)`` and
+    decoded on ``(2, 2)`` raises (checked on the ranks)."""
+    assert tp_run[0]["stale_ssm_split"] == "ok", \
+        tp_run[0]["stale_ssm_split"]
+
+
+def test_slstm_collectives_do_not_grow_with_the_sequence(tp_run):
+    """One ``apply_slstm`` on ``(2, 2)`` (``w_gates`` stored FSDP-split)
+    issues as many all-gathers in its forward, and as many all-gathers
+    and all-reduces in its backward, at ``TP_SLSTM_SEQS`` = 8 and 16
+    steps: the step loop reads its parameters once."""
+    assert tp_run[0]["slstm_collectives"] == "ok", \
+        tp_run[0]["slstm_collectives"]
+    counts = tp_run[1]["slstm/collectives"]
+    assert counts.shape == (len(cases.TP_SLSTM_SEQS), 3)
+    assert (counts == counts[0]).all(), counts
+    assert counts[0, 0] > 0 and counts[0, 2] > 0, counts
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_reads_once_as_it_read_each_step(dtype):
+    """No mesh: ``apply_slstm``, which reads its parameters once, is bit
+    for bit, forward and gradients, the loop that read them at every
+    step; ``slstm_decode`` equals one such step."""
+    import dataclasses
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(cases.tp_config("xlstm", port_configs),
+                              compute_dtype=dtype)
+    layer = ssm.SLSTM(torch.Generator().manual_seed(0), cfg, device="cpu")
+    u = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)).requires_grad_()
+    cd = getattr(torch, dtype)
+
+    def per_step_reads():
+        cache = ssm.init_slstm_cache(cfg, 2, cd, "cpu")
+        state = (cache["h"], cache["c"], cache["n"], cache["m"])
+        hs = []
+        for t in range(u.shape[1]):
+            state = ssm._slstm_step(ssm._slstm_weights(layer),
+                                    u[:, t].to(cd), state, cfg)
+            hs.append(state[0])
+        return ssm._slstm_out(layer, torch.stack(hs, dim=1), cfg)
+
+    leaves = [u, *layer.parameters()]
+    got, want = ssm.apply_slstm(layer, u, cfg), per_step_reads()
+    assert torch.equal(got, want)
+    for a, b in zip(torch.autograd.grad(got.float().square().sum(), leaves),
+                    torch.autograd.grad(want.float().square().sum(),
+                                        leaves)):
+        assert torch.equal(a, b)
+    with torch.no_grad():
+        step, _ = ssm.slstm_decode(layer, u[:, :1],
+                                   ssm.init_slstm_cache(cfg, 2, cd, "cpu"),
+                                   cfg)
+    assert torch.equal(step, got[:, :1])
 
 
 def test_decode_past_the_cache_raises():

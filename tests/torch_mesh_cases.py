@@ -854,7 +854,13 @@ def compression_inputs():
 # qwen2's 6 heads padded to 8 read 2 kv heads (rank 0's q head 3 reads kv
 # head 1 at TP 2; at TP 4 the kv heads stay whole); gemma2's 510-token
 # vocab; arctic's 6 experts with sequence parallelism; whisper's d_ff of
-# 254.  qwen2 and arctic also take remat and two CE chunks.
+# 254; xlstm's 2 mLSTM heads of 64 (TP_SSM), cut to one super-block (5
+# mLSTM layers and the sLSTM one): at smoke's two the one-rank port and
+# reference are 3.4e-5 of the largest gradient apart, float32 rounding
+# that grows ~7e-7 an mLSTM layer, past TP_TOL.  zamba2's 8 Mamba2 heads
+# split on both meshes over 2 B / C groups, so at TP 4 rank 1's heads 2
+# and 3 read group 0 and rank 2's first head starts group 1.  qwen2 and
+# arctic also take remat and two CE chunks.
 TP_VARIANTS = {
     "qwen2-padded": ("qwen2-0.5b", dict(n_heads=6, head_pad_to=8,
                                         remat=True, loss_chunk=32)),
@@ -864,8 +870,12 @@ TP_VARIANTS = {
                                    loss_chunk=32)),
     "whisper": ("whisper-large-v3", dict(d_ff=254)),
     "zamba2": ("zamba2-1.2b", {}),
+    "xlstm": ("xlstm-125m", dict(n_layers=6)),
 }
 TP_MOE_EXPERTS = {"arctic": 6}
+TP_SSM = {"zamba2": dict(n_groups=2), "xlstm": dict(head_dim=64)}
+# The sequence lengths at which one apply_slstm's collectives are counted
+TP_SLSTM_SEQS = (8, 16)
 TP_MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
 TP_BATCH, TP_SEQ, TP_DECODE, TP_CACHE = 4, 64, 8, 16
 TP_TOL = 2e-5            # of max |value| of the one-rank result
@@ -881,9 +891,14 @@ TP_TOL = 2e-5            # of max |value| of the one-rank result
 # of the one-rank move wherever the one-rank gradient is at least
 # TP_MOVE_MIN_G of the largest (there the move is lr x sign(g) to float
 # precision, so a flipped sign or a lost entry is off by lr or more).
+# TP_MOVE_MIN_G is 10x TP_TOL: a mesh gradient within TP_TOL of the
+# largest cannot flip the sign of such an entry.  (At 1e-3 the entries
+# held fell to 0.40 on xlstm: its largest gradient, the embedding's
+# through a LayerNorm over 0.02-scale embeddings, leaves most of its
+# layers' entries under 1e-3 of it.)
 TP_LR = 1e-5
 TP_MOVE_TOL = 0.05
-TP_MOVE_MIN_G = 1e-3
+TP_MOVE_MIN_G = 10 * TP_TOL
 
 
 def step_gradients(opt) -> dict:
@@ -930,6 +945,9 @@ def tp_config(name, mod):
     if name in TP_MOE_EXPERTS:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, n_experts=TP_MOE_EXPERTS[name]))
+    if name in TP_SSM:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, **TP_SSM[name]))
     return cfg
 
 
@@ -1092,8 +1110,82 @@ def tp_case(out_dir, params_dir):
             else:
                 raise AssertionError("a write no rank holds was dropped")
 
+    def stale_ssm_split():
+        """SSM decode states hold the heads of the split they were made
+        under: zamba2's (Mamba2) and xlstm's (mLSTM) made under no
+        sharding or on ``(1, 4)`` and decoded on ``(2, 2)`` raise before
+        the first step computes."""
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        wide = make_debug_mesh(1, 4, device_type="cpu")
+        for name in ("zamba2", "xlstm"):
+            cfg = tp_config(name, port_configs)
+            model = tf.init_params(torch.Generator().manual_seed(0), cfg,
+                                   "cpu")
+            tokens = torch.from_numpy(tp_batch(cfg)["tokens"])
+            for made in (None, wide):
+                ctx = sharding.use_sharding(made, rules_for(
+                    cfg, made, global_batch=TP_BATCH)) if made is not None \
+                    else contextlib.nullcontext()
+                with ctx:
+                    state = tf.init_decode_state(
+                        cfg, TP_BATCH, TP_CACHE, dtype=torch.float32,
+                        device="cpu")
+                with sharding.use_sharding(mesh, rules_for(
+                        cfg, mesh, global_batch=TP_BATCH)):
+                    try:
+                        tf.decode_step(model, state, tokens[:, :1], 0, cfg)
+                    except ValueError as e:
+                        assert "under the sharding" in str(e), e
+                    else:
+                        raise AssertionError(
+                            f"{name}: a decode state of another split "
+                            "was decoded")
+
+    def slstm_collectives():
+        """One ``apply_slstm`` (xlstm's sLSTM layer stored on ``(2, 2)``)
+        forward and backward, data-parallel as a train step runs it, at
+        each of ``TP_SLSTM_SEQS``: the all-gathers and all-reduces it
+        issues, recorded for the test."""
+        from repro_torch.models import ssm
+        cfg = tp_config("xlstm", port_configs)
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        rules = rules_for(cfg, mesh, global_batch=TP_BATCH)
+        layer = sharding.shard_module(ssm.SLSTM(
+            torch.Generator().manual_seed(0), cfg, device="cpu"), mesh,
+            rules)
+        assert sharding.partitioned(layer.w_gates)
+        counts = {"gather": 0, "reduce": 0}
+        gather, reduce = sharding._all_gather, sharding.all_reduce_sum
+
+        def counted(kind, fn):
+            def call(*a, **k):
+                counts[kind] += 1
+                return fn(*a, **k)
+            return call
+        sharding._all_gather = counted("gather", gather)
+        sharding.all_reduce_sum = counted("reduce", reduce)
+        seen = []
+        try:
+            for seq in TP_SLSTM_SEQS:
+                u = torch.from_numpy(np.random.default_rng(seq)
+                                     .standard_normal((2, seq, cfg.d_model))
+                                     .astype(np.float32))
+                counts.update(gather=0, reduce=0)
+                with sharding.use_sharding(mesh, rules), \
+                        sharding.data_parallel(
+                            sharding.data_parallel_of(mesh, rules)):
+                    out = ssm.apply_slstm(layer, u, cfg)
+                    fwd = counts["gather"]
+                    out.square().sum().backward()
+                seen.append([fwd, counts["gather"] - fwd, counts["reduce"]])
+        finally:
+            sharding._all_gather, sharding.all_reduce_sum = gather, reduce
+        rec.arrays["slstm/collectives"] = np.array(seen)
+
     for name in TP_VARIANTS:
         rec.check(name, lambda name=name: variant(name))
     rec.check("stale_split", stale_split)
+    rec.check("stale_ssm_split", stale_ssm_split)
+    rec.check("slstm_collectives", slstm_collectives)
     rec.save(out_dir)
 
