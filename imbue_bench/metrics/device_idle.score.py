@@ -1,0 +1,8 @@
+"""device_idle.score: the share of the traced scoring window in which no
+operation ran on the device, in %."""
+
+
+def read(ctx):
+    if not ctx.trace.device_ops:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
