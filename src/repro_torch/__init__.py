@@ -42,4 +42,8 @@ attention):
   ``flash_bwd_dkv`` and ``flash_bwd_dq`` CUDA kernels.  Unlike the
   other entry points they take no ``device``: they run where their
   tensors lie.
+
+``trace.span`` names the phases of the training step, the scoring call
+and the kernel launches as ``repro_torch.*`` ranges for whoever runs
+``torch.profiler``; with no profiler running it costs one check.
 """

@@ -90,6 +90,7 @@ from repro_torch.core import imbue, tm
 from repro_torch.core.variations import ReadBlock
 from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
+from repro_torch.trace import span
 
 
 def _as_packed_lits(lits: torch.Tensor) -> torch.Tensor:
@@ -351,9 +352,11 @@ def class_sums(state, lits: torch.Tensor,
     a preference that falls back loudly if it cannot serve the state.  A
     partitioned read's blocks are gathered whole (a collective: every
     rank of the mesh calls this)."""
-    sel = select_backend(state, generator=generator, prefer=backend,
-                         require=require)
-    return sharding.gather(sel.backend.fn(state, lits, generator))
+    with span("repro_torch.api.class_sums"):
+        with span("repro_torch.api.select_backend"):
+            sel = select_backend(state, generator=generator, prefer=backend,
+                                 require=require)
+        return sharding.gather(sel.backend.fn(state, lits, generator))
 
 
 def predict(state, x: torch.Tensor,

@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,8 +67,9 @@ def init_ta_state(generator: torch.Generator, cfg: TMConfig,
 
 def literals(x: torch.Tensor) -> torch.Tensor:
     """``[B, F] -> [B, 2F]`` uint8: features followed by their complements."""
-    x = x.to(torch.uint8)
-    return torch.cat([x, 1 - x], dim=-1)
+    with span("repro_torch.tm.literals"):
+        x = x.to(torch.uint8)
+        return torch.cat([x, 1 - x], dim=-1)
 
 
 def include_mask(ta_state: torch.Tensor, cfg: TMConfig) -> torch.Tensor:

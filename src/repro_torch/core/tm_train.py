@@ -50,6 +50,7 @@ from repro_torch.core.tm import (TMConfig, class_sums, include_mask,
                                  literals, polarity)
 from repro_torch.core.variations import split_generator
 from repro_torch.kernels import ops
+from repro_torch.trace import span
 
 # Cells of [chunk, C, L] per chunk of the batch step's delta sum.
 _CHUNK_CELLS = 1 << 26
@@ -194,26 +195,36 @@ def train_step_batch(ta_state: torch.Tensor, generator: torch.Generator, x,
                      y, cfg: TMConfig) -> torch.Tensor:
     """Batch-parallel TM update: deltas against the start-of-batch state,
     summed, then clipped.  One ``clause_eval_packed`` launch per step;
-    the delta sum runs over chunks of :func:`_chunk_size` examples."""
-    device = ta_state.device
-    x, y = _batch(x, y, device)
-    lits_b = literals(x)
-    incw = ops.pack_include(include_mask(ta_state, cfg))
-    cls = ops.clause_eval_packed(ops.pack_literals(lits_b), incw,
-                                 device=device)                    # [B, C]
-    sums = class_sums(cls, cfg)
-    gens = split_generator(generator, x.shape[0])
-    total = torch.zeros(ta_state.shape, dtype=torch.int32, device=device)
-    step = _chunk_size(cfg.n_ta)
-    for i in range(0, x.shape[0], step):
-        part = slice(i, i + step)
-        draws = _draw_feedback(gens[part], y[part], cfg.n_classes,
-                               (cfg.n_clauses,), tuple(ta_state.shape),
-                               cfg.specificity, device)
-        total += _ta_delta_apply(ta_state, lits_b[part], cls[part],
-                                 sums[part], y[part], draws,
-                                 cfg).sum(0, dtype=torch.int32)
-    return _clip_state(ta_state.to(torch.int32) + total, cfg)
+    the delta sum runs over chunks of :func:`_chunk_size` examples.  Its
+    spans (``repro_torch.trace``): ``tm_train.step`` holding
+    ``clause_eval``, ``split``, a ``draw`` and an ``update`` a chunk, and
+    ``clip``."""
+    with span("repro_torch.tm_train.step"):
+        device = ta_state.device
+        x, y = _batch(x, y, device)
+        with span("repro_torch.tm_train.clause_eval"):
+            lits_b = literals(x)
+            incw = ops.pack_include(include_mask(ta_state, cfg))
+            cls = ops.clause_eval_packed(ops.pack_literals(lits_b), incw,
+                                         device=device)            # [B, C]
+            sums = class_sums(cls, cfg)
+        with span("repro_torch.tm_train.split"):
+            gens = split_generator(generator, x.shape[0])
+        total = torch.zeros(ta_state.shape, dtype=torch.int32, device=device)
+        step = _chunk_size(cfg.n_ta)
+        for i in range(0, x.shape[0], step):
+            part = slice(i, i + step)
+            with span("repro_torch.tm_train.draw"):
+                draws = _draw_feedback(gens[part], y[part], cfg.n_classes,
+                                       (cfg.n_clauses,),
+                                       tuple(ta_state.shape),
+                                       cfg.specificity, device)
+            with span("repro_torch.tm_train.update"):
+                total += _ta_delta_apply(ta_state, lits_b[part], cls[part],
+                                         sums[part], y[part], draws,
+                                         cfg).sum(0, dtype=torch.int32)
+        with span("repro_torch.tm_train.clip"):
+            return _clip_state(ta_state.to(torch.int32) + total, cfg)
 
 
 def epoch_batches(generator: torch.Generator, n: int, batch_size: int,

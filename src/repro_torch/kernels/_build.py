@@ -26,6 +26,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
+from repro_torch.trace import span
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / ".build"
@@ -67,30 +69,37 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     """Compile every kernel in ``names`` whose library is missing, one
     ``nvcc`` per source, all started together.  Returns the seconds each
     build took (0.0 for a library already built).  Raises RuntimeError
-    with the compiler output if any build fails."""
-    procs = {}
+    with the compiler output if any build fails.  The ``nvcc`` runs sit
+    in one ``repro_torch.kernels.build`` span."""
     secs: Dict[str, float] = {}
+    missing = []
     for name in dict.fromkeys(names):
         lib = library_path(name)
         if lib.exists():
             secs[name] = 0.0
-            continue
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(source_path(name))]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib, time.perf_counter())
+        else:
+            missing.append((name, lib))
+    if not missing:
+        return secs
     failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        (lib.parent / "build.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-            continue
-        os.replace(tmp, lib)          # atomic: no reader sees a partial .so
+    with span("repro_torch.kernels.build"):
+        procs = {}
+        for name, lib in missing:
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(source_path(name))]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, lib, time.perf_counter())
+        for name, (proc, tmp, lib, t0) in procs.items():
+            log, _ = proc.communicate()
+            secs[name] = time.perf_counter() - t0
+            (lib.parent / "build.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                continue
+            os.replace(tmp, lib)      # atomic: no reader sees a partial .so
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs

@@ -64,6 +64,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.trace import span
 
 # <name>_launch(a, inc, comb, out, B, K, C, M, wm, wn, stream) for the
 # fused three; <name>_launch(a, inc, out, B, K, C, stream) for the
@@ -145,11 +146,12 @@ def _launch(name: str, a: torch.Tensor, inc: torch.Tensor,
     # a device address: comb's stands in.
     pa, pi = ((a.data_ptr(), inc.data_ptr()) if k
               else (comb.data_ptr(), comb.data_ptr()))
-    launch = _build.load(name, _ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(pa, pi, comb.data_ptr(), out.data_ptr(), b, k, c, m,
-                     *tm_tiles(tiles), stream)
+    with span("repro_torch.kernels." + name):
+        launch = _build.load(name, _ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = launch(pa, pi, comb.data_ptr(), out.data_ptr(), b, k, c,
+                         m, *tm_tiles(tiles), stream)
     if err == TILE_INVALID:
         raise ValueError(f"{name}: tile {dict(tiles or {})} refused by the "
                          "kernel")
@@ -170,11 +172,12 @@ def _launch_eval(name: str, a: torch.Tensor,
     out = torch.empty((b, c), dtype=torch.uint8, device=a.device)
     if b == 0 or c == 0:
         return out
-    launch = _build.load(name, _EVAL_ARGTYPES)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(a.data_ptr(), inc.data_ptr(), out.data_ptr(), b, k, c,
-                     stream)
+    with span("repro_torch.kernels." + name):
+        launch = _build.load(name, _EVAL_ARGTYPES)
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = launch(a.data_ptr(), inc.data_ptr(), out.data_ptr(), b, k,
+                         c, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     return out

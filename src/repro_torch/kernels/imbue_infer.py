@@ -62,6 +62,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitpack import WORD, unpack_bits, words_for
+from repro_torch.trace import span
 
 KERNEL = "imbue_infer_planes"
 # imbue_infer_planes_launch(litw, incw, dev, pol, out, R, B, Lw, C, M,
@@ -226,15 +227,16 @@ def imbue_infer_planes(litw: torch.Tensor, incw: torch.Tensor,
     out = torch.zeros((r, b, m), dtype=torch.int32, device=litw.device)
     if b == 0 or c == 0 or m == 0 or r == 0:
         return out
-    launch = _build.load(KERNEL, _ARGTYPES)
-    with torch.cuda.device(litw.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(litw.data_ptr(), incw.data_ptr(),
-                     None if dev is None else dev.data_ptr(),
-                     pol.data_ptr(), out.data_ptr(), r, b, lw, c, m,
-                     scal.l_valid, scal.i_ref, scal.v_read, scal.r_lrs,
-                     scal.r_hrs, scal.leak_inc, scal.leak_exc,
-                     scal.series_factor, ks, ng, stream)
+    with span("repro_torch.kernels." + KERNEL):
+        launch = _build.load(KERNEL, _ARGTYPES)
+        with torch.cuda.device(litw.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = launch(litw.data_ptr(), incw.data_ptr(),
+                         None if dev is None else dev.data_ptr(),
+                         pol.data_ptr(), out.data_ptr(), r, b, lw, c, m,
+                         scal.l_valid, scal.i_ref, scal.v_read, scal.r_lrs,
+                         scal.r_hrs, scal.leak_inc, scal.leak_exc,
+                         scal.series_factor, ks, ng, stream)
     if err == TILE_INVALID:
         raise _refused(KERNEL, tiles)
     if err != 0:
@@ -310,12 +312,13 @@ def _launch_dense(wrapper, lits: torch.Tensor, g: torch.Tensor,
     out = torch.zeros((r, b, m), dtype=torch.int32, device=lits.device)
     if r == 0 or b == 0 or c == 0 or m == 0:
         return out
-    launch = _build.load(name, _DENSE_ARGTYPES)
-    with torch.cuda.device(lits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(lits.data_ptr(), g.data_ptr(), leak.data_ptr(),
-                     pol.data_ptr(), out.data_ptr(), r, b, l, c, m,
-                     _f32(i_ref), _f32(v_read), *tile, stream)
+    with span("repro_torch.kernels." + name):
+        launch = _build.load(name, _DENSE_ARGTYPES)
+        with torch.cuda.device(lits.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = launch(lits.data_ptr(), g.data_ptr(), leak.data_ptr(),
+                         pol.data_ptr(), out.data_ptr(), r, b, l, c, m,
+                         _f32(i_ref), _f32(v_read), *tile, stream)
     if err == TILE_INVALID:
         raise _refused(name, tiles)
     if err != 0:

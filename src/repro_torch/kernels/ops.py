@@ -75,6 +75,7 @@ from repro_torch.kernels.clause_eval import (tm_infer, tm_infer_packed,
 from repro_torch.kernels.imbue_infer import (PlaneScalars, _f32, imbue_infer,
                                              imbue_infer_packed,
                                              imbue_infer_planes)
+from repro_torch.trace import span
 
 # A kernel's launch-geometry override (module docstring); None: its own.
 Tiles = Optional[Mapping[str, int]]
@@ -96,7 +97,8 @@ def polarity_matrix(cfg: TMConfig, include: Optional[torch.Tensor] = None,
 
 def pack_literals(lits: torch.Tensor) -> torch.Tensor:
     """``[..., L]`` 0/1 literals -> ``[..., ceil(L/32)] int32`` words."""
-    return bitpack.pack_bits(lits)
+    with span("repro_torch.ops.pack_literals"):
+        return bitpack.pack_bits(lits)
 
 
 def pack_include(include: torch.Tensor) -> torch.Tensor:
@@ -126,12 +128,13 @@ def c2c_deviation(generator: torch.Generator, plane_index: torch.Tensor,
     """One read's deviation plane ``[R, C, L]`` with a fresh C2C draw per
     cell of every replica: ``apply_c2c(r_nom + dev) - r_nom`` (the
     ``block`` of a partitioned read: ``n_replicas`` are its own)."""
-    include = bitpack.unpack_bits(plane_index, l_valid).to(torch.bool)
-    r_nom = torch.where(include, var.LRS_MEAN_OHM,
-                        var.HRS_MEAN_OHM).to(torch.float32)
-    r = r_nom if plane_dev is None else r_nom + plane_dev
-    r = r.expand(n_replicas, *include.shape)
-    return var.apply_c2c(generator, r, include, vcfg, block) - r_nom
+    with span("repro_torch.ops.c2c_deviation"):
+        include = bitpack.unpack_bits(plane_index, l_valid).to(torch.bool)
+        r_nom = torch.where(include, var.LRS_MEAN_OHM,
+                            var.HRS_MEAN_OHM).to(torch.float32)
+        r = r_nom if plane_dev is None else r_nom + plane_dev
+        r = r.expand(n_replicas, *include.shape)
+        return var.apply_c2c(generator, r, include, vcfg, block) - r_nom
 
 
 def imbue_class_sums_stack_planes(

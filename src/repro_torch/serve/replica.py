@@ -52,6 +52,7 @@ from repro_torch.core.imbue import (IMBUEConfig, ProgrammedCrossbar,
 from repro_torch.core.mapping import CrossbarMapping
 from repro_torch.core.tm import TMConfig, include_mask
 from repro_torch.distributed import sharding
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass
@@ -450,15 +451,16 @@ def ensemble_vote(sums: torch.Tensor, mode: str = "majority",
     ``mask`` (``[R]`` bool) zeroes quarantined chips out of the vote; all
     True is identical to no mask.
     """
-    if mode == "sum":
+    with span("repro_torch.serve.ensemble_vote"):
+        if mode == "sum":
+            if mask is not None:
+                sums = torch.where(mask[:, None, None], sums, 0)
+            return torch.argmax(sums.sum(dim=0), dim=-1)
+        if mode != "majority":
+            raise ValueError(f"unknown ensemble mode {mode!r}")
+        m = sums.shape[-1]
+        per_chip = torch.argmax(sums, dim=-1)                   # [R, B]
+        votes = torch.nn.functional.one_hot(per_chip, m)        # [R, B, M]
         if mask is not None:
-            sums = torch.where(mask[:, None, None], sums, 0)
-        return torch.argmax(sums.sum(dim=0), dim=-1)
-    if mode != "majority":
-        raise ValueError(f"unknown ensemble mode {mode!r}")
-    m = sums.shape[-1]
-    per_chip = torch.argmax(sums, dim=-1)                       # [R, B]
-    votes = torch.nn.functional.one_hot(per_chip, m)            # [R, B, M]
-    if mask is not None:
-        votes = votes * mask[:, None, None].to(votes.dtype)
-    return torch.argmax(votes.sum(dim=0), dim=-1)
+            votes = votes * mask[:, None, None].to(votes.dtype)
+        return torch.argmax(votes.sum(dim=0), dim=-1)
